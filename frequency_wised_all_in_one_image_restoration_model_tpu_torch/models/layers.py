@@ -1,0 +1,79 @@
+"""Shared small layers: activation, layout helpers, DropPath, init."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
+    """LeakyReLU(0.1), the reference's activation everywhere but InputProj."""
+    return F.leaky_relu(x, negative_slope=slope)
+
+
+def to_tokens(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> [B, H*W, C]."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h * w, c)
+
+
+def to_image(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[B, H*W, C] -> [B, H, W, C]."""
+    b, n, c = x.shape
+    if n != h * w:
+        raise ValueError(f"{n} tokens do not form a {h}x{w} image")
+    return x.reshape(b, h, w, c)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth. Eval is the identity; in training
+    :meth:`scale` draws the per-image branch scale ``{0, 1/keep}`` that the
+    block kernels take as ``dps``, from an explicit generator."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def scale(self, batch: int, device, generator: Optional[torch.Generator]
+              ) -> Optional[torch.Tensor]:
+        if not self.training or self.rate == 0.0:
+            return None
+        keep = 1.0 - self.rate
+        draw = torch.rand(batch, generator=generator, device=device)
+        return (draw < keep).float() / keep
+
+
+def trunc_normal_init(module: nn.Module, generator: torch.Generator) -> None:
+    """Draw a module tree's parameters the way the JAX package initialises
+    them: Linear kernels and bias tables trunc-normal(0.02) with zero bias,
+    convolutions LeCun-normal (Flax's default) with zero bias, norms at
+    identity. ``generator`` makes the draw reproducible from a seed."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04,
+                                  generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            w = m.weight
+            if isinstance(m, nn.ConvTranspose2d):
+                fan_in = w.shape[0] * w.shape[2] * w.shape[3]
+            else:
+                fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+            # truncated at 2 sigma with the 0.8796 correction, as Flax's
+            # variance_scaling(1, fan_in, truncated_normal)
+            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+        for name, p in m.named_parameters(recurse=False):
+            if name.startswith("relative_position_bias_table"):
+                nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04,
+                                      generator=generator)

@@ -1,0 +1,122 @@
+"""Build and load the CUDA kernels in ``csrc/``.
+
+``nvcc`` compiles each ``csrc/*.cu`` for ``sm_90a`` (Hopper) into an object
+file, in parallel, and links them into one shared library with a plain C
+interface under ``build/kernels/<source hash>/`` at the root of the checkout.
+The library is loaded with ``ctypes``. Nothing here includes PyTorch's
+headers, which keeps a full build to seconds instead of minutes.
+
+The build happens at first use and again whenever the sources change (the
+directory is named by a hash of every ``csrc`` file). Importing this module
+builds nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import List, Tuple
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+LIB_NAME = "libfairm_kernels.so"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signatures of the entry points (csrc/*.cu); every pointer and the
+# stream are c_void_p, so a 64-bit address is never cut to a 32-bit int
+SIGNATURES = {
+    # x, lns, lnb, wqkv, bqkv, wp, bp, bias, mask, lam, dps, xo, qkv, out,
+    # B, H, W, C, h, win, groups, res, bf16, eps, stream
+    "fairm_lewin_attn": [_P] * 14 + [_I] * 9 + [_F, _P],
+    # y, res, wqkv, bqkv, wp, bp, bias, mask, dps, zo, qkv, out,
+    # LB, H, W, C, h, win, L, bf16, stream
+    "fairm_freq_inter": [_P] * 12 + [_I] * 8 + [_P],
+    # x, lns, lnb, w1t, b1, wd, bd, w2t, b2, dps, xn, hid1, hid2, out,
+    # B, H, W, C, Hd, bf16, eps, stream
+    "fairm_lewin_ffn": [_P] * 14 + [_I] * 6 + [_F, _P],
+}
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(ARCH + FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed (on PATH or CUDA_HOME)")
+
+
+def compile_command(src: Path, obj: Path) -> List[str]:
+    return [nvcc(), *ARCH, *FLAGS, "-c", str(src), "-o", str(obj)]
+
+
+def build() -> Tuple[Path, float, str]:
+    """Compile and link the library if this source hash has none yet.
+    Returns ``(library path, seconds spent building, compiler log)``;
+    0 seconds and an empty log when the library was already there."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return lib, 0.0, ""
+    t0 = time.perf_counter()
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as tmp:
+        tmp = Path(tmp)
+        objs = [tmp / (s.stem + ".o") for s in sources()]
+        procs = [subprocess.Popen(compile_command(s, o), stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(sources(), objs)]
+        logs = []
+        for s, p in zip(sources(), procs):
+            out, _ = p.communicate()
+            logs.append(f"== {s.name}\n{out}")
+            if p.returncode != 0:
+                for q in procs:
+                    q.kill()
+                    q.wait()
+                raise RuntimeError(f"nvcc failed on {s.name}:\n{out}")
+        link = subprocess.run([nvcc(), *ARCH, "-shared", "-o",
+                               str(tmp / LIB_NAME), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"link failed:\n{link.stdout}{link.stderr}")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        os.replace(tmp / LIB_NAME, lib)
+    return lib, time.perf_counter() - t0, "".join(logs)
+
+
+@functools.lru_cache(maxsize=1)
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use, with typed entry points."""
+    lib = ctypes.CDLL(str(build()[0]))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
