@@ -8,16 +8,19 @@ become hand-written CUDA kernels for Hopper (``csrc/``), each with a plain
 PyTorch twin that runs on the CPU.
 
 This package imports ``torch`` and never ``jax``, nor anything of the JAX
-package: ``config`` holds its own copy of the configuration fields the port
-reads.
+package: it keeps its own copy of what it needs from the JAX package's
+numpy-only modules (``config``, ``data``, ``utils``).
 
 Modules
 -------
-config        the slice's configuration fields (names and defaults of the JAX ones)
-ops           frequency decomposition, window machinery, CUDA kernel wrappers
+test          the eval CLI: ``python -m <this package>.test <flags>``
+config        the configuration and command line (the JAX package's flags)
+data          test sets: file-backed, synthetic; image decoding
+ops           frequency decomposition, window machinery, metrics, CUDA kernel wrappers
 models        Uformer encoder/decoder, LeWin blocks, AirNet eval composition
-utils         JAX-parameter -> state_dict conversion
-evaluation    tiled full-image restoration
+evaluation    tiled full-image restoration, the per-task runner
+training      eval checkpoints (``epoch_<N>.pt``)
+utils         JAX-parameter -> state_dict conversion, image I/O, the results log
 """
 
 from . import config  # noqa: F401

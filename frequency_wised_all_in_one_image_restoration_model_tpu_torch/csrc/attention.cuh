@@ -1,7 +1,11 @@
-// Window attention core shared by K1 (lewin_attn.cu) and K3 (freq_inter.cu).
+// Window attention core shared by K1 (lewin_attn.cu), K3 (freq_inter.cu) and
+// the merged blocks K4 / K5 (merged.cuh).
 //
-// One CTA per (window group, head) over the group's n tokens (from the qkv
-// GEMM's output rows; the d^-0.5 scale is already in q): fp32 logits with
+// One unit of work per (window group, head), done by a block of 128 threads
+// (a __device__ function: the kernels of K1 / K3 call it with their block
+// index, the persistent kernels of K4 / K5 loop over the units), over the
+// group's n tokens (from the qkv GEMM's output rows; the d^-0.5 scale is
+// already in q): fp32 logits with
 // the additive bias [h, n, n] and mask [n0, n0] (tiled over n / n0),
 // per-row-max softmax, P.V, and the normalisation after P.V. The optional
 // all_DC rank-1 term (1 + lam) o - (lam / n) sum_m v[m] uses lam[b, h].
@@ -40,9 +44,10 @@ inline size_t attn_smem_bytes(int n, int d) {
          ((size_t)n * d * 2 + (size_t)n * (d + 1) + (ANT / 32) * (size_t)n + d);
 }
 
+// group g, head hh; ends with a barrier, so the next unit may reuse sm
 template <typename T>
-__global__ void __launch_bounds__(ANT) attn_kernel(const AttnArgs a) {
-  extern __shared__ float sm[];
+__device__ __forceinline__ void attn_tile(const AttnArgs& a, long long g,
+                                          int hh, float* sm) {
   const int n = a.n, d = a.d;
   float* q = sm;
   float* k = q + n * d;        // row stride d + 1: conflict-free column walk
@@ -50,8 +55,6 @@ __global__ void __launch_bounds__(ANT) attn_kernel(const AttnArgs a) {
   float* pbuf = v + n * d;     // one row of probabilities per warp
   float* vsum = pbuf + (ANT / 32) * n;
 
-  const long long g = blockIdx.x;
-  const int hh = blockIdx.y;
   const T* src = static_cast<const T*>(a.qkv) + g * n * 3LL * a.C + hh * d;
   for (int e = threadIdx.x; e < n * d; e += ANT) {
     const int i = e / d, c = e - i * d;
@@ -116,6 +119,13 @@ __global__ void __launch_bounds__(ANT) attn_kernel(const AttnArgs a) {
     for (int e = threadIdx.x; e < n * pad; e += ANT)
       out[(long long)(e / pad) * a.ldo + a.C + e % pad] = from_f<T>(0.f);
   }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ANT) attn_kernel(const AttnArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  attn_tile<T>(a, blockIdx.x, blockIdx.y, reinterpret_cast<float*>(smem_raw));
 }
 
 // bf16 on the tensor cores, for windows of n = 16k tokens and d <= DP:
@@ -125,17 +135,21 @@ __global__ void __launch_bounds__(ANT) attn_kernel(const AttnArgs a) {
 // normalisation after P V. q/k/v sit in shared memory as bf16 with the
 // head dim zero-padded to DP inside the kernel.
 template <int N, int DP>
-__global__ void __launch_bounds__(ANT) attn_mma_kernel(const AttnArgs a) {
+constexpr size_t attn_mma_smem_bytes() {
+  return sizeof(bf16_t) * 3 * N * (DP + 8) + sizeof(float) * DP;
+}
+
+template <int N, int DP>
+__device__ __forceinline__ void attn_mma_tile(const AttnArgs& a, long long g,
+                                              int hh, unsigned char* smem_raw) {
   constexpr int LDS = DP + 8;  // 16-byte row offsets spread over the banks
   constexpr int NT = N / 8;    // key tiles of 8 tokens
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16_t* q = reinterpret_cast<bf16_t*>(smem_raw);
   bf16_t* k = q + N * LDS;
   bf16_t* v = k + N * LDS;
   float* vsum = reinterpret_cast<float*>(v + N * LDS);
 
-  const long long g = blockIdx.x;
-  const int hh = blockIdx.y, d = a.d;
+  const int d = a.d;
   const bf16_t* src = static_cast<const bf16_t*>(a.qkv) + g * N * 3LL * a.C + hh * d;
   for (int e = threadIdx.x; e < N * DP; e += ANT) {
     const int i = e / DP, c = e % DP;
@@ -260,12 +274,19 @@ __global__ void __launch_bounds__(ANT) attn_mma_kernel(const AttnArgs a) {
     for (int e = threadIdx.x; e < N * pad; e += ANT)
       out[(long long)(e / pad) * a.ldo + a.C + e % pad] = from_f<bf16_t>(0.f);
   }
+  __syncthreads();
+}
+
+template <int N, int DP>
+__global__ void __launch_bounds__(ANT) attn_mma_kernel(const AttnArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  attn_mma_tile<N, DP>(a, blockIdx.x, blockIdx.y, smem_raw);
 }
 
 template <int N, int DP>
 inline cudaError_t launch_attn_mma(const AttnArgs& a, long long groups,
                                    cudaStream_t st) {
-  const size_t smem = sizeof(bf16_t) * 3 * N * (DP + 8) + sizeof(float) * DP;
+  const size_t smem = attn_mma_smem_bytes<N, DP>();
   const cudaError_t err = cudaFuncSetAttribute(
       attn_mma_kernel<N, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -1,0 +1,138 @@
+// The depthwise 3x3 conv + bd + GELU pass of the LeFF (K2, and the merged
+// blocks K4 / K5), over the hidden rows after GELU(fc1): zero padding at the
+// image border.
+
+#pragma once
+
+#include "gemm.cuh"
+
+namespace fairm {
+
+constexpr int DW_NT = 128;
+constexpr int DW_SEG = 32;  // pixels of a row one item walks
+
+// V consecutive channels moved as one 16-byte (or element-sized) access
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Vec {
+  T v[V];
+};
+
+// the 16-byte form when the rows allow it
+template <typename T>
+__host__ __device__ inline int dwconv_vec(int Hd) {
+  constexpr int V = 16 / sizeof(T);
+  return Hd % V == 0 ? V : 1;
+}
+
+__host__ __device__ inline int dwconv_segs(int W) {
+  return (W + DW_SEG - 1) / DW_SEG;
+}
+
+// items of work over ``rows`` = B * H image rows
+__host__ __device__ inline long long dwconv_items(long long rows, int W, int ldo,
+                                                  int v) {
+  return rows * dwconv_segs(W) * (ldo / v);
+}
+
+// hid [B*H*W, Hd] -> out [B*H*W, ldo] (ldo = kpad(Hd), pad columns zero).
+// One item of work is V channels (one 16-byte access when Hd % V == 0) over
+// a run of up to DW_SEG pixels of one image row: the thread keeps the 9 x V
+// taps in registers and walks the run. Items are numbered channel vector
+// first, so neighbouring lanes read neighbouring channels of one pixel and
+// no lane idles whatever Hd is; a thread takes items first, first + stride,
+// ...
+template <typename T, int V>
+__device__ __forceinline__ void dwconv_gelu_items(const T* in, const float* wd,
+                                                  const float* bd, T* out,
+                                                  long long first,
+                                                  long long stride,
+                                                  long long rows, int H, int W,
+                                                  int Hd, int ldo) {
+  const int nvec = ldo / V, nseg = dwconv_segs(W);
+  const long long total = rows * nseg * nvec;
+  for (long long item = first; item < total; item += stride) {
+    const int cv = (int)(item % nvec);
+    const long long t = item / nvec;
+    const int sg = (int)(t % nseg);
+    const long long rb = t / nseg;
+    const int y = (int)(rb % H);
+    const long long row0 = rb * W;  // pixel (b, y, 0)
+    const int x0 = sg * DW_SEG;
+    const int x1 = min(W, x0 + DW_SEG);
+    const int c0 = cv * V;
+    Vec<T, V> res;
+    if (c0 >= Hd) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) res.v[i] = from_f<T>(0.f);
+      for (int x = x0; x < x1; ++x)
+        reinterpret_cast<Vec<T, V>*>(out + (row0 + x) * ldo)[cv] = res;
+      continue;
+    }
+    float w[9][V], b[V];
+#pragma unroll
+    for (int t9 = 0; t9 < 9; ++t9)
+#pragma unroll
+      for (int i = 0; i < V; ++i) w[t9][i] = wd[t9 * Hd + c0 + i];
+#pragma unroll
+    for (int i = 0; i < V; ++i) b[i] = bd[c0 + i];
+    for (int x = x0; x < x1; ++x) {
+      float acc[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[i] = 0.f;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const int yy = y + dy - 1;
+        if (yy < 0 || yy >= H) continue;
+        const T* r = in + (row0 + (long long)(dy - 1) * W) * Hd + c0;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const int xx = x + dx - 1;
+          if (xx < 0 || xx >= W) continue;
+          const Vec<T, V> e = *reinterpret_cast<const Vec<T, V>*>(r + xx * Hd);
+#pragma unroll
+          for (int i = 0; i < V; ++i)
+            acc[i] = fmaf(to_f(e.v[i]), w[dy * 3 + dx][i], acc[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) res.v[i] = from_f<T>(gelu_tanh(acc[i] + b[i]));
+      reinterpret_cast<Vec<T, V>*>(out + (row0 + x) * ldo)[cv] = res;
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void dwconv_gelu_any(const T* in, const float* wd,
+                                                const float* bd, T* out,
+                                                long long first,
+                                                long long stride,
+                                                long long rows, int H, int W,
+                                                int Hd, int ldo) {
+  constexpr int V = 16 / sizeof(T);
+  if (dwconv_vec<T>(Hd) == V)
+    dwconv_gelu_items<T, V>(in, wd, bd, out, first, stride, rows, H, W, Hd, ldo);
+  else
+    dwconv_gelu_items<T, 1>(in, wd, bd, out, first, stride, rows, H, W, Hd, ldo);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(DW_NT) dwconv_gelu_kernel(
+    const T* in, const float* wd, const float* bd, T* out, long long rows,
+    int H, int W, int Hd, int ldo) {
+  dwconv_gelu_any<T>(in, wd, bd, out,
+                     (long long)blockIdx.x * DW_NT + threadIdx.x,
+                     (long long)gridDim.x * DW_NT, rows, H, W, Hd, ldo);
+}
+
+template <typename T>
+inline void launch_dwconv(const void* in, const float* wd, const float* bd,
+                          void* out, long long rows, int H, int W, int Hd,
+                          cudaStream_t st) {
+  const int ldo = kpad(Hd);
+  const long long items = dwconv_items(rows, W, ldo, dwconv_vec<T>(Hd));
+  dwconv_gelu_kernel<T><<<(unsigned)((items + DW_NT - 1) / DW_NT), DW_NT, 0, st>>>(
+      static_cast<const T*>(in), wd, bd, static_cast<T*>(out), rows, H, W, Hd,
+      ldo);
+}
+
+}  // namespace fairm

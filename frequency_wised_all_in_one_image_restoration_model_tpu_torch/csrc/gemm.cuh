@@ -1,5 +1,8 @@
-// Shared pieces of the LeWin-block kernels (K1-K3): the row prep pass and
-// the tiled GEMM.
+// Shared pieces of the LeWin-block kernels (K1-K5): the row prep pass and
+// the tiled GEMM. Each piece is a __device__ function over one unit of work
+// (a row, an output tile) for a block of 128 threads (256 for the 128-wide
+// bf16 tile); the __global__ kernels of K1-K3 call it with their block
+// index, the persistent kernels of K4/K5 (merged.cuh) loop over the units.
 //
 // prep_rows: gathers rows of a [pixels, K] tensor through a RowMap (the
 // window partition and the frequency-band regroup are such gathers),
@@ -13,7 +16,8 @@
 // the output type; the C rows are scattered through cmap (the window
 // reverse). bf16: a 3-stage cp.async pipeline into padded shared-memory
 // tiles, ldmatrix fragments and mma.sync m16n8k16 with fp32 accumulation,
-// warps of 64 x 32. fp32: shared-memory tiled FMA in full fp32 (no TF32).
+// warps of 64 x 32, the epilogue staged through shared memory so that C is
+// written in whole rows. fp32: shared-memory tiled FMA in full fp32 (no TF32).
 
 #pragma once
 
@@ -49,14 +53,19 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// tanh-approximate GELU, as jax.nn.gelu(approximate=True)
+// tanh-approximate GELU, as jax.nn.gelu(approximate=True):
+// 0.5 x (1 + tanh(u)) = x / (1 + exp(-2u)), u = sqrt(2/pi) (x + 0.044715 x^3),
+// through the fast exponential and division (a few ulps; tanhf costs several
+// times the instructions, and the hidden tensor takes two GELUs per element)
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
+  const float u = k * (x + 0.044715f * x * x * x);
+  // exp(80) is finite and large enough for the quotient to vanish
+  return __fdividef(x, 1.f + __expf(fminf(-2.f * u, 80.f)));
 }
 
 constexpr int GBK = 32;
-inline int kpad(int k) { return (k + GBK - 1) / GBK * GBK; }
+__host__ __device__ inline int kpad(int k) { return (k + GBK - 1) / GBK * GBK; }
 
 // Logical row -> physical row of a [images * H * W, C] pixel tensor.
 //  mode 0: identity.
@@ -65,12 +74,18 @@ inline int kpad(int k) { return (k + GBK - 1) / GBK * GBK; }
 //  mode 2: band-grouped windows. Row r = (b * nW + window) * L*n + l * n +
 //          token, where the pixel lives in image l * B + b of a band-major
 //          [L * B, H, W] batch (the frequency-MSA inter regroup).
+//  shift (modes 1, 2): the logical image is the physical one rolled by
+//          -shift along H and W (the SW-MSA cyclic shift): logical pixel
+//          (y, x) lives at physical ((y + shift) % H, (x + shift) % W).
 struct RowMap {
   int mode;
   int H, W, win, B, L;
+  int shift;
 };
 
-inline RowMap identity_map() { return RowMap{0, 1, 1, 1, 1, 1}; }
+__host__ __device__ inline RowMap identity_map() {
+  return RowMap{0, 1, 1, 1, 1, 1, 0};
+}
 
 __device__ __forceinline__ long long map_row(const RowMap& m, long long r) {
   if (m.mode == 0) return r;
@@ -94,22 +109,28 @@ __device__ __forceinline__ long long map_row(const RowMap& m, long long r) {
     wi = (int)(grp - b * nW);
     img = (long long)l * m.B + b;
   }
-  const int y = (wi / nWc) * m.win + t / m.win;
-  const int x = (wi % nWc) * m.win + t % m.win;
+  int y = (wi / nWc) * m.win + t / m.win;
+  int x = (wi % nWc) * m.win + t % m.win;
+  if (m.shift) {
+    y += m.shift;
+    if (y >= m.H) y -= m.H;
+    x += m.shift;
+    if (x >= m.W) x -= m.W;
+  }
   return (img * m.H + y) * m.W + x;
 }
 
 // ---------------------------------------------------------------------------
-// prep: gather (+ LayerNorm) + zero pad, one warp per row
+// prep: gather (+ LayerNorm) + zero pad
 // ---------------------------------------------------------------------------
 
+// one warp: row r of the logical matrix, an element at a time (any K)
 template <typename T>
-__global__ void prep_rows_kernel(const T* src, int K, RowMap amap, long long M,
-                                 const float* ln_g, const float* ln_b,
-                                 float eps, T* dst, int ldd) {
+__device__ __forceinline__ void prep_row(const T* src, int K, const RowMap& amap,
+                                         long long r, const float* ln_g,
+                                         const float* ln_b, float eps, T* dst,
+                                         int ldd) {
   const int lane = threadIdx.x & 31;
-  const long long r = (long long)blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
-  if (r >= M) return;
   const T* row = src + map_row(amap, r) * K;
   float mu = 0.f, rs = 1.f;
   if (ln_g) {
@@ -134,13 +155,164 @@ __global__ void prep_rows_kernel(const T* src, int K, RowMap amap, long long M,
   }
 }
 
+// Rows as 4-element vectors (8 bytes of bf16, 16 of fp32), for K % 4 == 0
+// and rows of at most 1024 columns: G lanes share a row (32 / G rows per
+// warp), a lane holds NV vectors of it, and a warp works on 8 / NV such row
+// sets at once. The row is read once and stays in registers for both
+// LayerNorm passes; a warp keeps up to 8 vector loads per lane in flight,
+// which is what a block that holds few warps per SM (the persistent kernels
+// of K4 / K5) needs to fill the memory pipe.
+template <typename T>
+struct alignas(4 * sizeof(T)) Vec4 {
+  T v[4];
+};
+
+__host__ __device__ inline int prep_nv(int ldd) {
+  const int oc = ldd / 4;
+  return oc <= 32 ? 1 : oc <= 64 ? 2 : oc <= 128 ? 4 : 8;
+}
+
+__host__ __device__ inline int prep_group(int ldd) {
+  const int nv = prep_nv(ldd);
+  const int c = (ldd / 4 + nv - 1) / nv;
+  int g = 8;
+  while (g < c) g <<= 1;
+  return g;
+}
+
+__host__ __device__ inline bool prep_vec_ok(int K) {
+  return K % 4 == 0 && kpad(K) <= 1024;
+}
+
+// rows one warp handles per step of its loop
+__host__ __device__ inline int prep_rows_per_step(int K) {
+  if (!prep_vec_ok(K)) return 1;
+  return (32 / prep_group(kpad(K))) * (8 / prep_nv(kpad(K)));
+}
+
+template <typename T, int NV>
+__device__ __forceinline__ void prep_rows_vec(const T* src, int K,
+                                              const RowMap& amap, long long M,
+                                              const float* ln_g,
+                                              const float* ln_b, float eps,
+                                              T* dst, int ldd, long long warp,
+                                              long long warps) {
+  constexpr int U = 8 / NV;
+  const int lane = threadIdx.x & 31;
+  const int G = prep_group(ldd);
+  const int sub = lane / G, li = lane % G, rpw = 32 / G;
+  const int kc = K / 4, oc = ldd / 4;
+  const long long step = (long long)rpw * U;
+  for (long long base = warp * step; base < M; base += warps * step) {
+    float x[U][NV][4];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long r = base + u * rpw + sub;
+      const T* row = src + (r < M ? map_row(amap, r) : 0) * K;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int c = li + v * G;
+        if (r < M && c < kc) {
+          const Vec4<T> e = reinterpret_cast<const Vec4<T>*>(row)[c];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) x[u][v][i] = to_f(e.v[i]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) x[u][v][i] = 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long r = base + u * rpw + sub;
+      float mu = 0.f, rs = 1.f;
+      if (ln_g) {
+        float s = 0.f;
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s += x[u][v][i];  // pad entries are 0
+        for (int o = G >> 1; o > 0; o >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+        mu = s / K;
+        float var = 0.f;
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+          if (li + v * G < kc) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float dv = x[u][v][i] - mu;
+              var += dv * dv;
+            }
+          }
+        for (int o = G >> 1; o > 0; o >>= 1)
+          var += __shfl_xor_sync(0xffffffffu, var, o);
+        rs = rsqrtf(var / K + eps);
+      }
+      if (r >= M) continue;
+      T* out = dst + r * ldd;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const int c = li + v * G;
+        if (c >= oc) continue;
+        Vec4<T> e;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float val = 0.f;
+          if (c < kc) {
+            val = x[u][v][i];
+            if (ln_g) val = (val - mu) * rs * ln_g[c * 4 + i] + ln_b[c * 4 + i];
+          }
+          e.v[i] = from_f<T>(val);
+        }
+        reinterpret_cast<Vec4<T>*>(out)[c] = e;
+      }
+    }
+  }
+}
+
+// rows warp, warp + warps, ... (in steps of prep_rows_per_step rows) of the
+// logical matrix; every lane of the warp calls it
+template <typename T>
+__device__ __noinline__ void prep_rows(const T* src, int K, RowMap amap,
+                                       long long M, const float* ln_g,
+                                       const float* ln_b, float eps, T* dst,
+                                       int ldd, long long warp,
+                                       long long warps) {
+  const bool vec =
+      prep_vec_ok(K) && ldd == kpad(K) &&
+      (reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) %
+              (4 * sizeof(T)) == 0;
+  if (!vec) {
+    for (long long r = warp; r < M; r += warps)
+      prep_row<T>(src, K, amap, r, ln_g, ln_b, eps, dst, ldd);
+    return;
+  }
+  switch (prep_nv(ldd)) {
+    case 1: prep_rows_vec<T, 1>(src, K, amap, M, ln_g, ln_b, eps, dst, ldd, warp, warps); break;
+    case 2: prep_rows_vec<T, 2>(src, K, amap, M, ln_g, ln_b, eps, dst, ldd, warp, warps); break;
+    case 4: prep_rows_vec<T, 4>(src, K, amap, M, ln_g, ln_b, eps, dst, ldd, warp, warps); break;
+    default: prep_rows_vec<T, 8>(src, K, amap, M, ln_g, ln_b, eps, dst, ldd, warp, warps);
+  }
+}
+
+template <typename T>
+__global__ void prep_rows_kernel(const T* src, int K, RowMap amap, long long M,
+                                 const float* ln_g, const float* ln_b,
+                                 float eps, T* dst, int ldd) {
+  const int wpb = blockDim.x / 32;
+  prep_rows<T>(src, K, amap, M, ln_g, ln_b, eps, dst, ldd,
+               (long long)blockIdx.x * wpb + (threadIdx.x >> 5),
+               (long long)gridDim.x * wpb);
+}
+
 template <typename T>
 inline void launch_prep(const void* src, int K, RowMap amap, long long M,
                         const float* ln_g, const float* ln_b, float eps,
                         void* dst, cudaStream_t st) {
-  const int rows_per_block = 8;
+  const long long rows_per_block = 8LL * prep_rows_per_step(K);  // 8 warps
   const long long blocks = (M + rows_per_block - 1) / rows_per_block;
-  prep_rows_kernel<T><<<(unsigned)blocks, 32 * rows_per_block, 0, st>>>(
+  prep_rows_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(
       static_cast<const T*>(src), K, amap, M, ln_g, ln_b, eps,
       static_cast<T*>(dst), kpad(K));
 }
@@ -164,10 +336,17 @@ struct GemmArgs {
   int act;             // 1: tanh-GELU after the bias
 };
 
+// one element of C at physical row pc
 template <typename T>
-struct alignas(2 * sizeof(T)) Vec2 {
-  T v[2];
-};
+__device__ __forceinline__ void gemm_store_at(const GemmArgs& a, long long pc,
+                                              float scale, int col, float v) {
+  if (a.bias) v += a.bias[col];
+  if (a.act) v = gelu_tanh(v);
+  if (a.dps) v *= scale;
+  const long long off = pc * a.N + col;
+  if (a.res) v += to_f(static_cast<const T*>(a.res)[off]);
+  static_cast<T*>(a.C)[off] = from_f<T>(v);
+}
 
 template <typename T>
 __device__ __forceinline__ void gemm_store(const GemmArgs& a,
@@ -184,44 +363,36 @@ __device__ __forceinline__ void gemm_store(const GemmArgs& a,
   static_cast<T*>(a.C)[off] = from_f<T>(v);
 }
 
-// two adjacent columns (col even, N even) in one 4-byte (bf16) or 8-byte
-// (fp32) access
+// four adjacent columns (col % 4 == 0) of physical row pc; ``vec``: N % 4 ==
+// 0 and C, res aligned to four elements, so the four move as one access
 template <typename T>
-__device__ __forceinline__ void gemm_store2(const GemmArgs& a,
-                                            const long long* s_crow,
-                                            const float* s_scale, int lr,
-                                            int col, float v0, float v1) {
-  if (a.N & 1) {  // rows not 2-element aligned
-    gemm_store<T>(a, s_crow, s_scale, lr, col, v0);
-    gemm_store<T>(a, s_crow, s_scale, lr, col + 1, v1);
+__device__ __forceinline__ void gemm_store4(const GemmArgs& a, long long pc,
+                                            float scale, int col,
+                                            const float4& acc, bool vec) {
+  float x[4] = {acc.x, acc.y, acc.z, acc.w};
+  if (!vec) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (col + i < a.N) gemm_store_at<T>(a, pc, scale, col + i, x[i]);
     return;
   }
-  const long long pc = s_crow[lr];
-  if (pc < 0 || col >= a.N) return;
-  if (a.bias) {
-    v0 += a.bias[col];
-    v1 += a.bias[col + 1];
-  }
-  if (a.act) {
-    v0 = gelu_tanh(v0);
-    v1 = gelu_tanh(v1);
-  }
-  if (a.dps) {
-    v0 *= s_scale[lr];
-    v1 *= s_scale[lr];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (a.bias) x[i] += a.bias[col + i];
+    if (a.act) x[i] = gelu_tanh(x[i]);
+    if (a.dps) x[i] *= scale;
   }
   const long long off = pc * a.N + col;
-  Vec2<T>* dst = reinterpret_cast<Vec2<T>*>(static_cast<T*>(a.C) + off);
   if (a.res) {
-    const Vec2<T> r = *reinterpret_cast<const Vec2<T>*>(
-        static_cast<const T*>(a.res) + off);
-    v0 += to_f(r.v[0]);
-    v1 += to_f(r.v[1]);
+    const Vec4<T> r =
+        *reinterpret_cast<const Vec4<T>*>(static_cast<const T*>(a.res) + off);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] += to_f(r.v[i]);
   }
-  Vec2<T> o;
-  o.v[0] = from_f<T>(v0);
-  o.v[1] = from_f<T>(v1);
-  *dst = o;
+  Vec4<T> o;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o.v[i] = from_f<T>(x[i]);
+  *reinterpret_cast<Vec4<T>*>(static_cast<T*>(a.C) + off) = o;
 }
 
 template <int BM>
@@ -279,25 +450,29 @@ __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// the operand stages, then the tile's C rows and DropPath scales
 template <int BN>
 constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16_t) * MMA_STAGES * (MMA_BM + BN) * MMA_LDS;
+  return sizeof(bf16_t) * MMA_STAGES * (MMA_BM + BN) * MMA_LDS +
+         MMA_BM * (sizeof(long long) + sizeof(float));
 }
 
-// BM = 128; BN = 64 (4 warps) or 128 (8 warps); each warp owns 64 x 32
+// output tile (bx, by) of BM = 128 rows x BN columns; BN = 64 (4 warps) or
+// 128 (8 warps), each warp owns 64 x 32. Ends with a barrier, so the next
+// tile may reuse the shared memory.
 template <int BN>
-__global__ void __launch_bounds__(BN * 2) gemm_mma_kernel(const GemmArgs a) {
+__device__ __forceinline__ void gemm_mma_tile(const GemmArgs& a, long long bx,
+                                              int by, unsigned char* smem_raw) {
   constexpr int NT = BN * 2;
   constexpr int WARPS_N = BN / 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16_t* As = reinterpret_cast<bf16_t*>(smem_raw);
   bf16_t* Bs = As + MMA_STAGES * MMA_BM * MMA_LDS;
-  __shared__ long long s_crow[MMA_BM];
-  __shared__ float s_scale[MMA_BM];
+  long long* s_crow = reinterpret_cast<long long*>(Bs + MMA_STAGES * BN * MMA_LDS);
+  float* s_scale = reinterpret_cast<float*>(s_crow + MMA_BM);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long m0 = (long long)blockIdx.x * MMA_BM;
-  const int n0 = blockIdx.y * BN;
+  const long long m0 = bx * MMA_BM;
+  const int n0 = by * BN;
   const bf16_t* A = static_cast<const bf16_t*>(a.A);
   const bf16_t* Wt = static_cast<const bf16_t*>(a.Wt);
   const int KT = a.lda / GBK;
@@ -375,32 +550,75 @@ __global__ void __launch_bounds__(BN * 2) gemm_mma_kernel(const GemmArgs a) {
   }
   asm volatile("cp.async.wait_group 0;\n" ::);
 
+  // Epilogue through shared memory: the accumulators of RP rows go to a
+  // fp32 tile over the operand stages, then every thread writes four
+  // adjacent columns of a row, so a warp's stores cover whole rows of the
+  // tile instead of 8-byte pieces of 8 rows.
+  constexpr int RP = BN == 64 ? MMA_BM : MMA_BM / 2;  // rows per pass
+  constexpr int LDC = BN + 8;  // conflict-free float2 writes
+  static_assert(sizeof(float) * RP * LDC <=
+                    sizeof(bf16_t) * MMA_STAGES * (MMA_BM + BN) * MMA_LDS,
+                "the C tile must fit the operand stages");
+  float* Cs = reinterpret_cast<float*>(smem_raw);
+  const bool vec =
+      a.N % 4 == 0 &&
+      (reinterpret_cast<uintptr_t>(a.C) | reinterpret_cast<uintptr_t>(a.res)) %
+              (4 * sizeof(bf16_t)) == 0;
   const int g = lane >> 2, t4 = lane & 3;
+  const int rbase = (wm * 64) % RP;
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+  for (int pass = 0; pass < MMA_BM / RP; ++pass) {
+    __syncthreads();  // the stages (or the last pass's tile) are read out
+    if (RP == MMA_BM || wm == pass) {
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+      for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-      for (int e = 0; e < 4; e += 2)
-        gemm_store2<bf16_t>(a, s_crow, s_scale,
-                            wm * 64 + mi * 16 + g + (e >= 2 ? 8 : 0),
-                            n0 + wn * 32 + ni * 8 + t4 * 2, acc[mi][ni][e],
-                            acc[mi][ni][e + 1]);
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; e += 2)
+            *reinterpret_cast<float2*>(
+                Cs + (rbase + mi * 16 + g + (e >= 2 ? 8 : 0)) * LDC + wn * 32 +
+                ni * 8 + t4 * 2) = make_float2(acc[mi][ni][e], acc[mi][ni][e + 1]);
+    }
+    __syncthreads();
+    for (int idx = tid; idx < RP * (BN / 4); idx += NT) {
+      const int lr = idx / (BN / 4), cv = idx % (BN / 4);
+      const int row = pass * RP + lr, col = n0 + cv * 4;
+      const long long pc = s_crow[row];
+      if (pc < 0 || col >= a.N) continue;
+      gemm_store4<bf16_t>(a, pc, s_scale[row], col,
+                          *reinterpret_cast<const float4*>(Cs + lr * LDC + cv * 4),
+                          vec);
+    }
+  }
+  __syncthreads();
+}
+
+template <int BN>
+__global__ void __launch_bounds__(BN * 2) gemm_mma_kernel(const GemmArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  gemm_mma_tile<BN>(a, blockIdx.x, blockIdx.y, smem_raw);
 }
 
 // ---- fp32: shared-memory tiled FMA -----------------------------------------
 
 constexpr int FMA_BM = 128, FMA_BN = 64, FMA_NT = 128;
 
-static __global__ void __launch_bounds__(FMA_NT) gemm_fma_kernel(const GemmArgs a) {
-  __shared__ float As[FMA_BM][GBK + 1];
-  __shared__ float Ws[FMA_BN][GBK + 1];
-  __shared__ long long s_crow[FMA_BM];
-  __shared__ float s_scale[FMA_BM];
+constexpr int FMA_LDS = GBK + 1;
+constexpr size_t FMA_SMEM = sizeof(float) * (FMA_BM + FMA_BN) * FMA_LDS +
+                            FMA_BM * (sizeof(long long) + sizeof(float));
+
+// output tile (bx, by) of 128 x 64, 128 threads; ends with a barrier
+__device__ __forceinline__ void gemm_fma_tile(const GemmArgs& a, long long bx,
+                                              int by, unsigned char* smem_raw) {
+  long long* s_crow = reinterpret_cast<long long*>(smem_raw);
+  float* s_scale = reinterpret_cast<float*>(s_crow + FMA_BM);
+  float(*As)[FMA_LDS] = reinterpret_cast<float(*)[FMA_LDS]>(s_scale + FMA_BM);
+  float(*Ws)[FMA_LDS] = As + FMA_BM;
 
   const int tid = threadIdx.x;
-  const long long m0 = (long long)blockIdx.x * FMA_BM;
-  const int n0 = blockIdx.y * FMA_BN;
+  const long long m0 = bx * FMA_BM;
+  const int n0 = by * FMA_BN;
   const float* A = static_cast<const float*>(a.A);
   const float* Wt = static_cast<const float*>(a.Wt);
   gemm_rows<FMA_BM>(a, m0, s_crow, s_scale);
@@ -444,6 +662,12 @@ static __global__ void __launch_bounds__(FMA_NT) gemm_fma_kernel(const GemmArgs 
     for (int j = 0; j < 8; ++j)
       gemm_store<float>(a, s_crow, s_scale, tm + 16 * i, n0 + tn + 8 * j,
                         acc[i][j]);
+  __syncthreads();
+}
+
+static __global__ void __launch_bounds__(FMA_NT) gemm_fma_kernel(const GemmArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  gemm_fma_tile(a, blockIdx.x, blockIdx.y, smem_raw);
 }
 
 template <typename T>
@@ -452,7 +676,7 @@ inline cudaError_t launch_gemm(const GemmArgs& a, cudaStream_t st) {
   if constexpr (std::is_same<T, float>::value) {
     const dim3 grid((unsigned)((a.M + FMA_BM - 1) / FMA_BM),
                     (unsigned)((ncols + FMA_BN - 1) / FMA_BN));
-    gemm_fma_kernel<<<grid, FMA_NT, 0, st>>>(a);
+    gemm_fma_kernel<<<grid, FMA_NT, FMA_SMEM, st>>>(a);
     return cudaSuccess;
   } else {
     auto run = [&](auto kernel, int bn, size_t smem) {

@@ -17,71 +17,10 @@
 // Folding the depthwise conv into the second GEMM's A loads, so the hidden
 // rows cross device memory once, is the next step.
 
+#include "dwconv.cuh"
 #include "gemm.cuh"
 
 using namespace fairm;
-
-// V consecutive channels moved as one 16-byte (or element-sized) access
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Vec {
-  T v[V];
-};
-
-// hid [B*H*W, Hd] -> out [B*H*W, ldo] (ldo = kpad(Hd), pad columns zero).
-// One block per image row. A thread owns V channels (one 16-byte access
-// when Hd % V == 0), keeps their 9 x V taps in registers, and walks a
-// contiguous run of the row's pixels.
-template <typename T, int V>
-__global__ void dwconv_gelu_kernel(const T* in, const float* wd,
-                                   const float* bd, T* out, int H, int W,
-                                   int Hd, int ldo) {
-  const int y = blockIdx.x % H;
-  const long long row0 = (long long)blockIdx.x * W;  // pixel (b, y, 0)
-  const int seg = (W + blockDim.y - 1) / blockDim.y;
-  const int x0 = threadIdx.y * seg;
-  const int x1 = min(W, x0 + seg);
-  for (int cv = threadIdx.x; cv < ldo / V; cv += blockDim.x) {
-    const int c0 = cv * V;
-    Vec<T, V> res;
-    if (c0 >= Hd) {
-#pragma unroll
-      for (int i = 0; i < V; ++i) res.v[i] = from_f<T>(0.f);
-      for (int x = x0; x < x1; ++x)
-        reinterpret_cast<Vec<T, V>*>(out + (row0 + x) * ldo)[cv] = res;
-      continue;
-    }
-    float w[9][V], b[V];
-#pragma unroll
-    for (int t = 0; t < 9; ++t)
-#pragma unroll
-      for (int i = 0; i < V; ++i) w[t][i] = wd[t * Hd + c0 + i];
-#pragma unroll
-    for (int i = 0; i < V; ++i) b[i] = bd[c0 + i];
-    for (int x = x0; x < x1; ++x) {
-      float acc[V];
-#pragma unroll
-      for (int i = 0; i < V; ++i) acc[i] = 0.f;
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        const int yy = y + dy - 1;
-        if (yy < 0 || yy >= H) continue;
-        const T* r = in + (row0 + (long long)(dy - 1) * W) * Hd + c0;
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const int xx = x + dx - 1;
-          if (xx < 0 || xx >= W) continue;
-          const Vec<T, V> e = *reinterpret_cast<const Vec<T, V>*>(r + xx * Hd);
-#pragma unroll
-          for (int i = 0; i < V; ++i)
-            acc[i] = fmaf(to_f(e.v[i]), w[dy * 3 + dx][i], acc[i]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < V; ++i) res.v[i] = from_f<T>(gelu_tanh(acc[i] + b[i]));
-      reinterpret_cast<Vec<T, V>*>(out + (row0 + x) * ldo)[cv] = res;
-    }
-  }
-}
 
 template <typename T>
 static cudaError_t lewin_ffn(const void* x, const float* lns, const float* lnb,
@@ -109,15 +48,7 @@ static cudaError_t lewin_ffn(const void* x, const float* lns, const float* lnb,
   cudaError_t err = launch_gemm<T>(g1, st);
   if (err != cudaSuccess) return err;
 
-  constexpr int V = 16 / sizeof(T);
-  if (Hd % V == 0)
-    dwconv_gelu_kernel<T, V><<<(unsigned)(B * H), dim3(32, 4), 0, st>>>(
-        static_cast<const T*>(hid1), wd, bd, static_cast<T*>(hid2), H, W, Hd,
-        kpad(Hd));
-  else
-    dwconv_gelu_kernel<T, 1><<<(unsigned)(B * H), dim3(32, 4), 0, st>>>(
-        static_cast<const T*>(hid1), wd, bd, static_cast<T*>(hid2), H, W, Hd,
-        kpad(Hd));
+  launch_dwconv<T>(hid1, wd, bd, hid2, (long long)B * H, H, W, Hd, st);
 
   GemmArgs g2{};
   g2.A = hid2;

@@ -11,6 +11,7 @@ import dataclasses
 
 import torch
 
+from ..config import check_ported
 from .decoder_uformer import UformerDecoder
 from .encoder_uformer import UformerEncoder
 from .layers import trunc_normal_init
@@ -35,19 +36,17 @@ class ModelBundle:
         return self.decoder.output_proj.proj.weight.device
 
 
-def build_models(cfg, device, impl: str = "kernel") -> ModelBundle:
+def build_models(cfg, device, impl: str = "default") -> ModelBundle:
     """Encoder + decoder in eval mode on ``device``, weights drawn from a
     ``torch.Generator`` seeded with ``cfg.seed`` (load real weights with
     ``load_state_dict`` after :func:`utils.weights.from_jax`).
 
-    ``impl='kernel'`` runs the LeWin blocks through the CUDA kernels (their
-    plain twins on a CPU device); ``'plain'`` through the plain twins on any
-    device, for comparisons."""
-    if cfg.encoder_type != "Uformer" or cfg.decoder_type != "Uformer":
-        raise NotImplementedError(
-            f"{cfg.encoder_type} encoder / {cfg.decoder_type} decoder: the "
-            "port runs Uformer + Uformer only; the other backbones are not "
-            "ported yet (ROADMAP.md, Queue 1 item 9)")
+    ``impl`` is the LeWin blocks' route (``models/uformer_lewin.py``):
+    ``'kernel'`` the chain of CUDA kernels, ``'merged'`` one merged kernel
+    per block, ``'default'`` the route measured faster per stage (all three
+    run the plain twins on a CPU device); ``'plain'`` the plain twins on
+    any device, for comparisons."""
+    check_ported(cfg)
     dtype = model_dtype(cfg)
     encoder = UformerEncoder(cfg, img_size=cfg.patch_size,
                              drop_path_rate=cfg.drop_path, dtype=dtype,

@@ -32,6 +32,7 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_Q = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the entry points (csrc/*.cu); every pointer and the
 # stream are c_void_p, so a 64-bit address is never cut to a 32-bit int
@@ -45,6 +46,15 @@ SIGNATURES = {
     # x, lns, lnb, w1t, b1, wd, bd, w2t, b2, dps, xn, hid1, hid2, out,
     # B, H, W, C, Hd, bf16, eps, stream
     "fairm_lewin_ffn": [_P] * 14 + [_I] * 6 + [_F, _P],
+    # x, ln1s, ln1b, wqkv, bqkv, wp, bp, bias, mask, lam, dps1, ln2s, ln2b,
+    # w1t, b1, wd, bd, w2t, b2, dps2, scratch, out, stamps, scratch_elems,
+    # B, H, W, C, h, win, shift, Hd, bf16, eps, stream
+    "fairm_lewin_merged": [_P] * 23 + [_Q] + [_I] * 9 + [_F, _P],
+    # x, ln1s, ln1b, wqkvA, bqkvA, wpA, bpA, biasA, wqkvB, bqkvB, wpB, bpB,
+    # biasB, mask, dps1, ln2s, ln2b, w1t, b1, wd, bd, w2t, b2, dps2, scratch,
+    # out, stamps, scratch_elems, LB, H, W, C, h, win, shift, L, Hd, bf16, eps,
+    # stream
+    "fairm_freq_merged": [_P] * 27 + [_Q] + [_I] * 10 + [_F, _P],
 }
 
 

@@ -1,7 +1,7 @@
 """LeWin-block kernels: the port of the JAX ``ops/pallas/lewin_block.py``
 forward kernels to hand-written CUDA for Hopper (``csrc/``).
 
-Four entry points, signatures as their Pallas counterparts (images
+Six entry points, signatures as their Pallas counterparts (images
 ``[B, H, W, C]``, per-head weights ``wq3 [h, C, d]``, ``wp3 [h, d, C]``):
 
 * :func:`block_attention` — ``x + dps * proj(win_attn(LN1(x)))`` with the
@@ -13,7 +13,13 @@ Four entry points, signatures as their Pallas counterparts (images
   window's L*n band-grouped tokens (K3, ``csrc/freq_inter.cu``;
   ``fused_freq_inter``);
 * :func:`block_ffn` — ``x + dps * LeFF(LN2(x))`` (K2, ``csrc/lewin_ffn.cu``;
-  ``fused_block_ffn``).
+  ``fused_block_ffn``);
+* :func:`block_merged` — one whole origin-MSA block, the first then the
+  last of the above, on the TRUE-layout image with the SW-MSA roll inside
+  (K4, ``csrc/lewin_merged.cu``; ``fused_block_merged``);
+* :func:`block_freq_merged` — one whole frequency-MSA block, intra ->
+  inter -> FFN, likewise (K5, ``csrc/freq_merged.cu``;
+  ``fused_block_freq_merged``).
 
 Each has a ``*_plain`` twin in plain PyTorch that mirrors the JAX package's
 XLA composite (``_xla_block_attention`` and friends) with a per-row-max
@@ -23,8 +29,9 @@ CUDA tensor it launches its kernel or raises.
 On the card a wrapper is two steps: :func:`attn_operands` /
 :func:`ffn_operands` turn the weights into the kernels' formats (GEMM
 operands ``[N, kpad(K)]`` in the compute dtype, fp32 biases and tables),
-and :func:`attention_kernel`, :func:`freq_inter_kernel` and
-:func:`ffn_kernel` check those operands and launch. The model makes the
+and :func:`attention_kernel`, :func:`freq_inter_kernel`,
+:func:`ffn_kernel`, :func:`merged_kernel` and :func:`freq_merged_kernel`
+check those operands and launch. The model makes the
 operands once per parameter version (``models/uformer_blocks.py``) and
 calls the launchers directly. ``LAUNCHES`` counts kernel launches per
 kernel (K1 ``lewin_attn`` serves two entry points), one per launcher call
@@ -38,7 +45,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-LAUNCHES = {"lewin_attn": 0, "lewin_ffn": 0, "freq_inter": 0}
+LAUNCHES = {"lewin_attn": 0, "lewin_ffn": 0, "freq_inter": 0,
+            "lewin_merged": 0, "freq_merged": 0}
 
 
 def reset_launches() -> None:
@@ -187,6 +195,53 @@ def block_ffn_plain(x_img, lns, lnb, w1, b1, wd, bd, w2, b2,
     if dps is not None:
         y = y * dps.float()[:, None, None, None]
     return (xf + y).to(dtype)
+
+
+def roll(img, shift: int):
+    """The SW-MSA cyclic shift by ``-shift`` along H and W (0: the image)."""
+    return torch.roll(img, (-shift, -shift), dims=(1, 2)) if shift else img
+
+
+def merged_chain(attention, ffn, x_img, ln1s, ln1b, wq3, bq3, wk3, bk3, wv3,
+                 bv3, wp3, bp, bias, mask, lam, ln2s, ln2b, w1, b1, wd, bd,
+                 w2, b2, win: int = 8, shift: int = 0, eps: float = 1e-6,
+                 dps1=None, dps2=None):
+    """The function :func:`block_merged` computes, as a chain of its two
+    halves (``attention``: :func:`block_attention` or its twin, ``ffn``
+    likewise) around the roll; ``u`` between them in the model dtype."""
+    u = attention(roll(x_img, shift), ln1s, ln1b, wq3, bq3, wk3, bk3, wv3,
+                  bv3, wp3, bp, bias, mask, lam, win, eps, dps1)
+    return ffn(roll(u, -shift), ln2s, ln2b, w1, b1, wd, bd, w2, b2, eps, dps2)
+
+
+def freq_merged_chain(intra, inter, ffn, x_img, ln1s, ln1b, wq3A, bq3A, wk3A,
+                      bk3A, wv3A, bv3A, wp3A, bpA, biasA, wq3B, bq3B, wk3B,
+                      bk3B, wv3B, bv3B, wp3B, bpB, biasB, mask, ln2s, ln2b,
+                      w1, b1, wd, bd, w2, b2, L: int = 1, win: int = 8,
+                      shift: int = 0, eps: float = 1e-6, dps1=None,
+                      dps2=None):
+    """The function :func:`block_freq_merged` computes, as a chain of its
+    three parts around the roll; the inter part's residual is the rolled
+    image."""
+    img = roll(x_img, shift)
+    y1 = intra(img, ln1s, ln1b, wq3A, bq3A, wk3A, bk3A, wv3A, bv3A, wp3A,
+               bpA, biasA, mask, L, win, eps)
+    u = inter(y1, img, wq3B, bq3B, wk3B, bk3B, wv3B, bv3B, wp3B, bpB, biasB,
+              mask, L, win, eps, dps1)
+    return ffn(roll(u, -shift), ln2s, ln2b, w1, b1, wd, bd, w2, b2, eps, dps2)
+
+
+def block_merged_plain(*args, **kwargs):
+    """Plain twin of :func:`block_merged`: the chain of the plain halves."""
+    return merged_chain(block_attention_plain, block_ffn_plain, *args,
+                        **kwargs)
+
+
+def block_freq_merged_plain(*args, **kwargs):
+    """Plain twin of :func:`block_freq_merged`: the chain of the plain
+    parts."""
+    return freq_merged_chain(freq_intra_plain, freq_inter_plain,
+                             block_ffn_plain, *args, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -368,20 +423,26 @@ def freq_inter_kernel(y_img, res_img, op: AttnOperands, mask, L: int,
     return out
 
 
+def _check_ffn_operands(op: FfnOperands, x: torch.Tensor) -> int:
+    C = x.shape[-1]
+    Hd = op.b1.shape[0]
+    for t, shape, dt in ((op.w1, (Hd, kpad(C)), x.dtype),
+                         (op.b1, (Hd,), torch.float32),
+                         (op.wd, (3, 3, Hd), torch.float32),
+                         (op.bd, (Hd,), torch.float32),
+                         (op.w2, (C, kpad(Hd)), x.dtype),
+                         (op.b2, (C,), torch.float32)):
+        _operand(t, shape, dt, x)
+    return Hd
+
+
 def ffn_kernel(x_img, lns, lnb, op: FfnOperands, eps: float, dps):
     """Launch K2 (:func:`block_ffn`) on a CUDA tensor with prepared operands."""
     from .build import load
 
     B, H, W, C = x_img.shape
-    Hd = op.b1.shape[0]
     _check(x_img, lns, dps)
-    for t, shape, dt in ((op.w1, (Hd, kpad(C)), x_img.dtype),
-                         (op.b1, (Hd,), torch.float32),
-                         (op.wd, (3, 3, Hd), torch.float32),
-                         (op.bd, (Hd,), torch.float32),
-                         (op.w2, (C, kpad(Hd)), x_img.dtype),
-                         (op.b2, (C,), torch.float32)):
-        _operand(t, shape, dt, x_img)
+    Hd = _check_ffn_operands(op, x_img)
     lns, lnb = _f32(lns, (C,)), _f32(lnb, (C,))
     dps = _f32(dps, (B,))
     dt = x_img.dtype
@@ -395,6 +456,119 @@ def ffn_kernel(x_img, lns, lnb, op: FfnOperands, eps: float, dps):
          _ptr(op.b2), _ptr(dps), _ptr(xn), _ptr(hid1), _ptr(hid2), _ptr(out),
          B, H, W, C, Hd, _DTYPES[dt], float(eps), _stream(x_img))
     LAUNCHES["lewin_ffn"] += 1
+    return out
+
+
+def _merged_scratch(x_img, Hd: int, freq: bool) -> torch.Tensor:
+    """The merged kernels' working buffer (csrc/merged.cuh): per pixel the
+    LN'd / attention rows, qkv, (the intra output,) u and both hidden rows."""
+    B, H, W, C = x_img.shape
+    cols = kpad(C) + 3 * C + (C if freq else 0) + C + Hd + kpad(Hd)
+    return torch.empty(B * H * W * cols, dtype=x_img.dtype,
+                       device=x_img.device)
+
+
+# the merged kernels' phases, in order: slot i + 1 of a ``stamps`` tensor
+# holds the device clock (ns) at the end of phase i, slot 0 the start
+MERGED_PHASES = ("LN1 + window gather", "qkv product", "attention core",
+                 "projection + scatter", "LN2", "fc1 + GELU",
+                 "depthwise conv + GELU", "fc2 + residual")
+FREQ_MERGED_PHASES = (MERGED_PHASES[:3]
+                      + ("intra projection", "band regroup",
+                         "inter qkv product", "inter attention core",
+                         "inter projection + scatter") + MERGED_PHASES[4:])
+MERGED_STAMPS = 16
+
+
+def _stamps(stamps, x: torch.Tensor) -> None:
+    if stamps is not None and (
+            stamps.dtype != torch.int64 or stamps.device != x.device
+            or stamps.numel() < MERGED_STAMPS or not stamps.is_contiguous()):
+        raise ValueError(f"stamps: a contiguous int64 tensor of "
+                         f"{MERGED_STAMPS} on {x.device}")
+
+
+def merged_kernel(x_img, ln1s, ln1b, attn: AttnOperands, mask, lam, ln2s,
+                  ln2b, ffn: FfnOperands, win: int, shift: int, eps: float,
+                  dps1, dps2, stamps=None):
+    """Launch K4 (:func:`block_merged`) on the TRUE-layout ``x_img
+    [B, H, W, C]`` (CUDA) with the operands of both halves: one launch.
+    ``stamps``, an int64 tensor of :data:`MERGED_STAMPS`, receives the
+    device clock at the start and after each of :data:`MERGED_PHASES`."""
+    from .build import load
+
+    B, H, W, C = x_img.shape
+    h = attn.heads
+    n = win * win
+    nW = (H // win) * (W // win)
+    _check(x_img, ln1s, ln2s, mask, lam, dps1, dps2)
+    if H % win or W % win or C % h or not 0 <= shift < win:
+        raise ValueError(f"unsupported shape {tuple(x_img.shape)}, h={h}, "
+                         f"win={win}, shift={shift}")
+    _check_attn_operands(attn, x_img, (h, n, n))
+    Hd = _check_ffn_operands(ffn, x_img)
+    _stamps(stamps, x_img)
+    mask = _f32(mask, (nW, n, n))
+    lam = _f32(lam, (B, h))
+    dps1, dps2 = _f32(dps1, (B,)), _f32(dps2, (B,))
+    ln1s, ln1b = _f32(ln1s, (C,)), _f32(ln1b, (C,))
+    ln2s, ln2b = _f32(ln2s, (C,)), _f32(ln2b, (C,))
+    dt = x_img.dtype
+    # bound to names until the launch returns, the scratch included
+    scratch = _merged_scratch(x_img, Hd, False)
+    out = torch.empty_like(x_img)
+    _run(load().fairm_lewin_merged, _ptr(x_img), _ptr(ln1s), _ptr(ln1b),
+         _ptr(attn.wqkv), _ptr(attn.bqkv), _ptr(attn.wp), _ptr(attn.bp),
+         _ptr(attn.bias), _ptr(mask), _ptr(lam), _ptr(dps1), _ptr(ln2s),
+         _ptr(ln2b), _ptr(ffn.w1), _ptr(ffn.b1), _ptr(ffn.wd), _ptr(ffn.bd),
+         _ptr(ffn.w2), _ptr(ffn.b2), _ptr(dps2), _ptr(scratch), _ptr(out),
+         _ptr(stamps), scratch.numel(), B, H, W, C, h, win, shift, Hd,
+         _DTYPES[dt],
+         float(eps), _stream(x_img))
+    LAUNCHES["lewin_merged"] += 1
+    return out
+
+
+def freq_merged_kernel(x_img, ln1s, ln1b, intra: AttnOperands,
+                       inter: AttnOperands, mask, ln2s, ln2b,
+                       ffn: FfnOperands, L: int, win: int, shift: int,
+                       eps: float, dps1, dps2, stamps=None):
+    """Launch K5 (:func:`block_freq_merged`) on the TRUE-layout band-major
+    ``x_img [L*B, H, W, C]`` (CUDA) with the operands of the three parts:
+    one launch. ``stamps`` as in :func:`merged_kernel`, for
+    :data:`FREQ_MERGED_PHASES`."""
+    from .build import load
+
+    LB, H, W, C = x_img.shape
+    h = intra.heads
+    n = win * win
+    nW = (H // win) * (W // win)
+    _check(x_img, ln1s, ln2s, mask, dps1, dps2)
+    if (H % win or W % win or C % h or LB % L or inter.heads != h
+            or not 0 <= shift < win):
+        raise ValueError(f"unsupported shape {tuple(x_img.shape)}, h={h}, "
+                         f"L={L}, win={win}, shift={shift}")
+    _check_attn_operands(intra, x_img, (L, h, n, n) if L > 1 else (h, n, n))
+    _check_attn_operands(inter, x_img, (h, L * n, L * n))
+    Hd = _check_ffn_operands(ffn, x_img)
+    _stamps(stamps, x_img)
+    mask = _f32(mask, (nW, n, n))
+    dps1, dps2 = _f32(dps1, (LB,)), _f32(dps2, (LB,))
+    ln1s, ln1b = _f32(ln1s, (C,)), _f32(ln1b, (C,))
+    ln2s, ln2b = _f32(ln2s, (C,)), _f32(ln2b, (C,))
+    dt = x_img.dtype
+    scratch = _merged_scratch(x_img, Hd, True)
+    out = torch.empty_like(x_img)
+    _run(load().fairm_freq_merged, _ptr(x_img), _ptr(ln1s), _ptr(ln1b),
+         _ptr(intra.wqkv), _ptr(intra.bqkv), _ptr(intra.wp), _ptr(intra.bp),
+         _ptr(intra.bias), _ptr(inter.wqkv), _ptr(inter.bqkv), _ptr(inter.wp),
+         _ptr(inter.bp), _ptr(inter.bias), _ptr(mask), _ptr(dps1), _ptr(ln2s),
+         _ptr(ln2b), _ptr(ffn.w1), _ptr(ffn.b1), _ptr(ffn.wd), _ptr(ffn.bd),
+         _ptr(ffn.w2), _ptr(ffn.b2), _ptr(dps2), _ptr(scratch), _ptr(out),
+         _ptr(stamps), scratch.numel(), LB, H, W, C, h, win, shift, L, Hd,
+         _DTYPES[dt],
+         float(eps), _stream(x_img))
+    LAUNCHES["freq_merged"] += 1
     return out
 
 
@@ -471,3 +645,53 @@ def block_ffn(x_img, lns, lnb, w1, b1, wd, bd, w2, b2, eps: float = 1e-6,
                                dps)
     op = _kernel_operands(x_img, ffn_operands, w1, b1, wd, bd, w2, b2)
     return ffn_kernel(x_img, lns, lnb, op, eps, dps)
+
+
+def block_merged(x_img, ln1s, ln1b, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp,
+                 bias, mask, lam, ln2s, ln2b, w1, b1, wd, bd, w2, b2,
+                 win: int = 8, shift: int = 0, eps: float = 1e-6, dps1=None,
+                 dps2=None):
+    """One whole origin-MSA LeWin block on the TRUE-layout image:
+    ``u = x + dps1 * unroll(proj(win_attn(LN1(roll(x)))))`` rounded to
+    x's dtype, then ``out = u + dps2 * LeFF(LN2(u))``. ``shift`` is 0 or
+    ``win // 2``; ``mask [nW, n, n]`` is indexed by the window of the
+    ROLLED image. Arguments as :func:`block_attention` then
+    :func:`block_ffn`. Equal to ``block_ffn(unroll(block_attention(roll
+    (x))))`` in one launch, without the roll passes."""
+    if x_img.device.type == "cpu":
+        return block_merged_plain(x_img, ln1s, ln1b, wq3, bq3, wk3, bk3, wv3,
+                                  bv3, wp3, bp, bias, mask, lam, ln2s, ln2b,
+                                  w1, b1, wd, bd, w2, b2, win, shift, eps,
+                                  dps1, dps2)
+    attn = _kernel_operands(x_img, attn_operands, wq3, bq3, wk3, bk3, wv3,
+                            bv3, wp3, bp, bias)
+    ffn = _kernel_operands(x_img, ffn_operands, w1, b1, wd, bd, w2, b2)
+    return merged_kernel(x_img, ln1s, ln1b, attn, mask, lam, ln2s, ln2b, ffn,
+                         win, shift, eps, dps1, dps2)
+
+
+def block_freq_merged(x_img, ln1s, ln1b, wq3A, bq3A, wk3A, bk3A, wv3A, bv3A,
+                      wp3A, bpA, biasA, wq3B, bq3B, wk3B, bk3B, wv3B, bv3B,
+                      wp3B, bpB, biasB, mask, ln2s, ln2b, w1, b1, wd, bd, w2,
+                      b2, L: int = 1, win: int = 8, shift: int = 0,
+                      eps: float = 1e-6, dps1=None, dps2=None):
+    """One whole frequency-MSA LeWin block on the TRUE-layout band-major
+    batch ``x_img [L*B, H, W, C]``: ``u = x + dps1 * unroll(inter(intra(
+    LN1(roll(x)))))``, then ``out = u + dps2 * LeFF(LN2(u))``. The A
+    weights and ``biasA [L, h, n, n]`` are :func:`freq_intra`'s, the B
+    weights and ``biasB [h, L*n, L*n]`` :func:`freq_inter`'s; ``dps1``,
+    ``dps2 [L*B]`` by the folded sample. Equal to the chain of the three
+    entry points around ``torch.roll``, in one launch."""
+    if x_img.device.type == "cpu":
+        return block_freq_merged_plain(
+            x_img, ln1s, ln1b, wq3A, bq3A, wk3A, bk3A, wv3A, bv3A, wp3A, bpA,
+            biasA, wq3B, bq3B, wk3B, bk3B, wv3B, bv3B, wp3B, bpB, biasB, mask,
+            ln2s, ln2b, w1, b1, wd, bd, w2, b2, L, win, shift, eps, dps1,
+            dps2)
+    intra = _kernel_operands(x_img, attn_operands, wq3A, bq3A, wk3A, bk3A,
+                             wv3A, bv3A, wp3A, bpA, biasA)
+    inter = _kernel_operands(x_img, attn_operands, wq3B, bq3B, wk3B, bk3B,
+                             wv3B, bv3B, wp3B, bpB, biasB)
+    ffn = _kernel_operands(x_img, ffn_operands, w1, b1, wd, bd, w2, b2)
+    return freq_merged_kernel(x_img, ln1s, ln1b, intra, inter, mask, ln2s,
+                              ln2b, ffn, L, win, shift, eps, dps1, dps2)

@@ -148,3 +148,106 @@ def test_block_kernels_follow_a_weight_reload(card, msa):
             got, want = (blk(x, inter) for blk in blocks)
         assert lb.LAUNCHES["lewin_ffn"] == 1
         _check(got, want, torch.float32)
+
+
+def _ffn_w(rng):
+    hd = 4 * C
+    return [_t(rng, C, hd, scale=0.2), _t(rng, hd, scale=0.1),
+            _t(rng, 3, 3, hd, scale=0.2), _t(rng, hd, scale=0.1),
+            _t(rng, hd, C, scale=0.2), _t(rng, C, scale=0.1)]
+
+
+def _ln(rng):
+    return [1.0 + _t(rng, C, scale=0.1), _t(rng, C, scale=0.1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 4])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_block_merged_kernel(card, dtype, shift):
+    """K4 in one launch: against its twin, and equal to the chain of K1 and
+    K2 around torch.roll."""
+    args = (_attn(card, B, dtype)
+            + [_mask() if shift else None, _t(card, B, H, scale=0.3)]
+            + _ln(card) + _ffn_w(card)
+            + [WIN, shift, 1e-6, _dps(card, B), _dps(card, B)])
+    lb.reset_launches()
+    got = lb.block_merged(*args)
+    assert lb.LAUNCHES == {"lewin_attn": 0, "lewin_ffn": 0, "freq_inter": 0,
+                           "lewin_merged": 1, "freq_merged": 0}
+    _check(got, lb.block_merged_plain(*args), dtype)
+    chain = lb.merged_chain(lb.block_attention, lb.block_ffn, *args)
+    assert torch.equal(got, chain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 4])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_block_freq_merged_kernel(card, dtype, shift):
+    """K5 in one launch: against its twin, and equal to the chain of K1,
+    K3 and K2 around torch.roll."""
+    a = _attn(card, L * B, dtype, groups=L)
+    b = _attn(card, L * B, dtype)
+    args = (a + b[3:11] + [_t(card, H, L * N, L * N, scale=0.05),
+                           _mask() if shift else None]
+            + _ln(card) + _ffn_w(card)
+            + [L, WIN, shift, 1e-6, _dps(card, L * B), _dps(card, L * B)])
+    lb.reset_launches()
+    got = lb.block_freq_merged(*args)
+    assert lb.LAUNCHES["freq_merged"] == 1 and sum(lb.LAUNCHES.values()) == 1
+    _check(got, lb.block_freq_merged_plain(*args), dtype)
+    chain = lb.freq_merged_chain(lb.freq_intra, lb.freq_inter, lb.block_ffn,
+                                 *args)
+    assert torch.equal(got, chain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("msa", ["origin", "freq"])
+def test_merged_block_matches_the_chain_block(card, msa):
+    """LeWinBlock(impl='merged') is one launch and equals impl='kernel'."""
+    kw = (dict(all_bands_dc=True, encoder_embed_dim=4) if msa == "origin"
+          else dict(msa_type="freq", L=L))
+    blocks = [uformer_lewin.LeWinBlock(C, RES, H, shift_size=4, impl=impl,
+                                       **kw).cuda().eval()
+              for impl in ("merged", "kernel")]
+    state = {k: _t(card, *v.shape, scale=0.2)
+             for k, v in blocks[0].state_dict().items()}
+    for blk in blocks:
+        blk.load_state_dict(state)
+    batch = B if msa == "origin" else L * B
+    x = _t(card, batch, RES * RES, C, scale=0.5)
+    inter = [_t(card, batch, 4, 64) for _ in range(3)]
+    lb.reset_launches()
+    with torch.no_grad():
+        got = blocks[0](x, inter)
+        assert sum(lb.LAUNCHES.values()) == 1
+        want = blocks[1](x, inter)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [5, 6, 10])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_merged_kernels_at_widths_off_the_vector_paths(card, monkeypatch,
+                                                       dtype, width):
+    """Widths that are no multiple of 4 take the element-wise forms of the
+    prep pass, the GEMM epilogue and (C=5, bf16) the depthwise conv: K4 and
+    K5 still match their twins and equal the chains."""
+    monkeypatch.setitem(globals(), "C", width)
+    monkeypatch.setitem(globals(), "H", 1)
+    args = (_attn(card, B, dtype) + [_mask(), _t(card, B, 1, scale=0.3)]
+            + _ln(card) + _ffn_w(card)
+            + [WIN, 4, 1e-6, _dps(card, B), _dps(card, B)])
+    got = lb.block_merged(*args)
+    _check(got, lb.block_merged_plain(*args), dtype)
+    assert torch.equal(got, lb.merged_chain(lb.block_attention, lb.block_ffn,
+                                            *args))
+    a = _attn(card, L * B, dtype, groups=L)
+    b = _attn(card, L * B, dtype)
+    args = (a + b[3:11] + [_t(card, 1, L * N, L * N, scale=0.05), _mask()]
+            + _ln(card) + _ffn_w(card)
+            + [L, WIN, 4, 1e-6, _dps(card, L * B), _dps(card, L * B)])
+    got = lb.block_freq_merged(*args)
+    _check(got, lb.block_freq_merged_plain(*args), dtype)
+    assert torch.equal(got, lb.freq_merged_chain(
+        lb.freq_intra, lb.freq_inter, lb.block_ffn, *args))

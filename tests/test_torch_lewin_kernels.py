@@ -198,7 +198,9 @@ def test_cpu_tensors_take_the_plain_twin(rng):
     fargs = list(map(_t, _ffn_np(rng)))
     torch.testing.assert_close(tlb.block_ffn(*fargs),
                                tlb.block_ffn_plain(*fargs), rtol=0, atol=0)
-    assert tlb.LAUNCHES == {"lewin_attn": 0, "lewin_ffn": 0, "freq_inter": 0}
+    assert set(tlb.LAUNCHES) == {"lewin_attn", "lewin_ffn", "freq_inter",
+                                 "lewin_merged", "freq_merged"}
+    assert not any(tlb.LAUNCHES.values())
 
 
 def test_attn_operands_hold_the_per_head_weights(rng):
@@ -249,7 +251,8 @@ def test_build_targets_hopper_and_tracks_sources(tmp_path, monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in flags and "-O3" in flags
     assert cmd is None or cmd[1:len(flags) + 1] == flags
     assert {p.name for p in build.sources()} == {
-        "lewin_attn.cu", "lewin_ffn.cu", "freq_inter.cu"}
+        "lewin_attn.cu", "lewin_ffn.cu", "freq_inter.cu", "lewin_merged.cu",
+        "freq_merged.cu"}
     # the library directory is named by a hash of every csrc file
     for p in build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())

@@ -1,0 +1,277 @@
+"""The port's merged LeWin blocks (``block_merged``, ``block_freq_merged``).
+
+On the CPU each wrapper runs its plain twin, the chain of the plain halves
+around ``torch.roll``. The twins are held to the JAX package's merged Pallas
+kernels run in interpret mode (fp32, 5e-5, the tolerance of the JAX
+package's own merged-kernel tests) and, in bf16, to the XLA chain (2e-2: a
+few bf16 ulps of O(1) values). The softmax takes the per-row max on both
+sides (``FAIRM_STATIC_SHIFT=off``). Inputs come from numpy seeds. The CUDA
+kernels are held to the twins on the card by
+``tests/test_torch_cuda_kernels.py`` and ``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from frequency_wised_all_in_one_image_restoration_model_tpu.ops import (
+    windows as jwin)
+from frequency_wised_all_in_one_image_restoration_model_tpu.ops.pallas import (
+    lewin_block as jlb)
+from frequency_wised_all_in_one_image_restoration_model_tpu_torch.models import (
+    uformer_lewin)
+from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops.kernels import (
+    lewin_block as tlb)
+
+B, C, H, L, WIN = 2, 16, 2, 3, 8
+N = WIN * WIN
+TOL = 5e-5        # fp32, a whole block (two or three kernels deep)
+BF16_TOL = 2e-2
+
+
+@pytest.fixture(autouse=True)
+def _row_max_softmax(monkeypatch):
+    monkeypatch.setenv("FAIRM_STATIC_SHIFT", "off")
+
+
+def _np(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _attn_w(rng):
+    d = C // H
+    qkv = [_np(rng, H, C, d, scale=0.2) if i % 2 == 0 else
+           _np(rng, H, d, scale=0.1) for i in range(6)]
+    return qkv + [_np(rng, H, d, C, scale=0.2), _np(rng, C, scale=0.1)]
+
+
+def _ln(rng):
+    return [1.0 + _np(rng, C, scale=0.1), _np(rng, C, scale=0.1)]
+
+
+def _ffn_w(rng):
+    hd = 4 * C
+    return [_np(rng, C, hd, scale=0.2), _np(rng, hd, scale=0.1),
+            _np(rng, 3, 3, hd, scale=0.2), _np(rng, hd, scale=0.1),
+            _np(rng, hd, C, scale=0.2), _np(rng, C, scale=0.1)]
+
+
+def _mask(res, shift):
+    return jwin.shift_attn_mask(res, res, WIN, shift) if shift else None
+
+
+def _dps(rng, n, on):
+    return (rng.random(n) < 0.5).astype(np.float32) / 0.5 if on else None
+
+
+def _t(a, dtype=torch.float32):
+    return None if a is None else torch.from_numpy(a).to(dtype)
+
+
+def _j(a, dtype=jnp.float32):
+    return None if a is None else jnp.asarray(a).astype(dtype)
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def _merged_np(rng, res, shift, use_lam, use_dps):
+    """(args up to b2, dps1, dps2) of block_merged, as numpy."""
+    args = ([_np(rng, B, res, res, C, scale=0.5)] + _ln(rng) + _attn_w(rng)
+            + [_np(rng, H, N, N, scale=0.05), _mask(res, shift),
+               _np(rng, B, H, scale=0.3) if use_lam else None]
+            + _ln(rng) + _ffn_w(rng))
+    return args, _dps(rng, B, use_dps), _dps(rng, B, use_dps)
+
+
+def _freq_np(rng, res, shift, use_dps):
+    """(args up to b2, dps1, dps2) of block_freq_merged, as numpy."""
+    args = ([_np(rng, L * B, res, res, C, scale=0.5)] + _ln(rng)
+            + _attn_w(rng) + [_np(rng, L, H, N, N, scale=0.05)]
+            + _attn_w(rng) + [_np(rng, H, L * N, L * N, scale=0.05),
+                              _mask(res, shift)]
+            + _ln(rng) + _ffn_w(rng))
+    return args, _dps(rng, L * B, use_dps), _dps(rng, L * B, use_dps)
+
+
+@pytest.mark.parametrize("use_dps", [False, True])
+@pytest.mark.parametrize("use_lam", [False, True])
+@pytest.mark.parametrize("shift", [0, 4])
+def test_block_merged_plain_matches_pallas(rng, shift, use_lam, use_dps):
+    args, d1, d2 = _merged_np(rng, 16, shift, use_lam, use_dps)
+    got = tlb.block_merged(*map(_t, args), WIN, shift, 1e-6, _t(d1), _t(d2))
+    want = jlb.fused_block_merged(*map(_j, args), WIN, shift, 1e-6, True,
+                                  _j(d1), _j(d2))
+    _close(got, want)
+
+
+def test_block_merged_plain_matches_pallas_multi_tile(rng, monkeypatch):
+    """Res 64 with the Pallas kernel forced to several row tiles, so its
+    carry across grid steps (and the wrap-around tile of the shifted block)
+    is on the reference side of the comparison."""
+    monkeypatch.setenv("FAIRM_MERGED_T_MB", "1")
+    args, d1, d2 = _merged_np(rng, 64, 4, True, True)
+    assert jlb._merged_choose_t(64, 64, C, 4 * C, WIN, 4) < 64
+    got = tlb.block_merged_plain(*map(_t, args), WIN, 4, 1e-6, _t(d1), _t(d2))
+    want = jlb.fused_block_merged(*map(_j, args), WIN, 4, 1e-6, True, _j(d1),
+                                  _j(d2))
+    _close(got, want)
+
+
+@pytest.mark.parametrize("use_dps", [False, True])
+@pytest.mark.parametrize("shift", [0, 4])
+def test_block_freq_merged_plain_matches_pallas(rng, shift, use_dps):
+    args, d1, d2 = _freq_np(rng, 16, shift, use_dps)
+    got = tlb.block_freq_merged(*map(_t, args), L, WIN, shift, 1e-6, _t(d1),
+                                _t(d2))
+    want = jlb.fused_block_freq_merged(*map(_j, args), L, WIN, shift, 1e-6,
+                                       True, _j(d1), _j(d2))
+    _close(got, want)
+
+
+def _bf16_x(args, conv, dtype):
+    return [conv(args[0], dtype)] + [conv(a) for a in args[1:]]
+
+
+def test_block_merged_plain_bf16_matches_xla_chain(rng):
+    """bf16: u is rounded to bf16 between the halves on both sides."""
+    args, d1, d2 = _merged_np(rng, 16, 4, True, True)
+    got = tlb.block_merged_plain(*_bf16_x(args, _t, torch.bfloat16), WIN, 4,
+                                 1e-6, _t(d1), _t(d2))
+    a = _bf16_x(args, _j, jnp.bfloat16)
+    u = jlb._xla_block_attention(jnp.roll(a[0], (-4, -4), axis=(1, 2)),
+                                 *a[1:14], WIN, 1e-6, dps=_j(d1))
+    assert u.dtype == jnp.bfloat16
+    want = jlb._xla_block_ffn(jnp.roll(u, (4, 4), axis=(1, 2)), *a[14:], 1e-6,
+                              dps=_j(d2))
+    assert got.dtype == torch.bfloat16
+    _close(got, want, BF16_TOL)
+
+
+def test_block_freq_merged_plain_bf16_matches_xla_chain(rng):
+    args, _, d2 = _freq_np(rng, 16, 4, True)
+    got = tlb.block_freq_merged_plain(*_bf16_x(args, _t, torch.bfloat16), L,
+                                      WIN, 4, 1e-6, None, _t(d2))
+    a = _bf16_x(args, _j, jnp.bfloat16)
+    mask = a[21]
+    img = jnp.roll(a[0], (-4, -4), axis=(1, 2))
+    y1 = jlb._xla_freq_intra(img, *a[1:12], mask, L, WIN, 1e-6)
+    u = jlb._xla_freq_inter(y1, img, *a[12:21], mask, L, WIN, 1e-6)
+    want = jlb._xla_block_ffn(jnp.roll(u, (4, 4), axis=(1, 2)), *a[22:], 1e-6,
+                              dps=_j(d2))
+    _close(got, want, BF16_TOL)
+
+
+def test_merged_twins_are_the_chains_of_the_halves(rng):
+    """The twin of a merged block is, bit for bit, roll -> attention twin(s)
+    -> roll back -> FFN twin."""
+    args, d1, d2 = _merged_np(rng, 16, 4, True, True)
+    a = list(map(_t, args))
+    u = tlb.block_attention_plain(torch.roll(a[0], (-4, -4), (1, 2)), *a[1:14],
+                                  WIN, 1e-6, _t(d1))
+    want = tlb.block_ffn_plain(torch.roll(u, (4, 4), (1, 2)), *a[14:], 1e-6,
+                               _t(d2))
+    torch.testing.assert_close(
+        tlb.block_merged_plain(*a, WIN, 4, 1e-6, _t(d1), _t(d2)), want,
+        rtol=0, atol=0)
+
+
+def test_cpu_tensors_take_the_merged_twins(rng):
+    """A merged wrapper given CPU tensors runs its twin and counts no
+    kernel launch."""
+    tlb.reset_launches()
+    args, d1, d2 = _merged_np(rng, 16, 4, True, True)
+    a = list(map(_t, args))
+    torch.testing.assert_close(
+        tlb.block_merged(*a, WIN, 4, 1e-6, _t(d1), _t(d2)),
+        tlb.block_merged_plain(*a, WIN, 4, 1e-6, _t(d1), _t(d2)),
+        rtol=0, atol=0)
+    args, d1, d2 = _freq_np(rng, 16, 4, True)
+    a = list(map(_t, args))
+    torch.testing.assert_close(
+        tlb.block_freq_merged(*a, L, WIN, 4, 1e-6, _t(d1), _t(d2)),
+        tlb.block_freq_merged_plain(*a, L, WIN, 4, 1e-6, _t(d1), _t(d2)),
+        rtol=0, atol=0)
+    assert not any(tlb.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("msa_type", ["origin", "freq"])
+@pytest.mark.parametrize("impl", ["merged", "default"])
+def test_lewin_block_routes_agree_on_the_cpu(msa_type, impl):
+    """On a CPU tensor every route of a LeWinBlock runs the plain twins:
+    'merged' and 'default' equal 'kernel' exactly."""
+    def block(which):
+        torch.manual_seed(0)
+        blk = uformer_lewin.LeWinBlock(
+            C, 16, H, shift_size=4, msa_type=msa_type, L=L,
+            all_bands_dc=msa_type == "origin", encoder_embed_dim=2,
+            impl=which).eval()
+        for p in blk.parameters():
+            torch.nn.init.normal_(p, std=0.1)
+        return blk
+
+    n = L * B if msa_type == "freq" else B
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(n, 16 * 16, C, generator=g)
+    inter = [torch.randn(B, 16 * 16 // 64, 32, generator=g) for _ in range(L)]
+    with torch.no_grad():
+        want = block("kernel")(x, inter)
+        got = block(impl)(x, inter)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("msa_type,res,shift,dtype,batch,want", [
+    ("origin", 128, 4, torch.bfloat16, 32, "merged"),
+    ("origin", 32, 4, torch.bfloat16, 32, "merged"),
+    ("origin", 128, 0, torch.bfloat16, 32, "kernel"),   # no roll to absorb
+    ("origin", 16, 4, torch.bfloat16, 32, "kernel"),
+    ("origin", 8, 4, torch.bfloat16, 32, "kernel"),  # res == win: never shifted
+    ("freq", 64, 4, torch.bfloat16, 32, "kernel"),
+    ("origin", 128, 4, torch.float32, 32, "kernel"),
+    # the batch: merged from 32768 tokens (images x res^2) up
+    ("origin", 128, 4, torch.bfloat16, 2, "merged"),
+    ("origin", 128, 4, torch.bfloat16, 1, "kernel"),
+    ("origin", 64, 4, torch.bfloat16, 8, "merged"),
+    ("origin", 64, 4, torch.bfloat16, 7, "kernel"),
+    ("origin", 32, 4, torch.bfloat16, 16, "kernel"),
+    ("origin", 16, 4, torch.bfloat16, 128, "kernel"),   # not in the table
+])
+def test_default_route_follows_the_measured_table(msa_type, res, shift, dtype,
+                                                  batch, want):
+    """impl='default' takes the merged kernel exactly for the blocks in
+    DEFAULT_MERGED (shifted origin blocks at the byte-bound stages in bf16)
+    on a batch of at least MERGED_MIN_TOKENS tokens; a fixed impl is its own
+    route whatever the block and the batch."""
+    kw = dict(msa_type=msa_type, L=L, all_bands_dc=msa_type == "origin",
+              encoder_embed_dim=2, shift_size=shift)
+    assert uformer_lewin.LeWinBlock(C, res, H, impl="default",
+                                    **kw).route(dtype, batch) == want
+    for impl in ("kernel", "merged", "plain"):
+        assert uformer_lewin.LeWinBlock(C, res, H, impl=impl,
+                                        **kw).route(dtype, batch) == impl
+    assert uformer_lewin.MERGED_MIN_TOKENS == 32768
+    for key in uformer_lewin.DEFAULT_MERGED:
+        assert key[0] in ("origin", "freq") and key[1] in (128, 64, 32, 16, 8)
+
+
+def test_lewin_block_rejects_unknown_impl():
+    with pytest.raises(ValueError, match="impl"):
+        uformer_lewin.LeWinBlock(C, 16, H, impl="fused")
+
+
+def test_merged_kernels_refuse_cpu_tensors(rng):
+    """The launchers take CUDA tensors only: nothing falls back."""
+    args, d1, d2 = _merged_np(rng, 16, 0, False, False)
+    a = list(map(_t, args))
+    attn = tlb.attn_operands(*a[3:12], torch.float32)
+    ffn = tlb.ffn_operands(*a[16:], torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tlb.merged_kernel(a[0], a[1], a[2], attn, None, None, a[14], a[15],
+                          ffn, WIN, 0, 1e-6, None, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        tlb.freq_merged_kernel(a[0], a[1], a[2], attn, attn, None, a[14],
+                               a[15], ffn, 1, WIN, 0, 1e-6, None, None)
