@@ -8,8 +8,9 @@ Phases, each fatal on failure:
 
 1. the card: needs ``torch.cuda.is_available()``; prints the card's name
    and power limit;
-2. build: compiles the five LeWin-block kernels from ``csrc/`` into
-   ``build/kernels/``, one ``nvcc`` per source, all started together;
+2. build: compiles the eight LeWin-block kernels (five forward, three
+   backward) from ``csrc/`` into ``build/kernels/``, one ``nvcc`` per
+   source, all started together;
 3. per-kernel check: every kernel's wrapper against its plain PyTorch twin
    on the card at the flagship shapes, in bf16 and fp32 (TF32 off), the
    merged kernels K4 / K5 also against the chain of kernels they equal;
@@ -33,16 +34,31 @@ Phases, each fatal on failure:
 6. timing: restored MP/s at 128x128, B=32, bf16: plain, chain, merged,
    default, default, merged, chain, plain in one process;
 7. profile: where the device time of one default-route forward goes
-   (``torch.profiler``), beside its time by CUDA events.
+   (``torch.profiler``), beside its time by CUDA events;
+8. backward kernels: K6 (attention / intra), K7 (FFN) and K8 (inter)
+   against their plain twins at flagship stage shapes and the training
+   batch, in bf16 and fp32, every output compared (``dx`` and each weight
+   gradient), two launches of a case giving equal bits, with times and
+   bounds; then each autograd Function's gradients against
+   ``torch.autograd.grad`` of the forward twin;
+9. training, the main path of the training slice: the entry point
+   ``<port>.train.main`` on the synthetic loader at full width, B=4,
+   bfloat16 (two phase-A steps, two joint steps, the end-of-epoch eval, the
+   checkpoints; losses finite, the queue pointer advanced, the key encoder
+   moved, ``train.log`` / ``results.log`` in the reference's format, launch
+   counts held against fixed numbers); one joint step by the default route
+   against the plain route from the same state (loss and every gradient,
+   fp32 and bf16); the step time and its forward / backward / optimizer
+   split by CUDA events.
 
-``--phases 3 4`` runs only those of phases 3-7, for work on one of them:
+``--phases 3 4`` runs only those of phases 3-9, for work on one of them:
 such a partial run prints neither of the two result lines and exits with
 2. The whole run fails too if anything of JAX or of the JAX package was
 imported. Its line before the last is ``{"kernels": [...]}``, where
 ``launches`` is the sum of ``launches_by_path`` (the entry point in
 float32 and in bfloat16 on the default route, the requests by the chain
 and by the merged kernels in float32 and by the default route in
-bfloat16); the last line is
+bfloat16, the training entry point in bfloat16); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with 1 and prints no result.
 """
@@ -50,9 +66,11 @@ with 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -66,13 +84,18 @@ PKG = "frequency_wised_all_in_one_image_restoration_model_tpu_torch"
 JAX_ROOTS = ("jax", "jaxlib", "flax",
              "frequency_wised_all_in_one_image_restoration_model_tpu")
 PALLAS = "frequency_wised_all_in_one_image_restoration_model_tpu/ops/pallas/lewin_block.py"
+PALLAS_BWD = PALLAS.replace("lewin_block.py", "lewin_block_bwd.py")
 KERNELS = {  # counter name -> (source, the Pallas kernel it replaces)
     "lewin_attn": (f"{PKG}/csrc/lewin_attn.cu", f"{PALLAS}:119"),
     "lewin_ffn": (f"{PKG}/csrc/lewin_ffn.cu", f"{PALLAS}:805"),
     "freq_inter": (f"{PKG}/csrc/freq_inter.cu", f"{PALLAS}:1283"),
     "lewin_merged": (f"{PKG}/csrc/lewin_merged.cu", f"{PALLAS}:1660"),
     "freq_merged": (f"{PKG}/csrc/freq_merged.cu", f"{PALLAS}:2126"),
+    "lewin_attn_bwd": (f"{PKG}/csrc/lewin_attn_bwd.cu", f"{PALLAS_BWD}:121"),
+    "lewin_ffn_bwd": (f"{PKG}/csrc/lewin_ffn_bwd.cu", f"{PALLAS_BWD}:480"),
+    "freq_inter_bwd": (f"{PKG}/csrc/freq_inter_bwd.cu", f"{PALLAS_BWD}:676"),
 }
+BWD_KERNELS = ("lewin_attn_bwd", "lewin_ffn_bwd", "freq_inter_bwd")
 # per-kernel tolerance on max|kernel - plain| / max(1, max|plain|): fp32
 # differs only in summation order; bf16 rounds q/k/v, the hidden and the
 # output at other places than the plain path (a few bf16 ulps)
@@ -88,6 +111,18 @@ FORWARD_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 CHAIN_TOL = KERNEL_TOL
 # the entry point's PSNR / SSIM on the card against a CPU copy
 PSNR_TOL, SSIM_TOL = 1e-3, 1e-5
+# backward kernels against their twins, on the same measure per output: the
+# weight gradients are sums over up to 196608 rows, in fp32 in another
+# order; in bf16 the recomputed qkv / hidden values round an ulp apart
+BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+# a Function's gradients (forward kernel + backward kernel) against autograd
+# of the forward twin, which in bf16 rounds every gradient to bf16 on its way
+FUNCTION_TOL = {torch.float32: 5e-4, torch.bfloat16: 6e-2}
+# one joint training step, default route against plain route from one state:
+# |loss difference|, and per parameter max|g - g_plain| over
+# max(max|g_plain|, 1e-3 of the largest gradient of the step)
+STEP_LOSS_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+STEP_GRAD_TOL = {"float32": 1e-2, "bfloat16": 0.5}
 ZERO = {name: 0 for name in KERNELS}
 CHAIN_COUNTS = {**ZERO, "lewin_attn": 54, "lewin_ffn": 54, "freq_inter": 10}
 MERGED_COUNTS = {**ZERO, "lewin_merged": 44, "freq_merged": 10}
@@ -104,6 +139,28 @@ def default_counts(dtype: str, B: int) -> dict:
     k4 = DEFAULT_MERGED_BLOCKS[B] if dtype == "bfloat16" else 0
     return {**ZERO, "lewin_attn": 54 - k4, "lewin_ffn": 54 - k4,
             "freq_inter": 10, "lewin_merged": k4}
+TRAIN_BATCH = 4          # the training CLI's batch: one sample per task
+
+
+def train_step_counts(joint: bool) -> dict:
+    """Launches of one training step at B=4 in bf16 on the default route.
+    The encoder's 10 frequency blocks take the chain: forward by the key and
+    by the query encoder (K1 intra, K3, K2 each), backward K6, K8, K7. The
+    joint step adds the decoder's 44 blocks, 2 of them merged at this batch
+    (the shifted blocks at res 128): forward K1 / K2 or K4, backward K6 and
+    K7 for every block."""
+    c = {**ZERO, "lewin_attn": 20, "freq_inter": 20, "lewin_ffn": 20,
+         "lewin_attn_bwd": 10, "freq_inter_bwd": 10, "lewin_ffn_bwd": 10}
+    if joint:
+        k4 = DEFAULT_MERGED_BLOCKS[TRAIN_BATCH]
+        c["lewin_attn"] += 44 - k4
+        c["lewin_ffn"] += 44 - k4
+        c["lewin_merged"] += k4
+        c["lewin_attn_bwd"] += 44
+        c["lewin_ffn_bwd"] += 44
+    return c
+
+
 P = 128
 BATCH = 32
 # tiles in one batch of the eval entry point on the synthetic test sets,
@@ -116,7 +173,7 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
-ALL_PHASES = frozenset((3, 4, 5, 6, 7))
+ALL_PHASES = frozenset((3, 4, 5, 6, 7, 8, 9))
 
 
 class Failed(Exception):
@@ -144,7 +201,7 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor,
-            tol: float) -> float:
+            tol: float, floor: float = 1.0) -> float:
     got, want = got.float(), want.float()
     if got.shape != want.shape:
         raise Failed(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
@@ -152,10 +209,11 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor,
         raise Failed(f"{name}: non-finite kernel output")
     err = (got - want).abs().max().item()
     ref = want.abs().max().item()
-    rel = err / max(1.0, ref)
+    rel = err / max(floor, ref)
     verdict = "ok" if rel <= tol else "FAIL"
     print(f"  {name}: max_abs {err:.3e} max|ref| {ref:.3e} "
-          f"err/max(1,|ref|) {rel:.3e} tol {tol:.0e} {verdict}", flush=True)
+          f"err/max({floor:.3g},|ref|) {rel:.3e} tol {tol:.0e} {verdict}",
+          flush=True)
     if rel > tol:
         raise Failed(f"{name}: error {rel:.3e} over tolerance {tol:.0e}")
     return err
@@ -434,11 +492,11 @@ def check_kernels(lb, windows, default_merged, min_tokens, stats, card: str):
               + ("  [default: merged]" if default else ""), flush=True)
 
 
-def flagship_config(config, dtype: str, **overrides):
+def flagship_config(config, eval_dtype: str, **overrides):
     return config.make_config(
         encoder_type="Uformer", decoder_type="Uformer", L=3,
         encoder_msa_type="freq", degradation_embedding_method=["all_DC"],
-        patch_size=P, eval_dtype=dtype, seed=0, **overrides)
+        patch_size=P, eval_dtype=eval_dtype, seed=0, **overrides)
 
 
 class Bundles:
@@ -720,11 +778,438 @@ def profile(bundles, airnet, card: str, top: int = 15):
         print(f"  {us / 1e3:9.3f} ms x {n:4d}  {name[:110]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the backward kernels
+# ---------------------------------------------------------------------------
+
+
+class BwdCase(NamedTuple):
+    """One backward kernel at one shape: ``run()`` launches it, ``plain()``
+    is its twin on the same inputs; both return the tuple of gradients."""
+    kernel: str
+    label: str
+    run: Callable
+    plain: Callable
+    flops: float
+    nbytes: int
+
+
+def bwd_cases(lb, windows, dtype, B):
+    """K6-K8 at flagship stage shapes and the training batch: the decoder's
+    res 128 (C=56) and res 8 (C=896) blocks, the encoder's res 128 (C=28,
+    L=3 bands) and res 8 (C=448) blocks; shifted and unshifted, with and
+    without lam. The operations counted are the products' (the recomputed
+    forward ones included); bytes: x and g read, dx written, weights read
+    and their gradients written."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dev, L, n = "cuda", 3, 64
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def attn_weights(C, h):
+        d = C // h
+        qkv = [rnd(h, C, d, scale=C ** -0.5) if i % 2 == 0 else
+               rnd(h, d, scale=0.1) for i in range(6)]
+        return qkv + [rnd(h, d, C, scale=C ** -0.5), rnd(C, scale=0.1)]
+
+    def ln(C):
+        return [1 + rnd(C, scale=0.1), rnd(C, scale=0.1)]
+
+    def mask_of(res, shift):
+        if not shift:
+            return None
+        return torch.from_numpy(windows.shift_attn_mask(res, res, 8, shift)).to(dev)
+
+    def nbytes(x, *weights):
+        return (3 * x.numel() * x.element_size()
+                + 2 * sum(w.numel() * 4 for w in weights if w is not None))
+
+    def attn_flops(M, C, keys):
+        return 2.0 * M * C * (11 * C + 6 * keys)
+
+    cases = []
+    for res, C, h, shift, with_lam in ((128, 56, 1, 4, True),
+                                       (128, 56, 1, 0, False),
+                                       (8, 896, 16, 0, True)):
+        x, g = rnd(B, res, res, C).to(dtype), rnd(B, res, res, C).to(dtype)
+        args = [x, g, *ln(C), *attn_weights(C, h), rnd(h, n, n, scale=0.05),
+                mask_of(res, shift), rnd(B, h, scale=0.3) if with_lam else None,
+                8, 1e-6, True, 1]
+        cases.append(BwdCase(
+            "lewin_attn_bwd",
+            f"attn_block_bwd res{res} C{C} h{h} shift{shift}"
+            + (" lam" if with_lam else ""),
+            lambda a=args: lb.attn_block_bwd(*a),
+            lambda a=args: lb.attn_block_bwd_plain(*a),
+            attn_flops(B * res * res, C, n), nbytes(x, *args[2:13])))
+    for res, C, h, shift in ((128, 28, 1, 4), (8, 448, 16, 0)):
+        LB = L * B
+        x, g = rnd(LB, res, res, C).to(dtype), rnd(LB, res, res, C).to(dtype)
+        aw, mask = attn_weights(C, h), mask_of(res, shift)
+        args = [x, g, *ln(C), *aw, rnd(L, h, n, n, scale=0.05), mask, None, 8,
+                1e-6, False, L]
+        cases.append(BwdCase(
+            "lewin_attn_bwd", f"intra bwd res{res} C{C} h{h} shift{shift} L{L}",
+            lambda a=args: lb.attn_block_bwd(*a),
+            lambda a=args: lb.attn_block_bwd_plain(*a),
+            attn_flops(LB * res * res, C, n), nbytes(x, *args[2:13])))
+        args = [x, g, *aw, rnd(h, L * n, L * n, scale=0.05), mask, L, 8]
+        cases.append(BwdCase(
+            "freq_inter_bwd", f"freq_inter_bwd res{res} C{C} h{h} shift{shift} L{L}",
+            lambda a=args: lb.freq_inter_bwd(*a),
+            lambda a=args: lb.freq_inter_bwd_plain(*a),
+            attn_flops(LB * res * res, C, L * n), nbytes(x, *args[2:11])))
+    for images, res, C in ((B, 128, 56), (L * B, 128, 28), (B, 8, 896)):
+        Hd = 4 * C
+        x, g = rnd(images, res, res, C).to(dtype), rnd(images, res, res, C).to(dtype)
+        args = [x, g, *ln(C), rnd(C, Hd, scale=C ** -0.5), rnd(Hd, scale=0.1),
+                rnd(3, 3, Hd, scale=1 / 3), rnd(Hd, scale=0.1),
+                rnd(Hd, C, scale=Hd ** -0.5), rnd(C, scale=0.1), 1e-6]
+        M = images * res * res
+        cases.append(BwdCase(
+            "lewin_ffn_bwd", f"ffn_block_bwd res{res} C{C} images{images}",
+            lambda a=args: lb.ffn_block_bwd(*a),
+            lambda a=args: lb.ffn_block_bwd_plain(*a),
+            2.0 * M * Hd * (5 * C + 27), nbytes(x, *args[2:10])))
+    return cases
+
+
+def compare_all(label, got, want, tol) -> float:
+    """Every output against the twin's. Output 0 is dx, on the measure of the
+    forward checks. The others are sums over all rows: each is measured
+    against max(1, its own largest value, 1% of the largest value of any of
+    them), because a sum that is zero in exact arithmetic (the k bias's
+    gradient: the rows of the logits' gradient sum to zero) holds only the
+    rounding of its terms, which grows with the rows and the terms' size."""
+    if len(got) != len(want):
+        raise Failed(f"{label}: {len(got)} outputs, the twin gives {len(want)}")
+    floor = max([1.0] + [1e-2 * float(b.float().abs().max())
+                         for b in want[1:] if b is not None])
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None or b is None:
+            if a is not b:
+                raise Failed(f"{label}: output {i} is None on one side only")
+            continue
+        worst = max(worst, compare(f"{label} #{i}", a, b, tol,
+                                   floor if i else 1.0))
+    return worst
+
+
+def function_checks(lb, windows, dtype):
+    """The autograd Functions on the card (forward kernel, backward
+    kernels) against ``torch.autograd.grad`` of the plain forward twins:
+    one decoder block (res 32, C=224, shifted, lam, DropPath) by the chain
+    Functions and by BlockMerged, one encoder block (res 32, C=112, L=3) by
+    the chain Functions and by BlockFreqMerged."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    B, L, n, res, shift = TRAIN_BATCH, 3, 64, 32, 4
+    name_dt = str(dtype)[6:]
+
+    def rnd(*shape, scale=1.0, grad=True):
+        t = torch.randn(*shape, generator=gen, device="cuda") * scale
+        return t.requires_grad_() if grad else t
+
+    def attn_weights(C, h):
+        d = C // h
+        qkv = [rnd(h, C, d, scale=C ** -0.5) if i % 2 == 0 else
+               rnd(h, d, scale=0.1) for i in range(6)]
+        return qkv + [rnd(h, d, C, scale=C ** -0.5), rnd(C, scale=0.1)]
+
+    def ln(C):
+        return [(1 + rnd(C, scale=0.1, grad=False)).requires_grad_(),
+                rnd(C, scale=0.1)]
+
+    def ffn_weights(C):
+        Hd = 4 * C
+        return [rnd(C, Hd, scale=C ** -0.5), rnd(Hd, scale=0.1),
+                rnd(3, 3, Hd, scale=1 / 3), rnd(Hd, scale=0.1),
+                rnd(Hd, C, scale=Hd ** -0.5), rnd(C, scale=0.1)]
+
+    def dps_of(count):
+        return (torch.rand(count, generator=gen, device="cuda") < 0.7).float() / 0.7
+
+    mask = torch.from_numpy(windows.shift_attn_mask(res, res, 8, shift)).cuda()
+    tol = FUNCTION_TOL[dtype]
+
+    C, h = 224, 4
+    x = rnd(B, res, res, C, grad=False).to(dtype).requires_grad_()
+    g = rnd(B, res, res, C, grad=False).to(dtype)
+    ln1, aw, bias = ln(C), attn_weights(C, h), rnd(h, n, n, scale=0.05)
+    lam, ln2, fw = rnd(B, h, scale=0.3), ln(C), ffn_weights(C)
+    d1, d2 = dps_of(B), dps_of(B)
+    ins = [x, *ln1, *aw, bias, lam, *ln2, *fw]
+    args = [x, *ln1, *aw, bias, mask, lam, *ln2, *fw, 8, shift, 1e-6, d1, d2]
+    want = torch.autograd.grad(lb.block_merged_plain(*args), ins, g)
+    got = torch.autograd.grad(lb.BlockMerged.apply(*args), ins, g)
+    compare_all(f"BlockMerged {name_dt} res{res} C{C}", got, want, tol)
+    u = lb.roll(lb.BlockAttention.apply(lb.roll(x, shift), *ln1, *aw, bias, mask,
+                                        lam, 8, 1e-6, d1), -shift)
+    got = torch.autograd.grad(lb.BlockFFN.apply(u, *ln2, *fw, 1e-6, d2), ins, g)
+    compare_all(f"BlockAttention + BlockFFN {name_dt} res{res} C{C}", got, want,
+                tol)
+
+    C, h, LB = 112, 4, L * B
+    x = rnd(LB, res, res, C, grad=False).to(dtype).requires_grad_()
+    g = rnd(LB, res, res, C, grad=False).to(dtype)
+    ln1, ln2, fw = ln(C), ln(C), ffn_weights(C)
+    awA, biasA = attn_weights(C, h), rnd(L, h, n, n, scale=0.05)
+    awB, biasB = attn_weights(C, h), rnd(h, L * n, L * n, scale=0.05)
+    d1, d2 = dps_of(LB), dps_of(LB)
+    ins = [x, *ln1, *awA, biasA, *awB, biasB, *ln2, *fw]
+    args = [x, *ln1, *awA, biasA, *awB, biasB, mask, *ln2, *fw, L, 8, shift,
+            1e-6, d1, d2]
+    want = torch.autograd.grad(lb.block_freq_merged_plain(*args), ins, g)
+    got = torch.autograd.grad(lb.BlockFreqMerged.apply(*args), ins, g)
+    compare_all(f"BlockFreqMerged {name_dt} res{res} C{C}", got, want, tol)
+    img = lb.roll(x, shift)
+    y1 = lb.FreqIntra.apply(img, *ln1, *awA, biasA, mask, L, 8, 1e-6)
+    u = lb.roll(lb.FreqInter.apply(y1, img, *awB, biasB, mask, L, 8, 1e-6, d1),
+                -shift)
+    got = torch.autograd.grad(lb.BlockFFN.apply(u, *ln2, *fw, 1e-6, d2), ins, g)
+    compare_all(f"FreqIntra + FreqInter + BlockFFN {name_dt} res{res} C{C}", got,
+                want, tol)
+
+
+def check_bwd_kernels(lb, windows, stats, card: str):
+    """Phase 8: K6-K8 against their twins, then the Functions. The kernels
+    line takes each kernel's first (res-128) case in bf16 at B=4."""
+    for dtype in (torch.bfloat16, torch.float32):
+        name_dt = str(dtype)[6:]
+        print(f"backward kernel checks, {dtype}, B={TRAIN_BATCH} ({card}):",
+              flush=True)
+        for case in bwd_cases(lb, windows, dtype, TRAIN_BATCH):
+            label = f"{case.label} {name_dt}"
+            got = case.run()
+            torch.cuda.synchronize()
+            want = case.plain()
+            err = compare_all(label, got, want, BWD_TOL[dtype])
+            again = case.run()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)
+                       if a is not None):
+                raise Failed(f"{label}: two launches give different bits")
+            del want, again
+            st = stats[case.kernel]
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            ms = time_ms(case.run, iters=5, warmup=1)
+            pms = time_ms(case.plain, iters=3, warmup=1)
+            t_bytes = case.nbytes / PEAK_BYTES * 1e3
+            t_flops = case.flops / PEAK_FLOPS[dtype] * 1e3
+            bound, by = max(t_bytes, t_flops), (
+                "bytes" if t_bytes >= t_flops else "operations")
+            print(f"    time: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+                  f"{bound:.4f} ms by {by}; equal bits on a second launch",
+                  flush=True)
+            if dtype == torch.bfloat16 and st["ms"] is None:
+                st.update(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by)
+            del got
+        function_checks(lb, windows, dtype)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: training
+# ---------------------------------------------------------------------------
+
+
+def training_entry_point(config, port_train, lb, stats):
+    """Phase 9a, the main path of the training slice: ``<port>.train.main``
+    on the card at flagship width and depth, the CLI's batch (4 tasks),
+    bfloat16, the synthetic loader: two phase-A steps, two joint steps, the
+    eval of two tasks after the joint epoch, the final and best
+    checkpoints."""
+    tasks = ["denoising_bsd68_25", "deraining"]
+    with tempfile.TemporaryDirectory() as out:
+        cfg = config.parse_args(
+            ["--synthetic_data", "--degradation_embedding_method", "all_DC",
+             "--test_de_type", *tasks, "--output_path", out + "/",
+             "--epochs", "2", "--epochs_encoder", "1", "--steps_per_epoch", "2"])
+        if (cfg.batch_size, cfg.dtype, cfg.patch_size) != (TRAIN_BATCH,
+                                                          "bfloat16", P):
+            raise Failed(f"training config {cfg.batch_size} {cfg.dtype} "
+                         f"{cfg.patch_size}")
+        seen = []
+        torch.cuda.synchronize()
+        lb.reset_launches()
+        t0 = time.perf_counter()
+        state = port_train.main(cfg, progress=lambda e, m: seen.append((e, m)))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(lb.LAUNCHES)
+        with open(f"{out}/train.log") as f:
+            train_log = f.read()
+        with open(f"{out}/results.log") as f:
+            results_log = f.read()
+        files = sorted(os.listdir(f"{out}/ckpt"))
+        ckpt = torch.load(f"{out}/ckpt/epoch_2.pt", map_location="cpu",
+                          weights_only=True)
+    print(f"training entry point (bfloat16, B={TRAIN_BATCH}): 2 + 2 steps, "
+          f"eval of {len(tasks)} tasks and checkpoints in {secs:.3f} s, "
+          f"launches {counts}", flush=True)
+    print("  train.log: " + train_log.replace("\n", " | "), flush=True)
+    print("  results.log: " + results_log.replace("\n", " | "), flush=True)
+    (e0, m0), (e1, m1) = seen
+    for m in (m0, m1):
+        if not all(math.isfinite(v) for v in m.values()):
+            raise Failed(f"non-finite training metrics {m}")
+    want_log = ("Epoch (0)  Loss: contrast_loss:%0.4f\n" % m0["contrast_loss"]
+                + "Epoch (1)  Loss: l1_loss:%0.4f contrast_loss:%0.4f\n" % (
+                    m1["l1_loss"], m1["contrast_loss"]))
+    if (e0, e1) != (0, 1) or train_log != want_log or m1["l1_loss"] <= 0:
+        raise Failed(f"train.log {train_log!r} != {want_log!r}")
+    lines = results_log.splitlines()
+    if (len(lines) != 1 + len(tasks) or lines[0] != "2 Epochs Results:"
+            or any(not ln.startswith(t + ": ") or "PSNR/SSIM: " not in ln
+                   for t, ln in zip(tasks, lines[1:]))):
+        raise Failed(f"results.log {results_log!r}")
+    if files != ["best.pt", "epoch_2.pt"]:
+        raise Failed(f"checkpoints {files}")
+    ts = ckpt["train_state"]
+    if (state.step, ts["step"], int(ts["queue_ptr"]), ts["optimizer"]["count"]
+            ) != (4, 4, 4 * TRAIN_BATCH % (3 * TRAIN_BATCH), 4):
+        raise Failed(f"after 4 steps: step {state.step} / {ts['step']}, queue "
+                     f"pointer {int(ts['queue_ptr'])}, Adam count "
+                     f"{ts['optimizer']['count']}")
+    moved = max(float((ts["encoder_k"][k].float() - ckpt["encoder"][k].float())
+                      .abs().max()) for k in ckpt["encoder"]
+                if k.endswith("weight"))
+    if not 0.0 < moved < 1.0:
+        raise Failed(f"key encoder against query encoder: max difference {moved}")
+    print(f"  step 4, queue pointer {int(ts['queue_ptr'])}, key encoder within "
+          f"{moved:.3e} of the query encoder, checkpoints {files}", flush=True)
+    eval_counts = default_counts("bfloat16", ENTRY_BATCH)
+    want = {k: 2 * train_step_counts(False)[k] + 2 * train_step_counts(True)[k]
+            + len(tasks) * eval_counts[k] for k in ZERO}
+    if counts != want:
+        raise Failed(f"training entry point launch counts {counts} != {want}")
+    add_launches(stats, "train_entry_bfloat16", counts)
+
+
+def fresh_state(config, airnet, train_state, dtype: str, impl: str, batch: int):
+    cfg = flagship_config(config, "float32", dtype=dtype, synthetic_data=True)
+    if batch != cfg.batch_size:
+        cfg = dataclasses.replace(cfg, batch_size=batch)
+    bundle = airnet.build_models(cfg, "cuda", impl, eval_mode=False)
+    return cfg, bundle, train_state.create_train_state(cfg, bundle)
+
+
+def train_batch(cfg, synthetic, steps_lib, batch: int):
+    loader = synthetic.SyntheticTrainLoader(cfg, seed=0)
+    one = steps_lib.array_batch(loader.next_batch(), "cuda")
+    reps = batch // one["d1"].shape[0]
+    return {k: v.repeat(reps, *([1] * (v.dim() - 1))) for k, v in one.items()}
+
+
+def step_against_plain(config, airnet, train_state, steps_lib, synthetic, lb):
+    """Phase 9b: one joint step (forward + backward) from the same state by
+    the default route (kernels) and by the plain route (twins, autograd):
+    the loss and every parameter's gradient."""
+    for dtype in ("float32", "bfloat16"):
+        runs = {}
+        for impl in ("default", "plain"):
+            cfg, bundle, state = fresh_state(config, airnet, train_state, dtype,
+                                             impl, TRAIN_BATCH)
+            batch = train_batch(cfg, synthetic, steps_lib, TRAIN_BATCH)
+            step = steps_lib.make_train_step(cfg, bundle, joint=True,
+                                             upto="grads")
+            lb.reset_launches()
+            _, m = step(state, batch)
+            torch.cuda.synchronize()
+            counts = dict(lb.LAUNCHES)
+            grads = {f"{net}.{n}": p.grad.float().clone()
+                     for net in ("encoder", "decoder")
+                     for n, p in getattr(state, net).named_parameters()
+                     if p.grad is not None}
+            runs[impl] = (float(m["loss"]), grads, counts)
+            del state, bundle
+        (loss, grads, counts), (loss_p, grads_p, counts_p) = (runs["default"],
+                                                             runs["plain"])
+        want = train_step_counts(True)
+        if dtype == "float32":  # float32 keeps the chain for every block
+            want.update(lewin_attn=64, lewin_ffn=64, lewin_merged=0)
+        if counts != want or any(counts_p.values()):
+            raise Failed(f"joint step launches {counts} (plain route "
+                         f"{counts_p}), expected {want}")
+        if set(grads) != set(grads_p):
+            raise Failed("the two routes reach different parameters")
+        gmax = max(float(g.abs().max()) for g in grads_p.values())
+        worst, worst_name = 0.0, ""
+        for name, gp in grads_p.items():
+            g = grads[name]
+            if not torch.isfinite(g).all():
+                raise Failed(f"{name}: non-finite gradient")
+            rel = float((g - gp).abs().max()) / max(float(gp.abs().max()),
+                                                    1e-3 * gmax)
+            if rel > worst:
+                worst, worst_name = rel, name
+        num = sum(float((grads[k] * grads_p[k]).sum()) for k in grads)
+        den = math.sqrt(sum(float((grads[k] ** 2).sum()) for k in grads)
+                        * sum(float((grads_p[k] ** 2).sum()) for k in grads))
+        ok = (abs(loss - loss_p) <= STEP_LOSS_TOL[dtype]
+              and worst <= STEP_GRAD_TOL[dtype])
+        print(f"joint step {dtype}, default against plain route: loss "
+              f"{loss:.6f} / {loss_p:.6f} (limit {STEP_LOSS_TOL[dtype]}), "
+              f"{len(grads)} gradients, worst max|g - g_plain| / "
+              f"max(max|g_plain|, 1e-3 max|g|) = {worst:.3e} at {worst_name} "
+              f"(limit {STEP_GRAD_TOL[dtype]}), cosine {num / den:.6f}, "
+              f"launches {counts} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise Failed(f"joint step {dtype}: the kernel route disagrees with "
+                         "the plain route")
+
+
+def step_times(config, airnet, train_state, steps_lib, synthetic, card: str):
+    """Phase 9c: ms per joint step and per phase-A step, and the split of
+    the joint step (forward = ``upto='loss'``, backward = ``'grads'`` -
+    ``'loss'``, optimizer + EMA + enqueue = ``'full'`` - ``'grads'``), by
+    CUDA events. Every variant is warmed up first (the allocator's pool
+    grows with the first backward), then timed twice, forwards and back;
+    the split is taken from each variant's lower time and both are shown."""
+    variants = ((True, "loss"), (True, "grads"), (True, "full"), (False, "full"))
+    torch.cuda.reset_peak_memory_stats()
+    for dtype, impl, batch in (("bfloat16", "default", TRAIN_BATCH),
+                               ("bfloat16", "plain", TRAIN_BATCH),
+                               ("float32", "default", TRAIN_BATCH),
+                               ("float32", "plain", TRAIN_BATCH),
+                               ("bfloat16", "default", BATCH)):
+        try:
+            cfg, bundle, state = fresh_state(config, airnet, train_state, dtype,
+                                             impl, batch)
+            data = train_batch(cfg, synthetic, steps_lib, batch)
+            steps = {v: steps_lib.make_train_step(cfg, bundle, joint=v[0],
+                                                  upto=v[1]) for v in variants}
+            for v in variants:
+                for _ in range(2):
+                    steps[v](state, data)
+            runs = {v: [] for v in variants}
+            for v in variants + variants[::-1]:
+                runs[v].append(time_ms(lambda: steps[v](state, data), iters=3,
+                                       warmup=0))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        except torch.cuda.OutOfMemoryError:
+            print(f"step time {dtype} {impl} B={batch}: does not fit the card's "
+                  "memory", flush=True)
+            continue
+        finally:
+            state = bundle = data = steps = None
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        ms = {v: min(t) for v, t in runs.items()}
+        full, fwd, grads = ms[True, "full"], ms[True, "loss"], ms[True, "grads"]
+        both = ", ".join(f"{'joint' if j else 'phase-A'} {u} "
+                         f"{t[0]:.2f} / {t[1]:.2f}" for (j, u), t in runs.items())
+        print(f"step time {dtype} {impl} B={batch} ({card}): joint step "
+              f"{full:.2f} ms = forward {fwd:.2f} + backward {grads - fwd:.2f} "
+              f"+ optimizer {full - grads:.2f} (backward / forward "
+              f"{(grads - fwd) / fwd:.2f}), {batch * P * P / full / 1e3:.4f} "
+              f"trained MP/s; phase-A step {ms[False, 'full']:.2f} ms; peak "
+              f"memory {peak:.2f} GiB; both runs, ms: {both}", flush=True)
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one H100")
     ap.add_argument("--phases", type=int, nargs="+",
                     default=sorted(ALL_PHASES), choices=sorted(ALL_PHASES),
-                    help="of phases 3-7, run only these: a development aid "
+                    help="of phases 3-9, run only these: a development aid "
                     "that prints no result and exits with 2 (default: all)")
     phases = set(ap.parse_args(argv).phases)
     if not torch.cuda.is_available():
@@ -732,7 +1217,9 @@ def main(argv=None) -> int:
               "an NVIDIA GPU", file=sys.stderr)
         return 1
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch import (
-        config, test as port_test)
+        config, test as port_test, train as port_train)
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.data import (
+        synthetic)
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch.evaluation import (
         runner, tiling)
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch.models import (
@@ -741,6 +1228,8 @@ def main(argv=None) -> int:
         frequency, metrics, windows)
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops.kernels import (
         build, lewin_block as lb)
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.training import (
+        state as train_state, steps as steps_lib)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -779,10 +1268,24 @@ def main(argv=None) -> int:
             throughput(bundles, airnet, card)
         if 7 in phases:
             profile(bundles, airnet, card)
-        if 5 in phases:
+        bundles.cache.clear()
+        torch.cuda.empty_cache()
+        if 8 in phases:
+            check_bwd_kernels(lb, windows, stats, card)
+        if 9 in phases:
+            training_entry_point(config, port_train, lb, stats)
+            step_against_plain(config, airnet, train_state, steps_lib,
+                               synthetic, lb)
+            step_times(config, airnet, train_state, steps_lib, synthetic, card)
+        if 5 in phases and 9 in phases:
             idle = [n for n in KERNELS if not stats[n]["launches"]]
             if idle:
                 raise Failed(f"no main path launched {idle}")
+            idle = [n for n in BWD_KERNELS if not
+                    stats[n]["launches_by_path"].get("train_entry_bfloat16")]
+            if idle:
+                raise Failed(f"the training entry point never launched {idle}")
+        if 5 in phases:
             # what the default route names must come from the entry point,
             # not from a request with a forced route
             idle = [n for n in KERNELS

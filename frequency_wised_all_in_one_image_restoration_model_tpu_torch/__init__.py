@@ -14,13 +14,17 @@ numpy-only modules (``config``, ``data``, ``utils``).
 Modules
 -------
 test          the eval CLI: ``python -m <this package>.test <flags>``
+train         the training CLI: ``python -m <this package>.train <flags>``
 config        the configuration and command line (the JAX package's flags)
-data          test sets: file-backed, synthetic; image decoding
-ops           frequency decomposition, window machinery, metrics, CUDA kernel wrappers
-models        Uformer encoder/decoder, LeWin blocks, AirNet eval composition
+data          train loaders and test sets: file-backed, synthetic; image decoding
+ops           frequency decomposition, window machinery, metrics, CUDA kernel
+              wrappers (forward and backward) and their autograd Functions
+models        Uformer encoder/decoder, LeWin blocks, AirNet composition, MoCo
 evaluation    tiled full-image restoration, the per-task runner
-training      eval checkpoints (``epoch_<N>.pt``)
-utils         JAX-parameter -> state_dict conversion, image I/O, the results log
+training      losses, train state, the two-phase steps, the loop, checkpoints
+              (``epoch_<N>.pt``: the models, and the whole train state)
+utils         JAX-parameter / train-state conversion, image I/O, run logs,
+              the step meter
 """
 
 from . import config  # noqa: F401

@@ -13,8 +13,8 @@ What differs:
 
 * ``--cuda N`` is the index of the CUDA device the entry points run on (the
   JAX package accepts and ignores it);
-* flags the port does not act on yet (training, meshes, the multi-host
-  set-up) are accepted and carried; :func:`check_ported` raises
+* flags the port does not act on (meshes, the multi-host set-up,
+  ``--remat``) are accepted and carried; :func:`check_ported` raises
   ``NotImplementedError`` for the values that would change a result and
   are not ported;
 * :func:`from_fields` carries over any configuration object with these
@@ -122,7 +122,10 @@ class Config:
     process_id: int = 0
     steps_per_epoch: Optional[int] = None  # override 400*T/batch (reference dataset_utils.py:144)
     ckpt_every: int = 0              # periodic full-state checkpoints (0 = final epoch only)
-    # rematerialise each LeWin block in the backward (training)
+    # rematerialise each LeWin block in the backward (JAX package). Accepted
+    # and without effect here: the blocks' autograd Functions save a block's
+    # input (and u, y1 on the merged routes) only and the backward kernels
+    # recompute the rest, which is what remat buys on the TPU
     remat: bool = True
     dgrn_groups: int = 5             # DGRN depth (reference decoder_DGRN.py:117-118)
     dgrn_blocks: int = 5
@@ -393,5 +396,5 @@ def check_ported(cfg: Config) -> None:
     if cfg.mesh_data * cfg.mesh_task > 1:
         raise NotImplementedError(
             f"mesh_data * mesh_task = {cfg.mesh_data * cfg.mesh_task}: the "
-            "port runs on one card; multi-GPU eval is not ported yet "
+            "port runs on one card; multi-GPU runs are not ported yet "
             "(ROADMAP.md, Queue 1 item 10)")

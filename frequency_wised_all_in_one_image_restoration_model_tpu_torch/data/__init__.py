@@ -1,2 +1,3 @@
-"""Data for evaluation: test-set indexing, decoding, synthetic test sets
-(copies of the numpy parts of the JAX package's ``data/``)."""
+"""Data: train loaders and test sets, file-backed and synthetic, decoding,
+augmentation, prefetch (copies of the numpy parts of the JAX package's
+``data/``)."""

@@ -1,12 +1,12 @@
-"""ctypes binding of the repo's native image decoder (``native/fairm_io.cpp``),
-the decode part of the JAX package's ``data/native.py``.
+"""ctypes bindings of the repo's native image runtime
+(``native/fairm_io.cpp``), a copy of the JAX package's ``data/native.py``.
 
 Loads ``native/libfairm_io.so`` at the root of the checkout (building it on
-first use where ``native/build.sh`` finds a C++ toolchain) and decodes
-PNG / JPEG files with it; without the library, PIL decodes. Both give the
-same uint8 RGB array. It is host-side image decoding only: nothing of the
-model runs through it. The fused crop-augment and noise entry points serve
-the train loader and come with the training slice.
+first use where ``native/build.sh`` finds a C++ toolchain): PNG / JPEG
+decode for the datasets, and the fused crop + augment and the noise
+synthesis of the file-backed train loader. Every entry point has a numpy /
+PIL form for a machine without the library. It is host-side image
+preparation only: nothing of the model runs through it.
 """
 
 from __future__ import annotations
@@ -50,6 +50,13 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     lib.fio_decode_rgb.restype = ctypes.c_int
     lib.fio_free.argtypes = [ctypes.POINTER(ctypes.c_uint8)]
+    lib.fio_crop_augment_f32.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float)]
+    lib.fio_gaussian_noise_u8.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int64, ctypes.c_float, ctypes.c_uint64]
     _LIB = lib
     return _LIB
 
@@ -74,3 +81,41 @@ def decode_rgb(path: str) -> np.ndarray:
             return arr.reshape(h.value, w.value, 3)
     from ..utils.image_io import load_image_rgb
     return load_image_rgb(path)
+
+
+def crop_augment_f32(img_u8: np.ndarray, iy: int, ix: int, size: int,
+                     mode: int) -> np.ndarray:
+    """Fused crop + dihedral + to-float01; matches
+    augment.dihedral(img[iy:iy+size, ix:ix+size], mode) / 255."""
+    lib = _load()
+    if lib is None:
+        from . import augment
+        crop = img_u8[iy:iy + size, ix:ix + size]
+        return np.ascontiguousarray(augment.dihedral(crop, mode)).astype(
+            np.float32) / 255.0
+    img_u8 = np.ascontiguousarray(img_u8)
+    out = np.empty((size, size, 3), np.float32)
+    lib.fio_crop_augment_f32(
+        img_u8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        img_u8.shape[0], img_u8.shape[1], iy, ix, size, mode,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out
+
+
+def gaussian_noise_u8(img_u8: np.ndarray, sigma: float,
+                      seed: int) -> np.ndarray:
+    """clip(img + N(0, sigma), 0, 255) as uint8 (reference
+    dataset_utils.py:126 distribution; PRNG differs — documented)."""
+    lib = _load()
+    img_u8 = np.ascontiguousarray(img_u8)
+    if lib is None:
+        rng = np.random.default_rng(seed)
+        return np.clip(img_u8.astype(np.float32)
+                       + rng.standard_normal(img_u8.shape).astype(np.float32)
+                       * sigma, 0, 255).astype(np.uint8)
+    out = np.empty_like(img_u8)
+    lib.fio_gaussian_noise_u8(
+        img_u8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        img_u8.size, float(sigma), np.uint64(seed))
+    return out

@@ -1,11 +1,11 @@
-"""Deterministic synthetic test sets (a copy of the eval part of the JAX
-package's ``data/synthetic.py``: numpy only; the train loader comes with the
-training slice).
+"""Deterministic synthetic data (a copy of the JAX package's
+``data/synthetic.py``: numpy only).
 
-The reference needs ``data/<task>_test/`` on disk for every run
-(dataset_utils.py:160-167). This module synthesizes clean images (smooth
-random fields) and applies the same degradation taxonomy, so the eval stack
-runs without files. Activated by ``--synthetic_data``.
+The reference needs ``data/<task>_{train,test}/`` on disk for every run
+(dataset_utils.py:87-95, 160-167). This module synthesizes clean images
+(smooth random fields) and applies the same degradation taxonomy, so the
+training and eval stacks run without files. Activated by
+``--synthetic_data``.
 
 Copied as it is, :class:`SyntheticTestSet` seeds each task's images with
 ``hash(task) % 1000``, and ``str`` hashes are salted per process: the images
@@ -15,7 +15,7 @@ of a task repeat only within one process, or under a fixed
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -83,6 +83,45 @@ def degrade(clean_u8: np.ndarray, task: str, rng: np.random.Generator) -> np.nda
     else:
         raise ValueError(f"unknown task {task!r}")
     return np.clip(img, 0, 255).astype(np.uint8)
+
+
+class SyntheticTrainLoader:
+    """Round-robin-over-tasks batch iterator matching the reference's batch
+    contract: one sample per degradation task per batch (option.py:76),
+    two independent crops of each pair, each crop pair force-augmented
+    (dataset_utils.py:131-132)."""
+
+    def __init__(self, cfg, seed: int = 0, image_size: int | None = None):
+        self.cfg = cfg
+        self.tasks = list(cfg.de_type)
+        self.patch = cfg.patch_size
+        self.image_size = image_size or max(2 * cfg.patch_size, 64)
+        self.rng = np.random.default_rng(seed)
+
+    def next_batch(self) -> Dict[str, np.ndarray]:
+        d1, d2, c1, c2, ids, names = [], [], [], [], [], []
+        for t_idx, task in enumerate(self.tasks):
+            clean = smooth_image(self.rng, self.image_size, self.image_size)
+            degraded = degrade(clean, task, self.rng)
+            dp1, cp1 = augment.paired_random_crop(degraded, clean, self.patch, self.rng)
+            dp1, cp1 = augment.random_augmentation(dp1, cp1, rng=self.rng)
+            dp2, cp2 = augment.paired_random_crop(degraded, clean, self.patch, self.rng)
+            dp2, cp2 = augment.random_augmentation(dp2, cp2, rng=self.rng)
+            d1.append(augment.to_float01(dp1))
+            d2.append(augment.to_float01(dp2))
+            c1.append(augment.to_float01(cp1))
+            c2.append(augment.to_float01(cp2))
+            ids.append(t_idx)
+            names.append(f"synthetic_{task}")
+        return {
+            "d1": np.stack(d1), "d2": np.stack(d2),
+            "c1": np.stack(c1), "c2": np.stack(c2),
+            "de_id": np.asarray(ids, np.int32), "names": names,
+        }
+
+    def __iter__(self):
+        while True:
+            yield self.next_batch()
 
 
 class SyntheticTestSet:

@@ -15,12 +15,33 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import frequency
 from .layers import leaky_relu
 from .uformer_blocks import Downsample, InputProj, _linear
 from .uformer_lewin import BasicUformerLayer
+
+def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """BatchNorm over ``x [B, C, H, W]`` float32 as Flax's ``nn.BatchNorm
+    (momentum=0.9)`` does it: in training the batch's mean and biased
+    variance normalise and also enter the running statistics (torch's own
+    layer puts the unbiased variance there); in eval the running
+    statistics normalise."""
+    if not bn.training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    mean = x.mean(dim=(0, 2, 3))
+    var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+        bn.running_var.mul_(0.9).add_(var, alpha=0.1)
+        bn.num_batches_tracked += 1
+    shape = (1, -1, 1, 1)
+    y = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + bn.eps)
+    return y * bn.weight.reshape(shape) + bn.bias.reshape(shape)
+
 
 ENCODER_DEPTHS = (2, 2, 2, 2, 2)        # encoder_Uformer.py:748 (first 5 used)
 ENCODER_HEADS = (1, 2, 4, 8, 16)
@@ -89,8 +110,8 @@ class UformerEncoder(nn.Module):
 
     def heads(self, ctx: DegradationContext) -> torch.Tensor:
         """Per-band contrastive heads -> ``[L, B, encoder_dim]`` float32
-        (encoder_Uformer.py:973-984; BatchNorm on its running statistics
-        in eval)."""
+        (encoder_Uformer.py:973-984; BatchNorm on the batch's statistics in
+        training, on its running statistics in eval)."""
         dim, p, dt = self.cfg.encoder_dim, self.img_size, self.dtype
         outs = []
         for i, band in enumerate(ctx.band_inter):
@@ -98,7 +119,8 @@ class UformerEncoder(nn.Module):
             fea = getattr(self, f"mlp_head_{i}_norm")(band.float())
             fea = _linear(getattr(self, f"mlp_head_{i}_dense"), fea, dt)
             # [B, N16, dim*256] -> [B, dim, P, P]: a row-major relabel
-            fea = getattr(self, f"norm_{i}")(fea.reshape(b, dim, p, p).float())
+            fea = batch_norm(getattr(self, f"norm_{i}"),
+                             fea.reshape(b, dim, p, p).float())
             fea = leaky_relu(fea).mean(dim=(2, 3))
             fea = leaky_relu(_linear(getattr(self, f"mlp_{i}_0"), fea, dt))
             fea = _linear(getattr(self, f"mlp_{i}_1"), fea, dt)

@@ -158,8 +158,8 @@ class FrequencyWindowAttention(KernelParams):
         idx = self.relative_position_index
         n = idx.shape[0]
         tables = self.relative_position_bias_tables
-        per_pair = (tables[:, idx.reshape(-1), :].reshape(L * L, n, n, h)
-                    .permute(0, 3, 1, 2))                      # [L*L, h, n, n]
+        per_pair = (windows.gather_rows(tables, idx.reshape(-1))
+                    .reshape(L * L, n, n, h).permute(0, 3, 1, 2))  # [L*L, h, n, n]
         if self.kind == "intra":
             bias = per_pair[torch.arange(L) * (L + 1)]
         else:

@@ -13,6 +13,16 @@ by one of two routes, or through their plain twins on the CPU:
 The JAX package picks the route per stage from gates measured on the TPU;
 here :data:`DEFAULT_MERGED` and :data:`MERGED_MIN_TOKENS` hold what an H100
 measured (``chip_smoke.py`` phase 3, PERF.md section 6).
+
+With gradients enabled a block goes through the autograd Functions of
+``ops/kernels/lewin_block.py`` (``BlockAttention``, ``FreqIntra``,
+``FreqInter``, ``BlockFFN``, ``BlockMerged``, ``BlockFreqMerged``) on the raw
+parameters in the kernels' entry layouts, so that autograd carries the
+kernels' gradients back into the bias tables, ``to_q`` / ``to_kv``, and the
+all_DC gain MLP. The Functions save the block's input (and ``u``, ``y1``
+for the merged routes) only and the backward kernels recompute the rest,
+which is what rematerialisation buys the JAX package. Without gradients the
+cached kernel operands stay the fast path.
 """
 
 from __future__ import annotations
@@ -113,6 +123,9 @@ class LeWinBlock(nn.Module):
         img = to_image(x, self.res, self.res)
         n1 = (self.norm1.weight, self.norm1.bias)
         n2 = (self.norm2.weight, self.norm2.bias)
+        if torch.is_grad_enabled() and route != "plain":
+            return to_tokens(self._forward_functions(
+                img, route == "merged", all_inter, n1, n2, dps1, dps2))
         if on_card and route == "merged":
             ffn = self.mlp.kernel_operands(dt)
             if self.msa_type == "freq":
@@ -162,6 +175,36 @@ class LeWinBlock(nn.Module):
             y = lb.block_ffn_plain(y, *n2, *self.mlp.kernel_weights(), 1e-6,
                                    dps2)
         return to_tokens(y)
+
+
+    def _forward_functions(self, img, merged: bool, all_inter, n1, n2, dps1,
+                           dps2) -> torch.Tensor:
+        """The block through the autograd Functions (kernels on a CUDA
+        tensor, twins on a CPU tensor), on the image ``[B, H, W, C]``."""
+        win, shift, L, mask = self.win, self.shift, self.L, self.attn_mask
+        ffn = self.mlp.kernel_weights()
+        if self.msa_type == "freq":
+            intra = self.attn_intra.kernel_weights()
+            inter = self.attn_inter.kernel_weights()
+            if merged:
+                return lb.BlockFreqMerged.apply(
+                    img, *n1, *intra, *inter, mask, *n2, *ffn, L, win, shift,
+                    1e-6, dps1, dps2)
+            rolled = lb.roll(img, shift)
+            y1 = lb.FreqIntra.apply(rolled, *n1, *intra, mask, L, win, 1e-6)
+            y = lb.FreqInter.apply(y1, rolled, *inter, mask, L, win, 1e-6,
+                                   dps1)
+        else:
+            lam = None
+            if self.attn.all_bands_dc:
+                lam = self.attn.lam(all_inter, img.dtype)
+            attn = self.attn.kernel_weights()
+            if merged:
+                return lb.BlockMerged.apply(img, *n1, *attn, mask, lam, *n2,
+                                            *ffn, win, shift, 1e-6, dps1, dps2)
+            y = lb.BlockAttention.apply(lb.roll(img, shift), *n1, *attn, mask,
+                                        lam, win, 1e-6, dps1)
+        return lb.BlockFFN.apply(lb.roll(y, -shift), *n2, *ffn, 1e-6, dps2)
 
 
 class BasicUformerLayer(nn.Module):

@@ -1,9 +1,10 @@
 """FFT frequency-band decomposition (the port of the JAX ``ops/frequency.py``).
 
-Only what the flagship eval forward needs: the ring masks and the
-DC-point + closed-ring decomposition ``frequency_decompose_1`` that splits
-the encoder's input into L bands. The FFT runs in float32 / complex64
-whatever the model's compute dtype (a bf16 FFT is lossy).
+What the flagship needs: the ring masks, the DC-point + closed-ring
+decomposition ``frequency_decompose_1`` that splits the encoder's input into
+L bands, and the equal-width ring decomposition ``frequency_decompose`` whose
+masked spectra the frequency-L1 loss compares. The FFT runs in float32 /
+complex64 whatever the model's compute dtype (a bf16 FFT is lossy).
 """
 
 from __future__ import annotations
@@ -61,3 +62,23 @@ def frequency_decompose_1(x: torch.Tensor, num_rings: int) -> torch.Tensor:
     banded = masks.reshape(bshape) * fx.unsqueeze(0)
     banded = torch.fft.ifftshift(banded, dim=(-2, -1))
     return torch.fft.ifft2(banded).real
+
+
+def frequency_decompose(x: torch.Tensor, num_bands: int,
+                        inverse: bool = True) -> torch.Tensor:
+    """Equal-width rings ``[0,s) ... [1-s,1]``: ``x [..., H, W]`` real ->
+    ``[num_bands, ..., H, W]`` float32 spatial reconstructions
+    (``inverse=True``), or the masked spectra with the fftshift removed,
+    stacked as (real, imag) in a trailing axis (``inverse=False``; what the
+    frequency-L1 loss consumes, reference frequency_decompose.py:28-68)."""
+    h, w = x.shape[-2], x.shape[-1]
+    masks = torch.from_numpy(ring_masks(h, w, num_bands, "open")).to(x.device)
+    fx = torch.fft.fftshift(torch.fft.fft2(x.float()), dim=(-2, -1))
+    bshape = (num_bands,) + (1,) * (x.dim() - 2) + (h, w)
+    banded = masks.reshape(bshape) * fx.unsqueeze(0)
+    banded = torch.fft.ifftshift(banded, dim=(-2, -1))
+    if inverse is True:
+        return torch.fft.ifft2(banded).real
+    if inverse is False:
+        return torch.stack((banded.real, banded.imag), dim=-1)
+    raise ValueError(f"invalid inverse mode: {inverse!r}")

@@ -490,7 +490,7 @@ def _stamps(stamps, x: torch.Tensor) -> None:
 
 def merged_kernel(x_img, ln1s, ln1b, attn: AttnOperands, mask, lam, ln2s,
                   ln2b, ffn: FfnOperands, win: int, shift: int, eps: float,
-                  dps1, dps2, stamps=None):
+                  dps1, dps2, stamps=None, scratch_out=None):
     """Launch K4 (:func:`block_merged`) on the TRUE-layout ``x_img
     [B, H, W, C]`` (CUDA) with the operands of both halves: one launch.
     ``stamps``, an int64 tensor of :data:`MERGED_STAMPS`, receives the
@@ -526,13 +526,15 @@ def merged_kernel(x_img, ln1s, ln1b, attn: AttnOperands, mask, lam, ln2s,
          _DTYPES[dt],
          float(eps), _stream(x_img))
     LAUNCHES["lewin_merged"] += 1
+    if scratch_out is not None:
+        scratch_out.append(scratch)
     return out
 
 
 def freq_merged_kernel(x_img, ln1s, ln1b, intra: AttnOperands,
                        inter: AttnOperands, mask, ln2s, ln2b,
                        ffn: FfnOperands, L: int, win: int, shift: int,
-                       eps: float, dps1, dps2, stamps=None):
+                       eps: float, dps1, dps2, stamps=None, scratch_out=None):
     """Launch K5 (:func:`block_freq_merged`) on the TRUE-layout band-major
     ``x_img [L*B, H, W, C]`` (CUDA) with the operands of the three parts:
     one launch. ``stamps`` as in :func:`merged_kernel`, for
@@ -569,6 +571,8 @@ def freq_merged_kernel(x_img, ln1s, ln1b, intra: AttnOperands,
          _DTYPES[dt],
          float(eps), _stream(x_img))
     LAUNCHES["freq_merged"] += 1
+    if scratch_out is not None:
+        scratch_out.append(scratch)
     return out
 
 
@@ -695,3 +699,677 @@ def block_freq_merged(x_img, ln1s, ln1b, wq3A, bq3A, wk3A, bk3A, wv3A, bv3A,
     ffn = _kernel_operands(x_img, ffn_operands, w1, b1, wd, bd, w2, b2)
     return freq_merged_kernel(x_img, ln1s, ln1b, intra, inter, mask, ln2s,
                               ln2b, ffn, L, win, shift, eps, dps1, dps2)
+
+
+# ---------------------------------------------------------------------------
+# backward: plain twins
+# ---------------------------------------------------------------------------
+#
+# Written out step by step as the Pallas backward bodies (JAX
+# ``ops/pallas/lewin_block_bwd.py``) do it: the forward intermediates again,
+# then the explicit gradient formulas, every product on operands rounded to
+# the compute dtype with fp32 accumulation. ``torch.autograd.grad`` of the
+# forward twins is the second reference, in the tests.
+
+
+def _mm(a, b):
+    """A product of operands already rounded to the compute dtype,
+    accumulated in fp32 (the MXU / tensor-core contract)."""
+    return torch.matmul(a.float(), b.float())
+
+
+def _ln_stats(x_img, eps):
+    xf = x_img.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    rsig = torch.rsqrt(var + eps)
+    return (xf - mu) * rsig, rsig
+
+
+def _ln_bwd(dxn, xhat, rsig, lns):
+    """(dx, dlns, dlnb) of ``xn = xhat * lns + lnb``, all fp32."""
+    C = dxn.shape[-1]
+    dxhat = dxn * lns.float()
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = rsig * (dxhat - m1 - xhat * m2)
+    return dx, (dxn * xhat).reshape(-1, C).sum(0), dxn.reshape(-1, C).sum(0)
+
+
+def _qkv_full(wq3, bq3, wk3, bk3, wv3, bv3, dtype):
+    """``wqkv [C, 3C]`` in the compute dtype and ``bqkv [3C]`` fp32, q
+    unscaled (the Pallas backward's operand layout)."""
+    h, C, d = wq3.shape
+    wqkv = torch.cat([w.permute(1, 0, 2).reshape(C, h * d)
+                      for w in (wq3, wk3, wv3)], 1).to(dtype)
+    bqkv = torch.cat([b.reshape(-1) for b in (bq3, bk3, bv3)]).float()
+    return wqkv, bqkv
+
+
+def _split_qkv_grads(dwqkv, dbqkv, h):
+    """``dwqkv [C, 3C]``, ``dbqkv [3C]`` -> the per-head layouts
+    ``(dwq3, dbq3, dwk3, dbk3, dwv3, dbv3)``."""
+    C = dwqkv.shape[0]
+    d = C // h
+    to3 = lambda w: w.reshape(C, h, d).permute(1, 0, 2)
+    out = []
+    for i in range(3):
+        out += [to3(dwqkv[:, i * C:(i + 1) * C]),
+                dbqkv[i * C:(i + 1) * C].reshape(h, d)]
+    return tuple(out)
+
+
+def _attn_core_bwd(qkv, dout, bias, mask_full, lam_w, groups, h, dtype):
+    """The per-window, per-head part of the attention backward. ``qkv
+    [M, n, 3C]`` in the compute dtype, ``dout [M, n, C]`` fp32, ``bias
+    [groups, h, n, n]``, ``mask_full [M, 1, n, n]`` or None, ``lam_w
+    [M, h, 1, 1]`` or None. Returns ``(out_all [M, n, C], dqkv [M, n, 3C])``
+    in the compute dtype, ``dbias [groups, h, n, n]`` and ``c_lam [M, h]``
+    (None without lam)."""
+    M, n, C3 = qkv.shape
+    C = C3 // 3
+    d = C // h
+    scale = d ** -0.5
+    heads = lambda t: t.reshape(M, n, h, d).permute(0, 2, 1, 3)
+    q, k, v = (heads(qkv[..., i * C:(i + 1) * C]) for i in range(3))
+    logits = _mm(q, k.transpose(-1, -2)) * scale
+    logits = (logits.reshape(groups, M // groups, h, n, n)
+              + bias.float().reshape(groups, 1, h, n, n)).reshape(M, h, n, n)
+    if mask_full is not None:
+        logits = logits + mask_full
+    logits = logits - logits.amax(-1, keepdim=True)
+    e = torch.exp(logits)
+    p = e / e.sum(-1, keepdim=True)
+    og = _mm(p.to(dtype), v)
+    do = heads(dout)
+    c_lam = None
+    if lam_w is not None:
+        vs = v.float().sum(2, keepdim=True)
+        out_h = (1.0 + lam_w) * og - (lam_w / n) * vs
+        c_lam = (do * (og - vs / n)).sum((2, 3))
+        dog = (1.0 + lam_w) * do
+        dv_extra = do.sum(2, keepdim=True) * (-lam_w / n)
+    else:
+        out_h, dog, dv_extra = og, do, None
+    dog_dt = dog.to(dtype)
+    dp = _mm(dog_dt, v.transpose(-1, -2))
+    dv = _mm(p.to(dtype).transpose(-1, -2), dog_dt)
+    if dv_extra is not None:
+        dv = dv + dv_extra
+    dl = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dbias = dl.reshape(groups, M // groups, h, n, n).sum(1)
+    dl_dt = dl.to(dtype)
+    dq = _mm(dl_dt, k) * scale
+    dk = _mm(dl_dt.transpose(-1, -2), q) * scale
+    rows = lambda t: t.to(dtype).permute(0, 2, 1, 3).reshape(M, n, C)
+    dqkv = torch.cat([rows(dq), rows(dk), rows(dv)], -1)
+    return rows(out_h), dqkv, dbias, c_lam
+
+
+def attn_block_bwd_plain(x_img, g, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3,
+                         wp3, bp, bias, mask, lam, win: int = 8,
+                         eps: float = 1e-6, res: bool = True,
+                         bias_groups: int = 1):
+    """Plain twin of :func:`attn_block_bwd` (the Pallas body
+    ``_attn_bwd_kernel``)."""
+    B, H, W, C = x_img.shape
+    h = wq3.shape[0]
+    n = win * win
+    nW = (H // win) * (W // win)
+    dt = x_img.dtype
+    xhat, rsig = _ln_stats(x_img, eps)
+    xn = xhat * lns.float() + lnb.float()
+    xw = _windows(xn.to(dt), win)                       # [M, n, C]
+    wqkv, bqkv = _qkv_full(wq3, bq3, wk3, bk3, wv3, bv3, dt)
+    wp = wp3.reshape(C, C).to(dt)
+    qkv = (_mm(xw, wqkv) + bqkv).to(dt)
+
+    gp = _windows(g.float(), win)
+    g_dt = gp.to(dt)
+    dbp = gp.reshape(-1, C).sum(0)
+    dout = _mm(g_dt, wp.t())
+
+    M = xw.shape[0]
+    mask_full = None
+    if mask is not None:
+        mask_full = mask.float().repeat(B, 1, 1)[:, None]
+    lam_w = None
+    if lam is not None:
+        lam_w = lam.float().repeat_interleave(nW, dim=0)[:, :, None, None]
+    bias_nb = bias if bias_groups > 1 else bias[None]
+    out_all, dqkv, dbias, c_lam = _attn_core_bwd(
+        qkv, dout, bias_nb, mask_full, lam_w, bias_groups, h, dt)
+
+    flat = lambda t: t.reshape(M * n, -1)
+    dwp = _mm(flat(out_all).t(), flat(g_dt))
+    dwqkv = _mm(flat(xw).t(), flat(dqkv))
+    dbqkv = flat(dqkv).float().sum(0)
+    dxn = _unwindows(_mm(dqkv, wqkv.t()), B, H, W, win)
+    dx, dlns, dlnb = _ln_bwd(dxn, xhat, rsig, lns)
+    if res:
+        dx = dx + g.float()
+    d = C // h
+    dlam = None if lam is None else c_lam.reshape(B, nW, h).sum(1)
+    return (dx.to(dt), dlns, dlnb, *_split_qkv_grads(dwqkv, dbqkv, h),
+            dwp.reshape(h, d, C), dbp,
+            dbias if bias_groups > 1 else dbias[0], dlam)
+
+
+def freq_inter_bwd_plain(y_img, g, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp,
+                         biasB, mask, L: int = 1, win: int = 8):
+    """Plain twin of :func:`freq_inter_bwd` (the Pallas body
+    ``_freq_inter_bwd_kernel``): no residual, ``dres = g`` is the caller's."""
+    LB, H, W, C = y_img.shape
+    B = LB // L
+    h = wq3.shape[0]
+    n = win * win
+    nW = (H // win) * (W // win)
+    dt = y_img.dtype
+    group = lambda t: (_windows(t, win).reshape(L, B * nW, n, C)
+                       .transpose(0, 1).reshape(B * nW, L * n, C))
+    z = group(y_img)
+    wqkv, bqkv = _qkv_full(wq3, bq3, wk3, bk3, wv3, bv3, dt)
+    wp = wp3.reshape(C, C).to(dt)
+    qkv = (_mm(z, wqkv) + bqkv).to(dt)
+    gp = group(g.float())
+    g_dt = gp.to(dt)
+    dbp = gp.reshape(-1, C).sum(0)
+    dout = _mm(g_dt, wp.t())
+    mask_full = None
+    if mask is not None:
+        mask_full = mask.float().repeat(B, L, L)[:, None]
+    out_all, dqkv, dbias, _ = _attn_core_bwd(
+        qkv, dout, biasB[None], mask_full, None, 1, h, dt)
+    flat = lambda t: t.reshape(-1, t.shape[-1])
+    dwp = _mm(flat(out_all).t(), flat(g_dt))
+    dwqkv = _mm(flat(z).t(), flat(dqkv))
+    dbqkv = flat(dqkv).float().sum(0)
+    dz = _mm(dqkv, wqkv.t())                            # [B*nW, L*n, C]
+    dy = _unwindows(dz.reshape(B * nW, L, n, C).transpose(0, 1)
+                    .reshape(LB * nW, n, C), LB, H, W, win)
+    d = C // h
+    return (dy.to(dt), *_split_qkv_grads(dwqkv, dbqkv, h),
+            dwp.reshape(h, d, C), dbp, dbias[0])
+
+
+def _gelu_grad(x):
+    """d/dx of the tanh-approximate GELU (the Pallas ``_gelu_grad``)."""
+    c, a = 0.7978845608028654, 0.044715
+    t = torch.tanh(c * (x + a * x * x * x))
+    du = c * (1.0 + 3.0 * a * x * x)
+    return 0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * du
+
+
+def ffn_block_bwd_plain(x_img, g, lns, lnb, w1, b1, wd, bd, w2, b2,
+                        eps: float = 1e-6):
+    """Plain twin of :func:`ffn_block_bwd` (the Pallas body
+    ``_ffn_bwd_kernel``, on the whole image instead of row tiles)."""
+    B, H, W, C = x_img.shape
+    Hd = w1.shape[1]
+    dt = x_img.dtype
+    xhat, rsig = _ln_stats(x_img, eps)
+    xn = (xhat * lns.float() + lnb.float()).to(dt)
+    w1c, w2c = w1.to(dt), w2.to(dt)
+    wdf = wd.float()
+    h1 = _mm(xn, w1c) + b1.float()                      # [B, H, W, Hd]
+    a1p = F.pad(_gelu(h1), (0, 0, 1, 1, 1, 1))
+    hc = bd.float() + sum(a1p[:, dy:dy + H, dx:dx + W] * wdf[dy, dx]
+                          for dy in range(3) for dx in range(3))
+    a2 = _gelu(hc)
+
+    gf = g.float()
+    g_dt = gf.to(dt)
+    dhc = _mm(g_dt, w2c.t()) * _gelu_grad(hc)
+    dbd = dhc.reshape(-1, Hd).sum(0)
+    dw2 = _mm(a2.to(dt).reshape(-1, Hd).t(), g_dt.reshape(-1, C))
+    db2 = gf.reshape(-1, C).sum(0)
+    dwd = torch.stack([
+        torch.stack([(a1p[:, dy:dy + H, dx:dx + W] * dhc).reshape(-1, Hd).sum(0)
+                     for dx in range(3)]) for dy in range(3)])
+    dhcp = F.pad(dhc, (0, 0, 1, 1, 1, 1))
+    da1 = sum(dhcp[:, 2 - dy:2 - dy + H, 2 - dx:2 - dx + W] * wdf[dy, dx]
+              for dy in range(3) for dx in range(3))
+    dh1 = da1 * _gelu_grad(h1)
+    dh1_dt = dh1.to(dt)
+    dw1 = _mm(xn.reshape(-1, C).t(), dh1_dt.reshape(-1, Hd))
+    db1 = dh1.reshape(-1, Hd).sum(0)
+    dxn = _mm(dh1_dt, w1c.t())
+    dx, dlns, dlnb = _ln_bwd(dxn, xhat, rsig, lns)
+    return ((dx + gf).to(dt), dlns, dlnb, dw1, db1, dwd, dbd, dw2, db2)
+
+
+# ---------------------------------------------------------------------------
+# backward: CUDA kernels
+# ---------------------------------------------------------------------------
+
+LAUNCHES.update({"lewin_attn_bwd": 0, "lewin_ffn_bwd": 0, "freq_inter_bwd": 0})
+
+
+def _grad_input(x, g):
+    _check(x, g)
+    if g.shape != x.shape or g.dtype != x.dtype:
+        raise ValueError("the output gradient must match the input in shape "
+                         "and dtype")
+    return g.contiguous()
+
+
+def _workspace(nbytes: int, x: torch.Tensor) -> torch.Tensor:
+    return torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+
+
+def _attn_bwd_operands(x, wq3, bq3, wk3, bk3, wv3, bv3, wp3):
+    """The backward's qkv / proj operands: the forward's formats with q
+    unscaled (the kernel applies d^-0.5 to the logits, dq and dk, as the
+    Pallas body does)."""
+    h, C, d = wq3.shape
+    if (C != x.shape[-1] or h * d != C or tuple(wp3.shape) != (h, d, C)
+            or any(tuple(w.shape) != (h, C, d) for w in (wk3, wv3))
+            or any(b.numel() != C for b in (bq3, bk3, bv3))):
+        raise ValueError(f"attention weights {tuple(wq3.shape)}, "
+                         f"{tuple(wp3.shape)} for C={x.shape[-1]}")
+    to_nk = lambda w3: w3.permute(0, 2, 1).reshape(h * d, C)
+    wqkv = _nk(torch.cat([to_nk(wq3), to_nk(wk3), to_nk(wv3)], 0), x.dtype)
+    bqkv = torch.cat([b.reshape(-1) for b in (bq3, bk3, bv3)]).float()
+    return wqkv, bqkv.contiguous(), _nk(wp3.reshape(C, C).t(), x.dtype)
+
+
+def attn_bwd_kernel(x_img, g, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3, wp3,
+                    bias, mask, lam, win: int, eps: float, res: bool,
+                    bias_groups: int):
+    """Launch K6 (:func:`attn_block_bwd`) on CUDA tensors."""
+    from .build import load
+
+    B, H, W, C = x_img.shape
+    h = wq3.shape[0]
+    n = win * win
+    nW = (H // win) * (W // win)
+    g = _grad_input(x_img, g)
+    _check(x_img, lns, wq3, wp3, bias, mask, lam)
+    if H % win or W % win or C % h or B % bias_groups:
+        raise ValueError(f"unsupported shape {tuple(x_img.shape)}, h={h}, "
+                         f"win={win}, bias_groups={bias_groups}")
+    with torch.no_grad():
+        wqkv, bqkv, wp = _attn_bwd_operands(x_img, wq3, bq3, wk3, bk3, wv3,
+                                            bv3, wp3)
+        bias = _f32(bias, (bias_groups, h, n, n) if bias_groups > 1
+                    else (h, n, n))
+        mask = _f32(mask, (nW, n, n))
+        lam = _f32(lam, (B, h))
+        lns, lnb = _f32(lns, (C,)), _f32(lnb, (C,))
+    dev, dt = x_img.device, x_img.dtype
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x_img)
+    dln, dwqkv, dbqkv = f32(2, C), f32(C, 3 * C), f32(3 * C)
+    dwp, dbp, dbias = f32(C, C), f32(C), torch.empty_like(bias)
+    dlam = None if lam is None else f32(B, h)
+    lib = load()
+    nbytes = lib.fairm_lewin_attn_bwd_ws(B, H, W, C, h, win, _DTYPES[dt])
+    ws = _workspace(nbytes, x_img)
+    _run(lib.fairm_lewin_attn_bwd, _ptr(x_img), _ptr(g), _ptr(lns), _ptr(lnb),
+         _ptr(wqkv), _ptr(bqkv), _ptr(wp), _ptr(bias), _ptr(mask), _ptr(lam),
+         _ptr(ws), _ptr(dx), _ptr(dln), _ptr(dwqkv), _ptr(dbqkv), _ptr(dwp),
+         _ptr(dbp), _ptr(dbias), _ptr(dlam), nbytes, B, H, W, C, h, win,
+         bias_groups, int(res), _DTYPES[dt], float(eps), _stream(x_img))
+    LAUNCHES["lewin_attn_bwd"] += 1
+    return (dx, dln[0], dln[1], *_split_qkv_grads(dwqkv, dbqkv, h),
+            dwp.reshape(h, C // h, C), dbp, dbias, dlam)
+
+
+def freq_inter_bwd_kernel(y_img, g, wq3, bq3, wk3, bk3, wv3, bv3, wp3, biasB,
+                          mask, L: int, win: int):
+    """Launch K8 (:func:`freq_inter_bwd`) on CUDA tensors."""
+    from .build import load
+
+    LB, H, W, C = y_img.shape
+    h = wq3.shape[0]
+    n = win * win
+    nW = (H // win) * (W // win)
+    g = _grad_input(y_img, g)
+    _check(y_img, wq3, wp3, biasB, mask)
+    if H % win or W % win or C % h or LB % L:
+        raise ValueError(f"unsupported shape {tuple(y_img.shape)}, h={h}, L={L}")
+    with torch.no_grad():
+        wqkv, bqkv, wp = _attn_bwd_operands(y_img, wq3, bq3, wk3, bk3, wv3,
+                                            bv3, wp3)
+        bias = _f32(biasB, (h, L * n, L * n))
+        mask = _f32(mask, (nW, n, n))
+    dev, dt = y_img.device, y_img.dtype
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    dy = torch.empty_like(y_img)
+    dwqkv, dbqkv, dwp, dbp = f32(C, 3 * C), f32(3 * C), f32(C, C), f32(C)
+    dbias = torch.empty_like(bias)
+    lib = load()
+    nbytes = lib.fairm_freq_inter_bwd_ws(LB, H, W, C, h, win, L, _DTYPES[dt])
+    ws = _workspace(nbytes, y_img)
+    _run(lib.fairm_freq_inter_bwd, _ptr(y_img), _ptr(g), _ptr(wqkv),
+         _ptr(bqkv), _ptr(wp), _ptr(bias), _ptr(mask), _ptr(ws), _ptr(dy),
+         _ptr(dwqkv), _ptr(dbqkv), _ptr(dwp), _ptr(dbp), _ptr(dbias), nbytes,
+         LB, H, W, C, h, win, L, _DTYPES[dt], _stream(y_img))
+    LAUNCHES["freq_inter_bwd"] += 1
+    return (dy, *_split_qkv_grads(dwqkv, dbqkv, h),
+            dwp.reshape(h, C // h, C), dbp, dbias)
+
+
+def ffn_bwd_kernel(x_img, g, lns, lnb, w1, b1, wd, bd, w2, eps: float):
+    """Launch K7 (:func:`ffn_block_bwd`) on CUDA tensors."""
+    from .build import load
+
+    B, H, W, C = x_img.shape
+    Hd = w1.shape[1]
+    g = _grad_input(x_img, g)
+    _check(x_img, lns, w1, wd, w2)
+    if (tuple(w1.shape), tuple(wd.shape), tuple(w2.shape)) != (
+            (C, Hd), (3, 3, Hd), (Hd, C)):
+        raise ValueError(f"FFN weights {tuple(w1.shape)}, {tuple(wd.shape)}, "
+                         f"{tuple(w2.shape)} for C={C}")
+    with torch.no_grad():  # the forward's formats (ffn_operands)
+        w1t, w2t = _nk(w1.t(), x_img.dtype), _nk(w2.t(), x_img.dtype)
+        b1, bd = _f32(b1, (Hd,)), _f32(bd, (Hd,))
+        wd = _f32(wd, (3, 3, Hd))
+        lns, lnb = _f32(lns, (C,)), _f32(lnb, (C,))
+    dev, dt = x_img.device, x_img.dtype
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x_img)
+    dln, dw1, db1 = f32(2, C), f32(C, Hd), f32(Hd)
+    dwd, dbd, dw2, db2 = f32(3, 3, Hd), f32(Hd), f32(Hd, C), f32(C)
+    lib = load()
+    nbytes = lib.fairm_lewin_ffn_bwd_ws(B, H, W, C, Hd, _DTYPES[dt])
+    ws = _workspace(nbytes, x_img)
+    _run(lib.fairm_lewin_ffn_bwd, _ptr(x_img), _ptr(g), _ptr(lns), _ptr(lnb),
+         _ptr(w1t), _ptr(b1), _ptr(wd), _ptr(bd), _ptr(w2t),
+         _ptr(ws), _ptr(dx), _ptr(dln), _ptr(dw1), _ptr(db1), _ptr(dwd),
+         _ptr(dbd), _ptr(dw2), _ptr(db2), nbytes, B, H, W, C, Hd, _DTYPES[dt],
+         float(eps), _stream(x_img))
+    LAUNCHES["lewin_ffn_bwd"] += 1
+    return dx, dln[0], dln[1], dw1, db1, dwd, dbd, dw2, db2
+
+
+# ---------------------------------------------------------------------------
+# backward: entry points (the Pallas signatures and return layouts)
+# ---------------------------------------------------------------------------
+
+
+def attn_block_bwd(x_img, g, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp,
+                   bias, mask, lam, win: int = 8, eps: float = 1e-6,
+                   res: bool = True, bias_groups: int = 1):
+    """Backward of :func:`block_attention` (``res=True``) and
+    :func:`freq_intra` (``res=False, bias_groups=L``) without DropPath:
+    ``(dx, dlns, dlnb, dwq3, dbq3, dwk3, dbk3, dwv3, dbv3, dwp3, dbp, dbias,
+    dlam)`` in the forward's argument layouts, ``dx`` in x's dtype, the rest
+    float32; ``dlam`` is None without ``lam``."""
+    if x_img.device.type == "cpu":
+        return attn_block_bwd_plain(x_img, g, lns, lnb, wq3, bq3, wk3, bk3,
+                                    wv3, bv3, wp3, bp, bias, mask, lam, win,
+                                    eps, res, bias_groups)
+    return attn_bwd_kernel(x_img, g, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3,
+                           wp3, bias, mask, lam, win, eps, res, bias_groups)
+
+
+def freq_inter_bwd(y_img, g, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp, biasB,
+                   mask, L: int = 1, win: int = 8):
+    """Backward of :func:`freq_inter` without the residual and DropPath:
+    ``(dy, dwq3, dbq3, dwk3, dbk3, dwv3, dbv3, dwp3, dbp, dbiasB)``."""
+    if y_img.device.type == "cpu":
+        return freq_inter_bwd_plain(y_img, g, wq3, bq3, wk3, bk3, wv3, bv3,
+                                    wp3, bp, biasB, mask, L, win)
+    return freq_inter_bwd_kernel(y_img, g, wq3, bq3, wk3, bk3, wv3, bv3, wp3,
+                                 biasB, mask, L, win)
+
+
+def ffn_block_bwd(x_img, g, lns, lnb, w1, b1, wd, bd, w2, b2,
+                  eps: float = 1e-6):
+    """Backward of :func:`block_ffn` without DropPath:
+    ``(dx, dlns, dlnb, dw1, db1, dwd, dbd, dw2, db2)``."""
+    if x_img.device.type == "cpu":
+        return ffn_block_bwd_plain(x_img, g, lns, lnb, w1, b1, wd, bd, w2, b2,
+                                   eps)
+    return ffn_bwd_kernel(x_img, g, lns, lnb, w1, b1, wd, bd, w2, eps)
+
+
+# ---------------------------------------------------------------------------
+# autograd Functions: forward K1 / K1 / K3 / K2 (or K4 / K5), backward
+# K6 / K6 / K8 / K7; the twins on a CPU tensor
+# ---------------------------------------------------------------------------
+#
+# DropPath inside a block, out = x + s_b * f(x) with a per-image s: the
+# backward of u = x + f(x) is fed s * g, then dx += (1 - s) * g (JAX
+# ``_attn_bwd``); for the inter half the residual's gradient is the unscaled
+# g. ``mask`` and ``dps`` get no gradient.
+
+
+def _scaled(g, dps):
+    if dps is None:
+        return g
+    return (g.float() * dps.float()[:, None, None, None]).to(g.dtype)
+
+
+def _fix_dx(dx, g, dps):
+    if dps is None:
+        return dx
+    sf = dps.float()[:, None, None, None]
+    return (dx.float() + (1.0 - sf) * g.float()).to(dx.dtype)
+
+
+def _cast_like(grads, primals):
+    return tuple(None if g is None else g.to(p.dtype)
+                 for g, p in zip(grads, primals))
+
+
+def _attn_vjp(x_img, g, lns, lnb, qkvp, bias, mask, lam, win, eps, dps):
+    """Gradients of :func:`block_attention` wrt ``(x, lns, lnb, *qkvp, bias,
+    lam)``; ``qkvp`` = ``(wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp)``."""
+    grads = attn_block_bwd(x_img, _scaled(g, dps), lns, lnb, *qkvp, bias,
+                           mask, lam, win, eps, True, 1)
+    grads = (_fix_dx(grads[0], g, dps),) + grads[1:]
+    return _cast_like(grads, (x_img, lns, lnb, *qkvp, bias,
+                              x_img if lam is None else lam))
+
+
+def _intra_vjp(x_img, g, lns, lnb, qkvp, biasA, mask, L, win, eps):
+    grads = attn_block_bwd(x_img, g, lns, lnb, *qkvp, biasA, mask, None, win,
+                           eps, False, L)[:12]
+    return _cast_like(grads, (x_img, lns, lnb, *qkvp, biasA))
+
+
+def _inter_vjp(y_img, res_img, g, qkvp, biasB, mask, L, win, dps):
+    """Gradients of :func:`freq_inter` wrt ``(y, res, *qkvp, biasB)``."""
+    grads = freq_inter_bwd(y_img, _scaled(g, dps), *qkvp, biasB, mask, L, win)
+    grads = (grads[0], g.to(res_img.dtype)) + grads[1:]
+    return _cast_like(grads, (y_img, res_img, *qkvp, biasB))
+
+
+def _ffn_vjp(x_img, g, lns, lnb, ffnp, eps, dps):
+    grads = ffn_block_bwd(x_img, _scaled(g, dps), lns, lnb, *ffnp, eps)
+    grads = (_fix_dx(grads[0], g, dps),) + grads[1:]
+    return _cast_like(grads, (x_img, lns, lnb, *ffnp))
+
+
+class BlockAttention(torch.autograd.Function):
+    """:func:`block_attention` with the backward of K6."""
+
+    @staticmethod
+    def forward(ctx, x_img, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp,
+                bias, mask, lam, win, eps, dps):
+        ctx.save_for_backward(x_img, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3,
+                              wp3, bp, bias, mask, lam, dps)
+        ctx.win, ctx.eps = win, eps
+        return block_attention(x_img, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3,
+                               wp3, bp, bias, mask, lam, win, eps, dps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_img, lns, lnb, *qkvp, bias, mask, lam, dps = ctx.saved_tensors
+        grads = _attn_vjp(x_img, g, lns, lnb, qkvp, bias, mask, lam, ctx.win,
+                          ctx.eps, dps)
+        return (*grads[:12], None, grads[12], None, None, None)
+
+
+class FreqIntra(torch.autograd.Function):
+    """:func:`freq_intra` with the backward of K6 (per-band bias)."""
+
+    @staticmethod
+    def forward(ctx, x_img, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp,
+                biasA, mask, L, win, eps):
+        ctx.save_for_backward(x_img, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3,
+                              wp3, bp, biasA, mask)
+        ctx.L, ctx.win, ctx.eps = L, win, eps
+        return freq_intra(x_img, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3, wp3,
+                          bp, biasA, mask, L, win, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_img, lns, lnb, *qkvp, biasA, mask = ctx.saved_tensors
+        grads = _intra_vjp(x_img, g, lns, lnb, qkvp, biasA, mask, ctx.L,
+                           ctx.win, ctx.eps)
+        return (*grads, None, None, None, None)
+
+
+class FreqInter(torch.autograd.Function):
+    """:func:`freq_inter` with the backward of K8."""
+
+    @staticmethod
+    def forward(ctx, y_img, res_img, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp,
+                biasB, mask, L, win, eps, dps):
+        ctx.save_for_backward(y_img, res_img, wq3, bq3, wk3, bk3, wv3, bv3,
+                              wp3, bp, biasB, mask, dps)
+        ctx.L, ctx.win = L, win
+        return freq_inter(y_img, res_img, wq3, bq3, wk3, bk3, wv3, bv3, wp3,
+                          bp, biasB, mask, L, win, eps, dps)
+
+    @staticmethod
+    def backward(ctx, g):
+        y_img, res_img, *qkvp, biasB, mask, dps = ctx.saved_tensors
+        grads = _inter_vjp(y_img, res_img, g, qkvp, biasB, mask, ctx.L,
+                           ctx.win, dps)
+        return (*grads, None, None, None, None, None)
+
+
+class BlockFFN(torch.autograd.Function):
+    """:func:`block_ffn` with the backward of K7."""
+
+    @staticmethod
+    def forward(ctx, x_img, lns, lnb, w1, b1, wd, bd, w2, b2, eps, dps):
+        ctx.save_for_backward(x_img, lns, lnb, w1, b1, wd, bd, w2, b2, dps)
+        ctx.eps = eps
+        return block_ffn(x_img, lns, lnb, w1, b1, wd, bd, w2, b2, eps, dps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_img, lns, lnb, *ffnp, dps = ctx.saved_tensors
+        grads = _ffn_vjp(x_img, g, lns, lnb, ffnp, ctx.eps, dps)
+        return (*grads, None, None)
+
+
+def _merged_forward_aux(x_img, run, Hd: int, freq: bool):
+    """One merged launch through ``run(scratch_out)``; hands back ``(out, u,
+    y1)`` with ``u`` (true layout) and ``y1`` (K5: the intra output, rolled
+    layout) copied out of the scratch buffer the kernel already fills."""
+    B, H, W, C = x_img.shape
+    M = B * H * W
+    keep = []
+    out = run(keep)
+    scratch = keep[0]
+    at = M * (kpad(C) + 3 * C)
+    y1 = None
+    if freq:
+        y1 = scratch[at:at + M * C].reshape(B, H, W, C).clone()
+        at += M * C
+    u = scratch[at:at + M * C].reshape(B, H, W, C).clone()
+    return out, u, y1
+
+
+class BlockMerged(torch.autograd.Function):
+    """:func:`block_merged`: one K4 launch forward, which also hands back
+    ``u``; backward the chain K7 on ``u``, roll, K6 on the rolled image,
+    roll back (JAX ``_merged_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x_img, ln1s, ln1b, wq3, bq3, wk3, bk3, wv3, bv3, wp3,
+                bp, bias, mask, lam, ln2s, ln2b, w1, b1, wd, bd, w2, b2, win,
+                shift, eps, dps1, dps2):
+        qkvp = (wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp)
+        ffnp = (w1, b1, wd, bd, w2, b2)
+        if x_img.device.type == "cpu":
+            u = roll(block_attention_plain(
+                roll(x_img, shift), ln1s, ln1b, *qkvp, bias, mask, lam, win,
+                eps, dps1), -shift)
+            out = block_ffn_plain(u, ln2s, ln2b, *ffnp, eps, dps2)
+        else:
+            attn = _kernel_operands(x_img, attn_operands, *qkvp, bias)
+            ffn = _kernel_operands(x_img, ffn_operands, *ffnp)
+            out, u, _ = _merged_forward_aux(
+                x_img, lambda keep: merged_kernel(
+                    x_img, ln1s, ln1b, attn, mask, lam, ln2s, ln2b, ffn, win,
+                    shift, eps, dps1, dps2, scratch_out=keep),
+                w1.shape[1], False)
+        ctx.save_for_backward(x_img, u, ln1s, ln1b, *qkvp, bias, mask, lam,
+                              ln2s, ln2b, *ffnp, dps1, dps2)
+        ctx.win, ctx.shift, ctx.eps = win, shift, eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (x_img, u, ln1s, ln1b, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp, bias,
+         mask, lam, ln2s, ln2b, w1, b1, wd, bd, w2, b2, dps1,
+         dps2) = ctx.saved_tensors
+        win, shift, eps = ctx.win, ctx.shift, ctx.eps
+        gf = _ffn_vjp(u, g, ln2s, ln2b, (w1, b1, wd, bd, w2, b2), eps, dps2)
+        ga = _attn_vjp(roll(x_img, shift).contiguous(),
+                       roll(gf[0], shift).contiguous(), ln1s, ln1b,
+                       (wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp), bias, mask,
+                       lam, win, eps, dps1)
+        return (roll(ga[0], -shift), *ga[1:12], None, ga[12], *gf[1:], None,
+                None, None, None, None)
+
+
+class BlockFreqMerged(torch.autograd.Function):
+    """:func:`block_freq_merged`: one K5 launch forward, which also hands
+    back ``u`` and ``y1``; backward the chain K7, roll, K8, K6, add the
+    inter residual's gradient, roll back (JAX ``_freq_merged_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x_img, ln1s, ln1b, wq3A, bq3A, wk3A, bk3A, wv3A, bv3A,
+                wp3A, bpA, biasA, wq3B, bq3B, wk3B, bk3B, wv3B, bv3B, wp3B,
+                bpB, biasB, mask, ln2s, ln2b, w1, b1, wd, bd, w2, b2, L, win,
+                shift, eps, dps1, dps2):
+        pA = (wq3A, bq3A, wk3A, bk3A, wv3A, bv3A, wp3A, bpA)
+        pB = (wq3B, bq3B, wk3B, bk3B, wv3B, bv3B, wp3B, bpB)
+        ffnp = (w1, b1, wd, bd, w2, b2)
+        if x_img.device.type == "cpu":
+            img = roll(x_img, shift)
+            y1 = freq_intra_plain(img, ln1s, ln1b, *pA, biasA, mask, L, win,
+                                  eps)
+            u = roll(freq_inter_plain(y1, img, *pB, biasB, mask, L, win, eps,
+                                      dps1), -shift)
+            out = block_ffn_plain(u, ln2s, ln2b, *ffnp, eps, dps2)
+        else:
+            intra = _kernel_operands(x_img, attn_operands, *pA, biasA)
+            inter = _kernel_operands(x_img, attn_operands, *pB, biasB)
+            ffn = _kernel_operands(x_img, ffn_operands, *ffnp)
+            out, u, y1 = _merged_forward_aux(
+                x_img, lambda keep: freq_merged_kernel(
+                    x_img, ln1s, ln1b, intra, inter, mask, ln2s, ln2b, ffn, L,
+                    win, shift, eps, dps1, dps2, scratch_out=keep),
+                w1.shape[1], True)
+        ctx.save_for_backward(x_img, u, y1, ln1s, ln1b, *pA, biasA, *pB,
+                              biasB, mask, ln2s, ln2b, *ffnp, dps1, dps2)
+        ctx.L, ctx.win, ctx.shift, ctx.eps = L, win, shift, eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        x_img, u, y1, ln1s, ln1b = saved[:5]
+        pA, biasA = saved[5:13], saved[13]
+        pB, biasB = saved[14:22], saved[22]
+        mask, ln2s, ln2b = saved[23:26]
+        ffnp, (dps1, dps2) = saved[26:32], saved[32:34]
+        L, win, shift, eps = ctx.L, ctx.win, ctx.shift, ctx.eps
+        gf = _ffn_vjp(u, g, ln2s, ln2b, ffnp, eps, dps2)
+        img = roll(x_img, shift).contiguous()
+        gi = _inter_vjp(y1, img, roll(gf[0], shift).contiguous(), pB, biasB,
+                        mask, L, win, dps1)
+        ga = _intra_vjp(img, gi[0], ln1s, ln1b, pA, biasA, mask, L, win, eps)
+        dimg = ga[0] + gi[1]              # intra input + inter residual
+        return (roll(dimg, -shift), *ga[1:12], *gi[2:11], None, *gf[1:], None,
+                None, None, None, None, None)

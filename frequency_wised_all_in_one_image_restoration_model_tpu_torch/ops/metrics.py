@@ -1,6 +1,6 @@
 """Image quality metrics on the bundle's device (PSNR / SSIM) and
 ``AverageMeter`` (the port of the eval part of the JAX ``ops/metrics.py``;
-``ssim_gaussian`` is a loss and comes with the training slice).
+``ssim_gaussian``, a loss no ported training path uses, is not ported yet).
 
 The reference ships every restored image to the CPU and calls skimage
 (utils/val_utils.py:50-66). Here both metrics are tensor code that runs

@@ -75,8 +75,38 @@ def band_mask(L: int, n_tokens: int, kind: str) -> np.ndarray:
     return np.kron(blocks, np.ones((n_tokens, n_tokens))).astype(np.float32)
 
 
+class _GatherRows(torch.autograd.Function):
+    """``table[..., index, :]`` whose backward adds in a fixed order. The
+    backward of plain indexing scatters with atomic adds, on the CPU and on
+    the card, so a bias table's gradient would change from run to run in its
+    last bits; here it is one product with the index's one-hot matrix."""
+
+    @staticmethod
+    def forward(ctx, table, index):
+        ctx.save_for_backward(index)
+        ctx.rows = table.shape[-2]
+        return table.index_select(-2, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        (index,) = ctx.saved_tensors
+        onehot = torch.nn.functional.one_hot(index, ctx.rows).to(g.dtype)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return torch.matmul(onehot.t(), g), None
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def gather_rows(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``table [..., R, h]`` gathered along R by the flat ``index [N]`` ->
+    ``[..., N, h]``, with a run-to-run reproducible gradient."""
+    return _GatherRows.apply(table, index)
+
+
 def gather_relative_bias(table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """``table [(2w-1)^2, h]`` gathered by ``index [n, n]`` -> ``[h, n, n]``
     (encoder_Uformer.py:158-160)."""
     n = index.shape[0]
-    return table[index.reshape(-1)].reshape(n, n, -1).permute(2, 0, 1)
+    return gather_rows(table, index.reshape(-1)).reshape(n, n, -1).permute(2, 0, 1)

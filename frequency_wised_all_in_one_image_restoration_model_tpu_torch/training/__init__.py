@@ -1,1 +1,1 @@
-"""Checkpoints; the training steps come with the training slice."""
+"""Training: losses, train state, the two-phase steps, the loop, checkpoints."""

@@ -17,6 +17,9 @@ changes layouts:
 
 Reference ``.pth`` checkpoints reach the port through the JAX package:
 ``utils/torch_weights.py`` -> JAX variables -> :func:`from_jax`.
+
+:func:`train_state_from_jax` carries a whole JAX ``TrainState`` across, into
+the tree ``training/checkpoint.py`` saves and loads.
 """
 
 from __future__ import annotations
@@ -72,3 +75,48 @@ def from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
     stats(variables.get("batch_stats", {}), ())
     return out
+
+
+def _field(node: Any, name: str, index: int = None):
+    """A field of a NamedTuple / dataclass state, or of the nested dicts and
+    lists a checkpoint restored without a template gives."""
+    if isinstance(node, Mapping):
+        return node[name] if name in node else node[str(index)]
+    if hasattr(node, name):
+        return getattr(node, name)
+    return node[index]
+
+
+def train_state_from_jax(state: Any) -> Dict[str, Any]:
+    """A JAX ``TrainState`` (its arrays as numpy; the object itself, or the
+    nested dicts of an Orbax restore) -> the port's train-state tree
+    (``training/checkpoint.py::load_state_tree``): query and key parameters,
+    the BatchNorm statistics of both, queue and pointer, Adam's moments,
+    count and learning rate. The JAX RNG key has no counterpart: the
+    DropPath generator keeps the seed it was made with."""
+    params, extra = _field(state, "params"), _field(state, "extra")
+    moco = _field(state, "moco")
+    net = lambda p, e: from_jax({"params": p, **(e or {})})
+    opt = _field(state, "opt_state")
+    adam = _field(_field(opt, "inner_state"), "0", 0)
+    moments = lambda tree: {n: from_jax({"params": _field(tree, n)})
+                            for n in ("encoder", "decoder")}
+    lr = _field(_field(opt, "hyperparams"), "learning_rate")
+    return {
+        "encoder": net(_field(params, "encoder"), _field(extra, "encoder")),
+        "decoder": net(_field(params, "decoder"), _field(extra, "decoder")),
+        "train_state": {
+            "step": int(np.asarray(_field(state, "step"))),
+            "encoder_k": net(_field(moco, "params_k"), _field(moco, "extra_k")),
+            "queue": torch.from_numpy(np.array(_field(moco, "queue"),
+                                               np.float32)),
+            "queue_ptr": torch.tensor(int(np.asarray(_field(moco, "queue_ptr")))),
+            "optimizer": {
+                "lr": float(np.asarray(lr)),
+                "count": int(np.asarray(_field(adam, "count"))),
+                "exp_avg": moments(_field(adam, "mu")),
+                "exp_avg_sq": moments(_field(adam, "nu")),
+            },
+            "generator": None,
+        },
+    }

@@ -8,7 +8,10 @@ left out:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Small shapes with every option on (SW-MSA shift, all_DC ``lam``, DropPath
-``dps``, L=3 bands); ``chip_smoke.py`` checks the flagship shapes.
+``dps``, L=3 bands); ``chip_smoke.py`` checks the flagship shapes. The
+backward kernels K6-K8 are held against their plain twins output by output,
+and the autograd Functions against ``torch.autograd.grad`` of the forward
+twins.
 """
 
 import numpy as np
@@ -173,8 +176,7 @@ def test_block_merged_kernel(card, dtype, shift):
             + [WIN, shift, 1e-6, _dps(card, B), _dps(card, B)])
     lb.reset_launches()
     got = lb.block_merged(*args)
-    assert lb.LAUNCHES == {"lewin_attn": 0, "lewin_ffn": 0, "freq_inter": 0,
-                           "lewin_merged": 1, "freq_merged": 0}
+    assert lb.LAUNCHES["lewin_merged"] == 1 and sum(lb.LAUNCHES.values()) == 1
     _check(got, lb.block_merged_plain(*args), dtype)
     chain = lb.merged_chain(lb.block_attention, lb.block_ffn, *args)
     assert torch.equal(got, chain)
@@ -251,3 +253,138 @@ def test_merged_kernels_at_widths_off_the_vector_paths(card, monkeypatch,
     _check(got, lb.block_freq_merged_plain(*args), dtype)
     assert torch.equal(got, lb.freq_merged_chain(
         lb.freq_intra, lb.freq_inter, lb.block_ffn, *args))
+
+
+# ---------------------------------------------------------------------------
+# backward kernels K6 - K8
+# ---------------------------------------------------------------------------
+
+
+def _check_all(got, want, dtype):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        if a is None or b is None:
+            assert a is None and b is None
+            continue
+        _check(a, b, a.dtype if a.dtype == torch.bfloat16 else dtype)
+
+
+def _grad(rng, like):
+    return _t(rng, *like.shape, scale=0.5, dtype=like.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("options", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attn_block_bwd_kernel(card, dtype, options):
+    """K6 against its twin: dx and every weight gradient, with and without
+    the mask and lam; two launches give equal bits."""
+    a = _attn(card, B, dtype)
+    extra = ([_mask(), _t(card, B, H, scale=0.3)] if options else [None, None])
+    args = [a[0], _grad(card, a[0])] + a[1:] + extra + [WIN, 1e-6, True, 1]
+    lb.reset_launches()
+    got = lb.attn_block_bwd(*args)
+    assert lb.LAUNCHES["lewin_attn_bwd"] == 1
+    _check_all(got, lb.attn_block_bwd_plain(*args), dtype)
+    again = lb.attn_block_bwd(*args)
+    assert all(torch.equal(p, q) for p, q in zip(got, again) if p is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_freq_intra_bwd_kernel(card, dtype):
+    """K6 with per-band bias tables and no residual."""
+    a = _attn(card, L * B, dtype, groups=L)
+    args = [a[0], _grad(card, a[0])] + a[1:] + [_mask(), None, WIN, 1e-6,
+                                               False, L]
+    _check_all(lb.attn_block_bwd(*args), lb.attn_block_bwd_plain(*args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_freq_inter_bwd_kernel(card, dtype, masked):
+    a = _attn(card, L * B, dtype)
+    args = ([a[0], _grad(card, a[0])] + a[3:11]
+            + [_t(card, H, L * N, L * N, scale=0.05),
+               _mask() if masked else None, L, WIN])
+    lb.reset_launches()
+    got = lb.freq_inter_bwd(*args)
+    assert lb.LAUNCHES["freq_inter_bwd"] == 1
+    _check_all(got, lb.freq_inter_bwd_plain(*args), dtype)
+    assert all(torch.equal(p, q)
+               for p, q in zip(got, lb.freq_inter_bwd(*args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ffn_block_bwd_kernel(card, dtype):
+    x = _t(card, B, RES, RES, C, scale=0.5, dtype=dtype)
+    args = [x, _grad(card, x)] + _ln(card) + _ffn_w(card) + [1e-6]
+    lb.reset_launches()
+    got = lb.ffn_block_bwd(*args)
+    assert lb.LAUNCHES["lewin_ffn_bwd"] == 1
+    _check_all(got, lb.ffn_block_bwd_plain(*args), dtype)
+    assert all(torch.equal(p, q)
+               for p, q in zip(got, lb.ffn_block_bwd(*args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [5, 6, 10])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_backward_kernels_at_widths_off_the_vector_paths(card, monkeypatch,
+                                                         dtype, width):
+    monkeypatch.setitem(globals(), "C", width)
+    monkeypatch.setitem(globals(), "H", 1)
+    a = _attn(card, L * B, dtype, groups=L)
+    args = [a[0], _grad(card, a[0])] + a[1:] + [_mask(), None, WIN, 1e-6,
+                                               False, L]
+    _check_all(lb.attn_block_bwd(*args), lb.attn_block_bwd_plain(*args), dtype)
+    a = _attn(card, L * B, dtype)
+    args = ([a[0], _grad(card, a[0])] + a[3:11]
+            + [_t(card, 1, L * N, L * N, scale=0.05), _mask(), L, WIN])
+    _check_all(lb.freq_inter_bwd(*args), lb.freq_inter_bwd_plain(*args), dtype)
+    x = _t(card, B, RES, RES, C, scale=0.5, dtype=dtype)
+    args = [x, _grad(card, x)] + _ln(card) + _ffn_w(card) + [1e-6]
+    _check_all(lb.ffn_block_bwd(*args), lb.ffn_block_bwd_plain(*args), dtype)
+
+
+def _leaves(args):
+    return [a.requires_grad_() if torch.is_tensor(a) and a.is_floating_point()
+            else a for a in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 4])
+def test_functions_match_autograd_of_the_forward_twins(card, shift):
+    """BlockMerged / BlockFreqMerged (K4 / K5 forward; K7, K8, K6 backward)
+    in float32 against torch.autograd.grad of the plain forward, every
+    input's gradient, DropPath and lam on."""
+    dtype = torch.float32
+    mask = _mask() if shift else None
+    args = _leaves(_attn(card, B, dtype)) + [mask] + _leaves(
+        [_t(card, B, H, scale=0.3)] + _ln(card) + _ffn_w(card)) + [
+        WIN, shift, 1e-6, _dps(card, B), _dps(card, B)]
+    diff = [a for a in args if torch.is_tensor(a) and a.requires_grad]
+    g = _grad(card, args[0])
+    lb.reset_launches()
+    got = torch.autograd.grad(lb.BlockMerged.apply(*args), diff, g)
+    assert (lb.LAUNCHES["lewin_merged"], lb.LAUNCHES["lewin_ffn_bwd"],
+            lb.LAUNCHES["lewin_attn_bwd"]) == (1, 1, 1)
+    want = torch.autograd.grad(lb.block_merged_plain(*args), diff, g)
+    _check_all(got, want, dtype)
+
+    a = _attn(card, L * B, dtype, groups=L)
+    b = _attn(card, L * B, dtype)
+    args = _leaves(a + b[3:11] + [_t(card, H, L * N, L * N, scale=0.05)]) + [
+        mask] + _leaves(_ln(card) + _ffn_w(card)) + [
+        L, WIN, shift, 1e-6, _dps(card, L * B), _dps(card, L * B)]
+    diff = [t for t in args if torch.is_tensor(t) and t.requires_grad]
+    g = _grad(card, args[0])
+    lb.reset_launches()
+    got = torch.autograd.grad(lb.BlockFreqMerged.apply(*args), diff, g)
+    assert (lb.LAUNCHES["freq_merged"], lb.LAUNCHES["lewin_ffn_bwd"],
+            lb.LAUNCHES["freq_inter_bwd"], lb.LAUNCHES["lewin_attn_bwd"]) == (
+                1, 1, 1, 1)
+    want = torch.autograd.grad(lb.block_freq_merged_plain(*args), diff, g)
+    _check_all(got, want, dtype)

@@ -199,7 +199,9 @@ def test_cpu_tensors_take_the_plain_twin(rng):
     torch.testing.assert_close(tlb.block_ffn(*fargs),
                                tlb.block_ffn_plain(*fargs), rtol=0, atol=0)
     assert set(tlb.LAUNCHES) == {"lewin_attn", "lewin_ffn", "freq_inter",
-                                 "lewin_merged", "freq_merged"}
+                                 "lewin_merged", "freq_merged",
+                                 "lewin_attn_bwd", "lewin_ffn_bwd",
+                                 "freq_inter_bwd"}
     assert not any(tlb.LAUNCHES.values())
 
 
@@ -252,7 +254,8 @@ def test_build_targets_hopper_and_tracks_sources(tmp_path, monkeypatch):
     assert cmd is None or cmd[1:len(flags) + 1] == flags
     assert {p.name for p in build.sources()} == {
         "lewin_attn.cu", "lewin_ffn.cu", "freq_inter.cu", "lewin_merged.cu",
-        "freq_merged.cu"}
+        "freq_merged.cu", "lewin_attn_bwd.cu", "lewin_ffn_bwd.cu",
+        "freq_inter_bwd.cu"}
     # the library directory is named by a hash of every csrc file
     for p in build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
