@@ -8,8 +8,9 @@ Phases, each fatal on failure:
 
 1. the card: needs ``torch.cuda.is_available()``; prints the card's name
    and power limit;
-2. build: compiles the eight LeWin-block kernels (five forward, three
-   backward) from ``csrc/`` into ``build/kernels/``, one ``nvcc`` per
+2. build: compiles the eleven kernels (the eight LeWin-block kernels, five
+   forward and three backward, the window attention forward and backward,
+   the DCN) from ``csrc/`` into ``build/kernels/``, one ``nvcc`` per
    source, all started together;
 3. per-kernel check: every kernel's wrapper against its plain PyTorch twin
    on the card at the flagship shapes, in bf16 and fp32 (TF32 off), the
@@ -49,16 +50,42 @@ Phases, each fatal on failure:
    counts held against fixed numbers); one joint step by the default route
    against the plain route from the same state (loss and every gradient,
    fp32 and bf16); the step time and its forward / backward / optimizer
-   split by CUDA events.
+   split by CUDA events;
+10. the kernels of the decoder's injection methods: the window attention
+    K9 and its backward K10 against their plain versions at the main
+    path's three window shapes ((n, nk, d) = (64, 64, 56), (64, 192, 56),
+    (192, 192, 28)) at res 128, shifted and not, and at res 8, in bf16 and
+    fp32 (K10: every output, equal bits on a second launch), beside
+    ``scaled_dot_product_attention`` with the same additive bias and mask;
+    ``WindowAttentionFn`` against autograd of the plain forward; the DCN
+    K11 against ``dcn_plain`` at every deform_conv stage (C = 112 ... 896),
+    exact and with offsets clamped to 2, offsets past the image's edges;
+    ``DCNFn``'s gradients;
+11. the full-width eval forward of three injection configurations (the
+    per-scale set ``residual modulator self_modulator deform_conv
+    attention_kv`` with the learnable modulator; ``attention_residual
+    all_DC``; ``all_3_bands`` with the learnable DC ``lamb``), offset heads
+    and ``lamb`` drawn at random, bf16 at B=32 and fp32 at B=4, default
+    route against plain route, launch counts held against fixed numbers,
+    MP/s of both routes, and a ``torch.profiler`` breakdown of the
+    per-scale set;
+12. the main paths of this slice: the eval entry point with no method flag
+    (the CLI's default, ``residual``); the training entry point on the
+    per-scale set (one phase-A step, one joint step, one eval, the
+    checkpoints, launch counts held); one joint step of the per-scale set
+    by the default route against the plain route, fp32 and bf16; its step
+    time, split, and peak memory.
 
-``--phases 3 4`` runs only those of phases 3-9, for work on one of them:
+``--phases 3 4`` runs only those of phases 3-12, for work on one of them:
 such a partial run prints neither of the two result lines and exits with
 2. The whole run fails too if anything of JAX or of the JAX package was
 imported. Its line before the last is ``{"kernels": [...]}``, where
 ``launches`` is the sum of ``launches_by_path`` (the entry point in
 float32 and in bfloat16 on the default route, the requests by the chain
 and by the merged kernels in float32 and by the default route in
-bfloat16, the training entry point in bfloat16); the last line is
+bfloat16, the training entry point in bfloat16; phase 11's forwards, the
+eval entry point with the default method, the per-scale training entry
+point); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with 1 and prints no result.
 """
@@ -95,7 +122,15 @@ KERNELS = {  # counter name -> (source, the Pallas kernel it replaces)
     "lewin_ffn_bwd": (f"{PKG}/csrc/lewin_ffn_bwd.cu", f"{PALLAS_BWD}:480"),
     "freq_inter_bwd": (f"{PKG}/csrc/freq_inter_bwd.cu", f"{PALLAS_BWD}:676"),
 }
+PALLAS_WA = PALLAS.replace("lewin_block.py", "window_attention.py")
+PALLAS_DCN = PALLAS.replace("lewin_block.py", "dcn.py")
+KERNELS.update({  # the kernels of the decoder's injection methods
+    "window_attn": (f"{PKG}/csrc/window_attn.cu", f"{PALLAS_WA}:44"),
+    "window_attn_bwd": (f"{PKG}/csrc/window_attn_bwd.cu", f"{PALLAS_WA}:183"),
+    "dcn": (f"{PKG}/csrc/dcn.cu", f"{PALLAS_DCN}:62"),
+})
 BWD_KERNELS = ("lewin_attn_bwd", "lewin_ffn_bwd", "freq_inter_bwd")
+INJECTION_KERNELS = ("window_attn", "window_attn_bwd", "dcn")
 # per-kernel tolerance on max|kernel - plain| / max(1, max|plain|): fp32
 # differs only in summation order; bf16 rounds q/k/v, the hidden and the
 # output at other places than the plain path (a few bf16 ulps)
@@ -173,11 +208,33 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
-ALL_PHASES = frozenset((3, 4, 5, 6, 7, 8, 9))
+ALL_PHASES = frozenset((3, 4, 5, 6, 7, 8, 9, 10, 11, 12))
 
 
 class Failed(Exception):
     pass
+
+
+class Counters:
+    """The launch counters of every kernel module (``LAUNCHES`` of
+    ``ops/kernels/lewin_block.py``, ``ops/kernels/window_attention.py`` and
+    ``ops/deform_conv.py``), set to 0 and read together."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+
+    def reset(self) -> None:
+        for m in self.modules:
+            m.reset_launches()
+
+    def read(self) -> dict:
+        out = {}
+        for m in self.modules:
+            out.update(m.LAUNCHES)
+        return out
+
+
+COUNTERS = Counters()           # filled in by main()
 
 
 def card_line() -> str:
@@ -493,10 +550,13 @@ def check_kernels(lb, windows, default_merged, min_tokens, stats, card: str):
 
 
 def flagship_config(config, eval_dtype: str, **overrides):
-    return config.make_config(
-        encoder_type="Uformer", decoder_type="Uformer", L=3,
-        encoder_msa_type="freq", degradation_embedding_method=["all_DC"],
-        patch_size=P, eval_dtype=eval_dtype, seed=0, **overrides)
+    """The flagship's configuration; ``overrides`` may replace any field,
+    the decoder's methods included."""
+    fields = dict(encoder_type="Uformer", decoder_type="Uformer", L=3,
+                  encoder_msa_type="freq", degradation_embedding_method=["all_DC"],
+                  patch_size=P, eval_dtype=eval_dtype, seed=0)
+    fields.update(overrides)
+    return config.make_config(**fields)
 
 
 class Bundles:
@@ -517,12 +577,12 @@ class Bundles:
 
 def route_counts(bundle, airnet, uformer_lewin, B: int) -> dict:
     """The launches one forward of ``bundle`` on ``B`` tiles makes, from its
-    blocks' routes (only origin blocks look at the batch)."""
+    fused blocks' routes (only origin blocks look at the batch)."""
     counts = dict(ZERO)
     dtype = airnet.model_dtype(bundle.cfg)
     for net in (bundle.encoder, bundle.decoder):
         for m in net.modules():
-            if not isinstance(m, uformer_lewin.LeWinBlock):
+            if not isinstance(m, uformer_lewin.LeWinBlock) or m.unfused:
                 continue
             freq = m.msa_type == "freq"
             route = m.route(dtype, B)
@@ -561,10 +621,10 @@ def full_forward(bundles, airnet, lb, uformer_lewin, frequency):
         for impl, fixed in (("kernel", CHAIN_COUNTS), ("merged", MERGED_COUNTS),
                             ("default", default_counts(dtype, B))):
             bundle = bundles.get(dtype, impl)
-            lb.reset_launches()
+            COUNTERS.reset()
             got = airnet.eval_forward(bundle, x)
             torch.cuda.synchronize()
-            counts = dict(lb.LAUNCHES)
+            counts = COUNTERS.read()
             print(f"  {impl}: launches per forward {counts}", flush=True)
             expect = route_counts(bundle, airnet, uformer_lewin, B)
             if counts != fixed or expect != fixed:
@@ -596,32 +656,37 @@ def add_launches(stats, path: str, counts):
 
 
 def eval_entry_point(config, airnet, runner, metrics, port_test, lb,
-                     uformer_lewin, stats, dtype: str):
+                     uformer_lewin, stats, dtype: str, method: str = "all_DC"):
     """Phase 5a, the main path: ``<port>.test.main`` on the card at flagship
     width and depth, synthetic test sets, weights from the seed, the default
     route; ``--eval_dtype`` left at its default (float32) or set to
     bfloat16, where the default route runs 4 blocks of a 16-tile forward
-    merged."""
+    merged. Phase 12a: the same with ``method=None``, no method flag: the
+    CLI's default, ``residual``, whose blocks all stay fused."""
     tasks = ["denoising_bsd68_25", "deraining"]
     flags = [] if dtype == "float32" else ["--eval_dtype", dtype]
+    if method is not None:
+        flags += ["--degradation_embedding_method", method]
     with tempfile.TemporaryDirectory() as out:
         cfg = config.parse_args(
-            ["--synthetic_data", "--degradation_embedding_method", "all_DC",
-             "--test_de_type", *tasks, "--output_path", out + "/",
-             "--epochs", "1", *flags])
+            ["--synthetic_data", "--test_de_type", *tasks, "--output_path",
+             out + "/", "--epochs", "1", *flags])
         if cfg.eval_dtype != dtype:
             raise Failed(f"eval_dtype {cfg.eval_dtype!r}, wanted {dtype!r}")
+        if method is None and cfg.degradation_embedding_method != ("residual",):
+            raise Failed(f"the CLI's default method is "
+                         f"{cfg.degradation_embedding_method}, not residual")
         torch.cuda.synchronize()
-        lb.reset_launches()
+        COUNTERS.reset()
         t0 = time.perf_counter()
         rows = port_test.main(cfg)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = dict(lb.LAUNCHES)
+        counts = COUNTERS.read()
         with open(f"{out}/epoch_1_results.log") as f:
             log = f.read()
-    print(f"eval entry point ({dtype}): {len(tasks)} tasks in {secs:.3f} s, "
-          f"launches {counts}", flush=True)
+    print(f"eval entry point ({dtype}, {method or 'no method flag'}): "
+          f"{len(tasks)} tasks in {secs:.3f} s, launches {counts}", flush=True)
     want_log = "".join(f"{t}: {' ' * (25 - len(t))}{r}\n" for t, r in rows)
     if [t for t, _ in rows] != tasks or log != want_log:
         raise Failed(f"results log {log!r} != {want_log!r}")
@@ -661,7 +726,8 @@ def eval_entry_point(config, airnet, runner, metrics, port_test, lb,
         raise Failed(f"entry point launch counts {counts} != {want} "
                      f"({forwards} forwards; the blocks' routes give "
                      f"{per_forward} per forward)")
-    add_launches(stats, f"entry_{dtype}", counts)
+    add_launches(stats, f"entry_{dtype}" + ("" if method else "_residual"),
+                 counts)
 
 
 def requests(bundles, tiling, lb, stats):
@@ -692,12 +758,12 @@ def requests(bundles, tiling, lb, stats):
     for dtype, impl, want in paths:
         bundle = bundles.get(dtype, impl)
         torch.cuda.synchronize()
-        lb.reset_launches()
+        COUNTERS.reset()
         t0 = time.perf_counter()
         outs[dtype, impl] = [tiling.restore_image(bundle, img) for img in imgs]
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = dict(lb.LAUNCHES)
+        counts = COUNTERS.read()
         print(f"requests ({dtype}, {impl}): {len(imgs)} images in {secs:.3f} "
               f"s, forwards of {tiles} tiles, launches {counts}", flush=True)
         for (h, w), out in zip(shapes, outs[dtype, impl]):
@@ -740,27 +806,43 @@ def profile(bundles, airnet, card: str, top: int = 15):
     ``torch.profiler``, by kernel name, and its busy time (the union of its
     device intervals) beside the untraced forward's time by CUDA events,
     in one process."""
+    x = torch.from_numpy(np.random.default_rng(2).random(
+        (BATCH, P, P, 3), dtype=np.float32)).cuda()
+    profile_forward(airnet, bundles.get("bfloat16", "default"), x,
+                    "the flagship", card, top)
+
+
+def profile_forward(airnet, bundle, x, label: str, card: str, top: int = 15):
+    """One traced eval forward of ``bundle`` on ``x``: device time by
+    kernel name, busy time against the untraced forward's."""
+    profile_call(lambda: airnet.eval_forward(bundle, x),
+                 f"{label} (bf16, B={x.shape[0]}; {card}): forward", top)
+
+
+def profile_call(fn, label: str, top: int = 15):
+    """One traced call of ``fn``: device time by kernel name, busy time
+    against the untraced call's time by CUDA events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
-    bundle = bundles.get("bfloat16", "default")
-    x = torch.from_numpy(np.random.default_rng(2).random(
-        (BATCH, P, P, 3), dtype=np.float32)).cuda()
-    fwd = time_ms(lambda: airnet.eval_forward(bundle, x), iters=5)
+    fwd = time_ms(fn, iters=5)
     with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        airnet.eval_forward(bundle, x)
+        fn()
         torch.cuda.synchronize()
     spans, by_name = [], {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # device work only: a range such as Optimizer.step is annotated on
+        # the device's timeline too
+        if e.device_type != DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
             continue
         t0, t1 = e.time_range.start, e.time_range.end   # microseconds
         spans.append((t0, t1))
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + t1 - t0)
-    print(f"profile (bf16, B={BATCH}; {card}): forward {fwd:.2f} ms by "
-          "CUDA events, untraced", flush=True)
+    print(f"profile of {label} {fwd:.2f} ms by CUDA events, untraced",
+          flush=True)
     if not spans:
         print("  the trace holds no device events: busy time not measured")
         return
@@ -773,7 +855,7 @@ def profile(bundles, airnet, card: str, top: int = 15):
     span = end - spans[0][0]
     print(f"  traced: {len(spans)} device events, span {span / 1e3:.2f} ms, "
           f"busy {busy / 1e3:.2f} ms (idle {1 - busy / span:.3f} of the "
-          f"traced span, {1 - busy / 1e3 / fwd:.3f} of the untraced forward)")
+          f"traced span, {1 - busy / 1e3 / fwd:.3f} of the untraced call)")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"  {us / 1e3:9.3f} ms x {n:4d}  {name[:110]}")
 
@@ -1030,12 +1112,12 @@ def training_entry_point(config, port_train, lb, stats):
                          f"{cfg.patch_size}")
         seen = []
         torch.cuda.synchronize()
-        lb.reset_launches()
+        COUNTERS.reset()
         t0 = time.perf_counter()
         state = port_train.main(cfg, progress=lambda e, m: seen.append((e, m)))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = dict(lb.LAUNCHES)
+        counts = COUNTERS.read()
         with open(f"{out}/train.log") as f:
             train_log = f.read()
         with open(f"{out}/results.log") as f:
@@ -1085,11 +1167,17 @@ def training_entry_point(config, port_train, lb, stats):
     add_launches(stats, "train_entry_bfloat16", counts)
 
 
-def fresh_state(config, airnet, train_state, dtype: str, impl: str, batch: int):
-    cfg = flagship_config(config, "float32", dtype=dtype, synthetic_data=True)
+def fresh_state(config, airnet, train_state, dtype: str, impl: str, batch: int,
+                fields=None):
+    """A train state of the flagship, or of the configuration ``fields``
+    (its offset heads and lamb made live), from seed 0."""
+    cfg = flagship_config(config, "float32", dtype=dtype, synthetic_data=True,
+                          **(fields or {}))
     if batch != cfg.batch_size:
         cfg = dataclasses.replace(cfg, batch_size=batch)
     bundle = airnet.build_models(cfg, "cuda", impl, eval_mode=False)
+    if fields:
+        liven(bundle)
     return cfg, bundle, train_state.create_train_state(cfg, bundle)
 
 
@@ -1100,22 +1188,26 @@ def train_batch(cfg, synthetic, steps_lib, batch: int):
     return {k: v.repeat(reps, *([1] * (v.dim() - 1))) for k, v in one.items()}
 
 
-def step_against_plain(config, airnet, train_state, steps_lib, synthetic, lb):
-    """Phase 9b: one joint step (forward + backward) from the same state by
-    the default route (kernels) and by the plain route (twins, autograd):
-    the loss and every parameter's gradient."""
+def step_against_plain(config, airnet, train_state, steps_lib, synthetic,
+                       name: str = "flagship", fields=None, counts=None):
+    """Phase 9b (the flagship) and 12c (the per-scale set, ``fields``): one
+    joint step (forward + backward) from the same state by the default
+    route (kernels) and by the plain route (twins, autograd): the loss and
+    every parameter's gradient; ``counts`` the default route's launches in
+    bf16 (float32 runs every fused block by the chain)."""
+    counts_bf16 = counts or train_step_counts(True)
     for dtype in ("float32", "bfloat16"):
         runs = {}
         for impl in ("default", "plain"):
             cfg, bundle, state = fresh_state(config, airnet, train_state, dtype,
-                                             impl, TRAIN_BATCH)
+                                             impl, TRAIN_BATCH, fields)
             batch = train_batch(cfg, synthetic, steps_lib, TRAIN_BATCH)
             step = steps_lib.make_train_step(cfg, bundle, joint=True,
                                              upto="grads")
-            lb.reset_launches()
+            COUNTERS.reset()
             _, m = step(state, batch)
             torch.cuda.synchronize()
-            counts = dict(lb.LAUNCHES)
+            counts = COUNTERS.read()
             grads = {f"{net}.{n}": p.grad.float().clone()
                      for net in ("encoder", "decoder")
                      for n, p in getattr(state, net).named_parameters()
@@ -1124,9 +1216,11 @@ def step_against_plain(config, airnet, train_state, steps_lib, synthetic, lb):
             del state, bundle
         (loss, grads, counts), (loss_p, grads_p, counts_p) = (runs["default"],
                                                              runs["plain"])
-        want = train_step_counts(True)
+        want = dict(counts_bf16)
         if dtype == "float32":  # float32 keeps the chain for every block
-            want.update(lewin_attn=64, lewin_ffn=64, lewin_merged=0)
+            k4 = want["lewin_merged"]
+            want.update(lewin_attn=want["lewin_attn"] + k4,
+                        lewin_ffn=want["lewin_ffn"] + k4, lewin_merged=0)
         if counts != want or any(counts_p.values()):
             raise Failed(f"joint step launches {counts} (plain route "
                          f"{counts_p}), expected {want}")
@@ -1134,31 +1228,37 @@ def step_against_plain(config, airnet, train_state, steps_lib, synthetic, lb):
             raise Failed("the two routes reach different parameters")
         gmax = max(float(g.abs().max()) for g in grads_p.values())
         worst, worst_name = 0.0, ""
-        for name, gp in grads_p.items():
-            g = grads[name]
+        for pname, gp in grads_p.items():
+            g = grads[pname]
             if not torch.isfinite(g).all():
-                raise Failed(f"{name}: non-finite gradient")
+                raise Failed(f"{pname}: non-finite gradient")
             rel = float((g - gp).abs().max()) / max(float(gp.abs().max()),
                                                     1e-3 * gmax)
             if rel > worst:
-                worst, worst_name = rel, name
+                worst, worst_name = rel, pname
         num = sum(float((grads[k] * grads_p[k]).sum()) for k in grads)
         den = math.sqrt(sum(float((grads[k] ** 2).sum()) for k in grads)
                         * sum(float((grads_p[k] ** 2).sum()) for k in grads))
         ok = (abs(loss - loss_p) <= STEP_LOSS_TOL[dtype]
               and worst <= STEP_GRAD_TOL[dtype])
-        print(f"joint step {dtype}, default against plain route: loss "
+        print(f"joint step {name} {dtype}, default against plain route: loss "
               f"{loss:.6f} / {loss_p:.6f} (limit {STEP_LOSS_TOL[dtype]}), "
               f"{len(grads)} gradients, worst max|g - g_plain| / "
               f"max(max|g_plain|, 1e-3 max|g|) = {worst:.3e} at {worst_name} "
               f"(limit {STEP_GRAD_TOL[dtype]}), cosine {num / den:.6f}, "
               f"launches {counts} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            raise Failed(f"joint step {dtype}: the kernel route disagrees with "
-                         "the plain route")
+            raise Failed(f"joint step {name} {dtype}: the kernel route "
+                         "disagrees with the plain route")
 
 
-def step_times(config, airnet, train_state, steps_lib, synthetic, card: str):
+def step_times(config, airnet, train_state, steps_lib, synthetic, card: str,
+               name: str = "flagship", fields=None,
+               runs_of=(("bfloat16", "default", TRAIN_BATCH),
+                        ("bfloat16", "plain", TRAIN_BATCH),
+                        ("float32", "default", TRAIN_BATCH),
+                        ("float32", "plain", TRAIN_BATCH),
+                        ("bfloat16", "default", BATCH))):
     """Phase 9c: ms per joint step and per phase-A step, and the split of
     the joint step (forward = ``upto='loss'``, backward = ``'grads'`` -
     ``'loss'``, optimizer + EMA + enqueue = ``'full'`` - ``'grads'``), by
@@ -1167,14 +1267,10 @@ def step_times(config, airnet, train_state, steps_lib, synthetic, card: str):
     the split is taken from each variant's lower time and both are shown."""
     variants = ((True, "loss"), (True, "grads"), (True, "full"), (False, "full"))
     torch.cuda.reset_peak_memory_stats()
-    for dtype, impl, batch in (("bfloat16", "default", TRAIN_BATCH),
-                               ("bfloat16", "plain", TRAIN_BATCH),
-                               ("float32", "default", TRAIN_BATCH),
-                               ("float32", "plain", TRAIN_BATCH),
-                               ("bfloat16", "default", BATCH)):
+    for dtype, impl, batch in runs_of:
         try:
             cfg, bundle, state = fresh_state(config, airnet, train_state, dtype,
-                                             impl, batch)
+                                             impl, batch, fields)
             data = train_batch(cfg, synthetic, steps_lib, batch)
             steps = {v: steps_lib.make_train_step(cfg, bundle, joint=v[0],
                                                   upto=v[1]) for v in variants}
@@ -1187,8 +1283,8 @@ def step_times(config, airnet, train_state, steps_lib, synthetic, card: str):
                                        warmup=0))
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
         except torch.cuda.OutOfMemoryError:
-            print(f"step time {dtype} {impl} B={batch}: does not fit the card's "
-                  "memory", flush=True)
+            print(f"step time {name} {dtype} {impl} B={batch}: does not fit "
+                  "the card's memory", flush=True)
             continue
         finally:
             state = bundle = data = steps = None
@@ -1198,18 +1294,479 @@ def step_times(config, airnet, train_state, steps_lib, synthetic, card: str):
         full, fwd, grads = ms[True, "full"], ms[True, "loss"], ms[True, "grads"]
         both = ", ".join(f"{'joint' if j else 'phase-A'} {u} "
                          f"{t[0]:.2f} / {t[1]:.2f}" for (j, u), t in runs.items())
-        print(f"step time {dtype} {impl} B={batch} ({card}): joint step "
+        print(f"step time {name} {dtype} {impl} B={batch} ({card}): joint step "
               f"{full:.2f} ms = forward {fwd:.2f} + backward {grads - fwd:.2f} "
               f"+ optimizer {full - grads:.2f} (backward / forward "
               f"{(grads - fwd) / fwd:.2f}), {batch * P * P / full / 1e3:.4f} "
               f"trained MP/s; phase-A step {ms[False, 'full']:.2f} ms; peak "
               f"memory {peak:.2f} GiB; both runs, ms: {both}", flush=True)
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the kernels of the decoder's injection methods
+# ---------------------------------------------------------------------------
+
+
+# (n, nk, d, heads at res 128, heads at res 8, what runs it): the window
+# attention's three shapes on the main path
+WINDOW_SHAPES = (
+    (64, 64, 56, 2, 16, "decoder block"),
+    (64, 192, 56, 2, 16, "decoder block, attention_kv"),
+    (192, 192, 28, 1, 16, "encoder need_kv block, 3 bands"),
+)
+# the deform_conv LeFF's DCN at every stage it runs: (res, C)
+DCN_STAGES = ((128, 112), (64, 224), (32, 448), (16, 896), (8, 896))
+
+
+class AttnCase(NamedTuple):
+    label: str
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    bias: torch.Tensor
+    mask: Optional[torch.Tensor]
+    scale: float
+    nW: int
+
+
+def window_cases(windows, dtype, B):
+    """K9 / K10 at the main path's shapes: each (n, nk, d) at res 128,
+    shifted (the SW-MSA mask tiled along the keys as the model tiles it)
+    and not, and at res 8; B images, so B * (res / 8)^2 windows."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rnd = lambda *shape, scale=1.0: torch.randn(
+        *shape, generator=gen, device="cuda") * scale
+    cases = []
+    for n, nk, d, h128, h8, what in WINDOW_SHAPES:
+        for res, h, shift in ((128, h128, 0), (128, h128, 4), (8, h8, 0)):
+            nW = (res // 8) ** 2
+            W = B * nW
+            mask = None
+            if shift:
+                m = torch.from_numpy(windows.shift_attn_mask(res, res, 8, shift))
+                mask = m.repeat(1, n // 64, nk // 64).cuda()
+            cases.append(AttnCase(
+                f"window_attn n{n} nk{nk} d{d} h{h} res{res} shift{shift} "
+                f"({what})", rnd(W, h, n, d).to(dtype), rnd(W, h, nk, d).to(dtype),
+                rnd(W, h, nk, d).to(dtype), rnd(h, n, nk, scale=0.5), mask,
+                d ** -0.5, nW))
+    return cases
+
+
+def attn_bound(c: AttnCase, dtype, backward: bool):
+    """Bytes: q, k, v (and g) read, bias and mask read, the outputs written
+    once; operations: the two products forward, five backward."""
+    W, h, n, d = c.q.shape
+    nk = c.k.shape[2]
+    size = c.q.element_size()
+    qkv = (W * h * n * d + 2 * W * h * nk * d) * size
+    tables = c.bias.numel() * 4 + (0 if c.mask is None else c.mask.numel() * 4)
+    if backward:
+        nbytes = 2 * qkv + W * h * n * d * size + 2 * tables
+        flops = 5 * 2.0 * W * h * n * nk * d
+    else:
+        nbytes = qkv + tables + W * h * n * d * size
+        flops = 2 * 2.0 * W * h * n * nk * d
+    t_bytes, t_flops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+
+
+def sdpa_inputs(c: AttnCase):
+    """The case as ``scaled_dot_product_attention`` takes it: windows split
+    into (images, windows per image), the additive bias + mask broadcast."""
+    W, h, n, d = c.q.shape
+    split = lambda t: t.reshape(W // c.nW, c.nW, h, t.shape[2], d)
+    add = c.bias[None, None]
+    if c.mask is not None:
+        add = add + c.mask[None, :, None]
+    return split(c.q), split(c.k), split(c.v), add.to(c.q.dtype)
+
+
+def library_attention_ms(c: AttnCase, backward: bool):
+    """One ``scaled_dot_product_attention`` call (forward), or the autograd
+    backward of one (q, k, v and the bias take gradients); None where it
+    does not run at this shape."""
+    import torch.nn.functional as F
+    try:
+        q, k, v, add = sdpa_inputs(c)
+        if not backward:
+            return time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=add, scale=c.scale), iters=5)
+        ins = [t.detach().requires_grad_() for t in (q, k, v)]
+        bias = c.bias.detach().requires_grad_()
+        add = bias[None, None] + (0 if c.mask is None else c.mask[None, :, None])
+        out = F.scaled_dot_product_attention(*ins, attn_mask=add.to(q.dtype),
+                                             scale=c.scale)
+        g = torch.ones_like(out)
+        return time_ms(lambda: torch.autograd.grad(
+            out, ins + [bias], g, retain_graph=True), iters=3, warmup=1)
+    except RuntimeError as e:
+        print(f"    library call does not run here: {str(e)[:120]}", flush=True)
+        return None
+
+
+def check_window_attention(wa, windows, stats, card: str):
+    """K9 against ``window_attention_plain`` and K10 against
+    ``window_attention_bwd_plain`` at every case, bf16 at the eval batch
+    (B=32) and the training batch (B=4) and fp32 at B=4; K10's dbias on the
+    floor rule of the backward checks, and equal bits on a second launch."""
+    for dtype, B, fwd, bwd in ((torch.bfloat16, BATCH, True, False),
+                               (torch.bfloat16, TRAIN_BATCH, False, True),
+                               (torch.float32, TRAIN_BATCH, True, True)):
+        name_dt = str(dtype)[6:]
+        print(f"window attention checks, {name_dt}, B={B} ({card}):", flush=True)
+        for c in window_cases(windows, dtype, B):
+            label = f"{c.label} {name_dt} B{B}"
+            args = (c.q, c.k, c.v, c.bias, c.mask, c.scale, c.nW)
+            if fwd:
+                got = wa.window_attention_kernel(*args)
+                torch.cuda.synchronize()
+                err = compare(label, got, wa.window_attention_plain(*args),
+                              KERNEL_TOL[dtype])
+                ms = time_ms(lambda: wa.window_attention_kernel(*args))
+                pms = time_ms(lambda: wa.window_attention_plain(*args), iters=3)
+                lms = library_attention_ms(c, False)
+                bound, by = attn_bound(c, dtype, False)
+                print(f"    time: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                      f"scaled_dot_product_attention "
+                      f"{'-' if lms is None else f'{lms:.4f}'} ms, bound "
+                      f"{bound:.4f} ms by {by}", flush=True)
+                st = stats["window_attn"]
+                st["max_abs_err"] = max(st["max_abs_err"], err)
+                if dtype == torch.bfloat16 and st["ms"] is None:
+                    st.update(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
+                              library_ms=lms)
+                del got
+            if bwd:
+                g = torch.randn(c.q.shape, device="cuda", generator=torch.Generator(
+                    device="cuda").manual_seed(4)).to(dtype)
+                bargs = (c.q, c.k, c.v, c.bias, c.mask, g, c.scale, c.nW)
+                got = wa.window_attention_bwd_kernel(*bargs)
+                torch.cuda.synchronize()
+                err = compare_all(f"{label} bwd", got,
+                                  wa.window_attention_bwd_plain(*bargs),
+                                  BWD_TOL[dtype])
+                again = wa.window_attention_bwd_kernel(*bargs)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise Failed(f"{label} bwd: two launches give different bits")
+                ms = time_ms(lambda: wa.window_attention_bwd_kernel(*bargs),
+                             iters=5, warmup=1)
+                pms = time_ms(lambda: wa.window_attention_bwd_plain(*bargs),
+                              iters=3, warmup=1)
+                lms = library_attention_ms(c, True)
+                bound, by = attn_bound(c, dtype, True)
+                print(f"    backward time: kernel {ms:.4f} ms, plain {pms:.4f} "
+                      f"ms, scaled_dot_product_attention backward "
+                      f"{'-' if lms is None else f'{lms:.4f}'} ms, bound "
+                      f"{bound:.4f} ms by {by}; equal bits on a second launch",
+                      flush=True)
+                st = stats["window_attn_bwd"]
+                st["max_abs_err"] = max(st["max_abs_err"], err)
+                if dtype == torch.bfloat16 and st["ms"] is None:
+                    st.update(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
+                              library_ms=lms)
+                del got, again
+
+
+def check_window_function(wa, windows, dtype):
+    """``WindowAttentionFn`` (K9 forward, K10 backward) against autograd of
+    the plain forward, at the attention_kv shape of res 128, shifted (B=4)."""
+    c = [c for c in window_cases(windows, dtype, TRAIN_BATCH)
+         if c.k.shape[2] == 192 and c.q.shape[2] == 64][1]
+    ins = [t.detach().requires_grad_() for t in (c.q, c.k, c.v, c.bias)]
+    g = torch.randn(c.q.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(5)).to(dtype)
+    want = torch.autograd.grad(wa.window_attention_plain(
+        *ins, c.mask, c.scale, c.nW), ins, g)
+    got = torch.autograd.grad(wa.WindowAttentionFn.apply(
+        *ins, c.mask, c.scale, c.nW), ins, g)
+    compare_all(f"WindowAttentionFn {str(dtype)[6:]} {c.label}", got, want,
+                FUNCTION_TOL[dtype])
+
+
+def check_dcn(dc, stats, card: str):
+    """K11 against ``dcn_plain`` at every deform_conv stage shape, bf16 at
+    B=32 and fp32 at B=4, exact and with offsets clamped to 2; offsets up
+    to +-3.5 pixels, past every edge of the image; then ``DCNFn``'s
+    gradients against autograd of the plain version at res 32."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for dtype, B in ((torch.bfloat16, BATCH), (torch.float32, TRAIN_BATCH)):
+        name_dt = str(dtype)[6:]
+        print(f"DCN checks, {name_dt}, B={B} ({card}):", flush=True)
+        for res, C in DCN_STAGES:
+            x = (torch.randn(B, res, res, C, generator=gen, device="cuda")
+                 * 0.5).to(dtype)
+            off = (torch.rand(B, res, res, 18, generator=gen, device="cuda")
+                   * 7 - 3.5).to(dtype)
+            mask = torch.rand(B, res, res, 9, generator=gen,
+                              device="cuda").to(dtype)
+            w = (torch.randn(3, 3, C, C, generator=gen, device="cuda")
+                 * (9 * C) ** -0.5).to(dtype)
+            for clamp in (None, 2.0):
+                label = (f"dcn res{res} C{C} {'exact' if clamp is None else 'clamp 2'}"
+                         f" {name_dt} B{B}")
+                run = lambda: dc.dcn_kernel(x, off, mask, w, None, 1, 1, clamp)
+                got = run()
+                torch.cuda.synchronize()
+                plain = lambda: dc.dcn_plain(x, off, mask, w, None, 1, 1, clamp)
+                err = compare(label, got, plain(), KERNEL_TOL[dtype])
+                del got
+                ms = time_ms(run, iters=5)
+                pms = time_ms(plain, iters=3, warmup=1)
+                nbytes = sum(t.numel() * t.element_size()
+                             for t in (x, off, mask, w)) + x.numel() * x.element_size()
+                t_bytes = nbytes / PEAK_BYTES * 1e3
+                t_flops = 2.0 * B * res * res * 9 * C * C / PEAK_FLOPS[dtype] * 1e3
+                bound, by = max(t_bytes, t_flops), (
+                    "bytes" if t_bytes >= t_flops else "operations")
+                print(f"    time: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+                      f"{bound:.4f} ms by {by} (no PyTorch call computes a DCN)",
+                      flush=True)
+                st = stats["dcn"]
+                st["max_abs_err"] = max(st["max_abs_err"], err)
+                if dtype == torch.bfloat16 and clamp is None and st["ms"] is None:
+                    st.update(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by)
+        B, res, C = TRAIN_BATCH, 32, 448
+        ins = [(torch.randn(B, res, res, C, generator=gen, device="cuda") * 0.5),
+               torch.rand(B, res, res, 18, generator=gen, device="cuda") * 7 - 3.5,
+               torch.rand(B, res, res, 9, generator=gen, device="cuda"),
+               torch.randn(3, 3, C, C, generator=gen, device="cuda") * (9 * C) ** -0.5]
+        ins = [t.to(dtype).requires_grad_() for t in ins]
+        g = torch.randn(B, res, res, C, generator=gen, device="cuda").to(dtype)
+        want = torch.autograd.grad(dc.dcn_plain(*ins, None, 1, 1), ins, g)
+        got = torch.autograd.grad(dc.DCNFn.apply(*ins, None, 1, 1), ins, g)
+        compare_all(f"DCNFn {name_dt} res{res} C{C}", got, want,
+                    FUNCTION_TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# phases 11 and 12: the decoder's injection methods, eval and training
+# ---------------------------------------------------------------------------
+
+
+PER_SCALE_FLAGS = ["--degradation_embedding_method", "residual", "modulator",
+                   "self_modulator", "deform_conv", "attention_kv",
+                   "--learnable_modulator", "True"]
+# the configurations of phase 11: the per-scale set (every per-scale method
+# at once, with the learnable modulator), attention_residual with all_DC,
+# and all_3_bands with the learnable DC lamb
+INJECTION_CONFIGS = {
+    "per_scale_set": dict(
+        degradation_embedding_method=["residual", "modulator", "self_modulator",
+                                      "deform_conv", "attention_kv"],
+        learnable_modulator=True),
+    "attention_residual_all_DC": dict(
+        degradation_embedding_method=["attention_residual", "all_DC"]),
+    "all_3_bands_DC": dict(degradation_embedding_method=["all_3_bands"],
+                           frequency_decompose_type="DC"),
+}
+
+
+def injection_counts(name: str, dtype: str, B: int) -> dict:
+    """Launches of one eval forward of ``B`` tiles on the default route,
+    held apart from the model. The decoder's 22 down-path and bottleneck_0
+    blocks stay fused (the shifted ones at res 128 / 64 / 32, 1 + 1 + 4,
+    merged in bf16 from 32768 tokens per stage); its 22 bottleneck_1 and up-path
+    blocks are unfused: K9 once each, and K11 for deform_conv; where the
+    attention probabilities are modulated (all_3_bands, lamb) the core is
+    the plain one, as in JAX. attention_kv makes the encoder's last block
+    of each stage unfused (need_kv): K9 for intra and inter."""
+    merged = sum(blocks for res, blocks in ((128, 1), (64, 1), (32, 4))
+                 if dtype == "bfloat16" and B * res * res >= 32768)
+    c = dict(ZERO)
+    if name == "all_3_bands_DC":       # every decoder block unfused
+        fused_dec, enc_fused, k9 = 0, 10, 0
+    elif name == "per_scale_set":
+        fused_dec, enc_fused, k9 = 22, 5, 22 + 2 * 5
+        c["dcn"] = 22
+    else:
+        fused_dec, enc_fused, k9 = 22, 10, 22
+    merged = merged if fused_dec else 0
+    c["lewin_attn"] = c["lewin_ffn"] = fused_dec - merged + enc_fused
+    c["freq_inter"] = enc_fused
+    c["lewin_merged"] = merged
+    c["window_attn"] = k9
+    return c
+
+
+def block_counts(bundle, airnet, uformer_lewin, B: int) -> dict:
+    """The same launches from the model's blocks: their routes, and what an
+    unfused block runs."""
+    counts = route_counts(bundle, airnet, uformer_lewin, B)
+    for net in (bundle.encoder, bundle.decoder):
+        for m in net.modules():
+            if not (isinstance(m, uformer_lewin.LeWinBlock) and m.unfused):
+                continue
+            if m.msa_type == "freq":
+                counts["window_attn"] += 2
+                continue
+            attn = m.attn
+            modulated = attn.lamb_bands_num is not None or (
+                attn.all_bands_num is not None and not attn.all_bands_dc)
+            counts["window_attn"] += not modulated
+            counts["dcn"] += "deform_conv" in m.injection
+    return counts
+
+
+def liven(bundle, seed: int = 7) -> None:
+    """Offset heads and lamb drawn at random (JAX initialises them to zero,
+    which makes every DCN offset 0 and every band gain 0): offsets of up to
+    about 3.5 pixels, past the image's edge at the rim."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in bundle.decoder.named_parameters():
+            if "conv_offset_mask" in name:
+                if name.endswith("bias"):
+                    r = torch.rand(p.shape, generator=gen) * 7 - 3.5
+                else:
+                    fan_in = p[0].numel()
+                    r = torch.randn(p.shape, generator=gen) * fan_in ** -0.5
+            elif name.endswith(".lamb"):
+                r = 0.5 * torch.randn(p.shape, generator=gen)
+            else:
+                continue
+            p.copy_(r.to(p.device))
+
+
+def injection_forward(config, airnet, uformer_lewin, airnet_profile, card,
+                      stats):
+    """Phase 11: the full-width eval forward of each configuration of
+    INJECTION_CONFIGS, bf16 at B=32 and fp32 at B=4, by the default route
+    against the plain route, with the launch counts (each forward a path of
+    the kernels line), MP/s of both routes, and one profile of the per-scale
+    set."""
+    for name, fields in INJECTION_CONFIGS.items():
+        for dtype, B in (("bfloat16", BATCH), ("float32", 4)):
+            cfg = flagship_config(config, dtype, **fields)
+            x = torch.from_numpy(np.random.default_rng(0).random(
+                (B, P, P, 3), dtype=np.float32)).cuda()
+            bundles = {}
+            for impl in ("plain", "default"):
+                t0 = time.perf_counter()
+                bundles[impl] = airnet.build_models(cfg, "cuda", impl)
+                liven(bundles[impl])
+                print(f"  built {name} {dtype} {impl} models in "
+                      f"{time.perf_counter() - t0:.1f} s", flush=True)
+            want = airnet.eval_forward(bundles["plain"], x)
+            torch.cuda.synchronize()
+            COUNTERS.reset()
+            got = airnet.eval_forward(bundles["default"], x)
+            torch.cuda.synchronize()
+            counts = COUNTERS.read()
+            fixed = injection_counts(name, dtype, B)
+            expect = block_counts(bundles["default"], airnet, uformer_lewin, B)
+            print(f"{name} eval forward {dtype} B={B}: launches {counts}",
+                  flush=True)
+            if counts != fixed or expect != fixed:
+                raise Failed(f"{name} {dtype}: launch counts {counts}, the "
+                             f"blocks give {expect}, expected {fixed}")
+            add_launches(stats, f"forward_{name}_{dtype}", counts)
+            if got.shape != (B, P, P, 3):
+                raise Failed(f"forward shape {tuple(got.shape)}")
+            compare(f"{name} eval_forward {dtype} B{B} default vs plain", got,
+                    want, FORWARD_TOL[getattr(torch, dtype)])
+            mps = {impl: B * P * P / time_ms(
+                lambda b=b: airnet.eval_forward(b, x), iters=3, warmup=1) / 1e3
+                for impl, b in bundles.items()}
+            print(f"  MP/s default {mps['default']:.4f}, plain {mps['plain']:.4f}"
+                  f" (128x128, B={B}, {dtype}; {card})", flush=True)
+            if name == "per_scale_set" and dtype == "bfloat16":
+                airnet_profile(bundles["default"], x, f"{name} default route")
+            del bundles, got, want
+            torch.cuda.empty_cache()
+
+
+def profile_step(config, airnet, train_state, steps_lib, synthetic, card,
+                 fields):
+    """Phase 12d: one traced joint step (full: forward, backward, Adam, EMA,
+    enqueue) of ``fields`` in bf16 at the CLI's batch by the default route:
+    device time by kernel name, busy and idle share."""
+    cfg, bundle, state = fresh_state(config, airnet, train_state, "bfloat16",
+                                     "default", TRAIN_BATCH, fields)
+    data = train_batch(cfg, synthetic, steps_lib, TRAIN_BATCH)
+    step = steps_lib.make_train_step(cfg, bundle, joint=True, upto="full")
+    step(state, data)
+    profile_call(lambda: step(state, data),
+                 f"per-scale set joint step (bf16 default route, "
+                 f"B={TRAIN_BATCH}; {card}): step")
+
+
+def per_scale_train_counts(joint: bool) -> dict:
+    """Launches of one training step of the per-scale set at B=4 in bf16 on
+    the default route. Encoder, by the key encoder (no gradients) and the
+    query encoder: 5 fused frequency blocks (K1 intra, K3, K2), 5 need_kv
+    blocks (K9 for intra and inter); the query encoder's backward K6, K8,
+    K7 and K10 twice per need_kv block. The joint step adds the decoder: 22
+    fused blocks (1 merged at this batch, the shifted one at res 128),
+    forward K1 / K2 or K4, backward K6 and K7; 22 unfused blocks, K9, K11
+    and K10 each."""
+    c = {**ZERO, "lewin_attn": 10, "freq_inter": 10, "lewin_ffn": 10,
+         "lewin_attn_bwd": 5, "freq_inter_bwd": 5, "lewin_ffn_bwd": 5,
+         "window_attn": 20, "window_attn_bwd": 10}
+    if joint:
+        c["lewin_attn"] += 21
+        c["lewin_ffn"] += 21
+        c["lewin_merged"] += 1
+        c["lewin_attn_bwd"] += 22
+        c["lewin_ffn_bwd"] += 22
+        c["window_attn"] += 22
+        c["window_attn_bwd"] += 22
+        c["dcn"] += 22
+    return c
+
+
+def per_scale_training_entry_point(config, port_train, stats):
+    """Phase 12b, the main path of this slice's training: ``<port>.train.main``
+    on the per-scale set at flagship width and depth, the CLI's batch,
+    bfloat16, synthetic loader: one phase-A step, one joint step, the eval
+    of one task after the joint epoch, the checkpoints."""
+    task = "denoising_bsd68_25"
+    with tempfile.TemporaryDirectory() as out:
+        cfg = config.parse_args(
+            ["--synthetic_data", *PER_SCALE_FLAGS, "--test_de_type", task,
+             "--output_path", out + "/", "--epochs", "2", "--epochs_encoder",
+             "1", "--steps_per_epoch", "1"])
+        seen = []
+        torch.cuda.synchronize()
+        COUNTERS.reset()
+        t0 = time.perf_counter()
+        state = port_train.main(cfg, progress=lambda e, m: seen.append((e, m)))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = COUNTERS.read()
+        with open(f"{out}/results.log") as f:
+            results_log = f.read()
+        files = sorted(os.listdir(f"{out}/ckpt"))
+    print(f"training entry point, per-scale set (bfloat16, B={TRAIN_BATCH}): "
+          f"1 + 1 steps, eval of 1 task and checkpoints in {secs:.3f} s, "
+          f"launches {counts}", flush=True)
+    print("  results.log: " + results_log.replace("\n", " | "), flush=True)
+    if [e for e, _ in seen] != [0, 1] or not all(
+            math.isfinite(v) for _, m in seen for v in m.values()):
+        raise Failed(f"training metrics {seen}")
+    if seen[1][1]["l1_loss"] <= 0 or state.step != 2:
+        raise Failed(f"joint step: {seen[1]}, step {state.step}")
+    lines = results_log.splitlines()
+    if len(lines) != 2 or not lines[1].startswith(task + ": ") \
+            or "PSNR/SSIM: " not in lines[1]:
+        raise Failed(f"results.log {results_log!r}")
+    if files != ["best.pt", "epoch_2.pt"]:
+        raise Failed(f"checkpoints {files}")
+    # the in-training eval runs in the training dtype
+    per_eval = injection_counts("per_scale_set", "bfloat16", ENTRY_BATCH)
+    want = {k: per_scale_train_counts(False)[k] + per_scale_train_counts(True)[k]
+            + per_eval[k] for k in ZERO}
+    if counts != want:
+        raise Failed(f"per-scale training entry point launch counts {counts} "
+                     f"!= {want}")
+    add_launches(stats, "train_entry_per_scale_bfloat16", counts)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one H100")
     ap.add_argument("--phases", type=int, nargs="+",
                     default=sorted(ALL_PHASES), choices=sorted(ALL_PHASES),
-                    help="of phases 3-9, run only these: a development aid "
+                    help="of phases 3-12, run only these: a development aid "
                     "that prints no result and exits with 2 (default: all)")
     phases = set(ap.parse_args(argv).phases)
     if not torch.cuda.is_available():
@@ -1225,12 +1782,13 @@ def main(argv=None) -> int:
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch.models import (
         airnet, uformer_lewin)
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops import (
-        frequency, metrics, windows)
+        deform_conv as dc, frequency, metrics, windows)
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops.kernels import (
-        build, lewin_block as lb)
+        build, lewin_block as lb, window_attention as wa)
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch.training import (
         state as train_state, steps as steps_lib)
 
+    COUNTERS.modules = (lb, wa, dc)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -1248,8 +1806,8 @@ def main(argv=None) -> int:
     build.load()
 
     stats = {name: {"max_abs_err": 0.0, "ms": None, "plain_ms": None,
-                    "bound_ms": None, "bound_by": None, "launches": 0,
-                    "launches_by_path": {}}
+                    "bound_ms": None, "bound_by": None, "library_ms": None,
+                    "launches": 0, "launches_by_path": {}}
              for name in KERNELS}
     t0 = time.perf_counter()
     try:
@@ -1277,7 +1835,33 @@ def main(argv=None) -> int:
             step_against_plain(config, airnet, train_state, steps_lib,
                                synthetic, lb)
             step_times(config, airnet, train_state, steps_lib, synthetic, card)
-        if 5 in phases and 9 in phases:
+        if 10 in phases:
+            check_window_attention(wa, windows, stats, card)
+            for dtype in (torch.bfloat16, torch.float32):
+                check_window_function(wa, windows, dtype)
+            check_dcn(dc, stats, card)
+        if 11 in phases:
+            injection_forward(
+                config, airnet, uformer_lewin,
+                lambda b, x, label: profile_forward(airnet, b, x, label, card),
+                card, stats)
+        if 12 in phases:
+            eval_entry_point(config, airnet, runner, metrics, port_test, lb,
+                             uformer_lewin, stats, "float32", method=None)
+            per_scale_training_entry_point(config, port_train, stats)
+            fields = INJECTION_CONFIGS["per_scale_set"]
+            step_against_plain(config, airnet, train_state, steps_lib,
+                               synthetic, "per-scale set", fields,
+                               per_scale_train_counts(True))
+            step_times(config, airnet, train_state, steps_lib, synthetic, card,
+                       "per-scale set", fields, (
+                           ("bfloat16", "default", TRAIN_BATCH),
+                           ("bfloat16", "plain", TRAIN_BATCH),
+                           ("float32", "default", TRAIN_BATCH),
+                           ("float32", "plain", TRAIN_BATCH)))
+            profile_step(config, airnet, train_state, steps_lib, synthetic,
+                         card, fields)
+        if phases == ALL_PHASES:
             idle = [n for n in KERNELS if not stats[n]["launches"]]
             if idle:
                 raise Failed(f"no main path launched {idle}")
@@ -1285,6 +1869,11 @@ def main(argv=None) -> int:
                     stats[n]["launches_by_path"].get("train_entry_bfloat16")]
             if idle:
                 raise Failed(f"the training entry point never launched {idle}")
+            idle = [n for n in INJECTION_KERNELS if not stats[n][
+                "launches_by_path"].get("train_entry_per_scale_bfloat16")]
+            if idle:
+                raise Failed("the per-scale training entry point never "
+                             f"launched {idle}")
         if 5 in phases:
             # what the default route names must come from the entry point,
             # not from a request with a forced route
@@ -1310,10 +1899,11 @@ def main(argv=None) -> int:
         return 2
 
     print(card, flush=True)
-    # no single PyTorch call computes any of these fused blocks
+    # library_ms: scaled_dot_product_attention for K9 / K10 (phase 10); no
+    # single PyTorch call computes a fused block or a DCN
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         **stats[name], "library_ms": None}
+         **stats[name]}
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """Uformer contrastive degradation encoder (the port of the JAX
-``models/encoder_uformer.py``), frequency-wise MSA.
+``models/encoder_uformer.py``), frequency-wise MSA with L >= 2 bands.
 
 InputProj -> 4 x (stage + 4x4/s2 downsample) -> bottleneck stage, on the
 input split into L FFT bands folded into the batch ``(l b) h w c``
@@ -11,7 +11,7 @@ forward needs; the heads run only in :meth:`UformerEncoder.forward`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,10 +49,21 @@ ENCODER_HEADS = (1, 2, 4, 8, 16)
 
 @dataclasses.dataclass(frozen=True)
 class DegradationContext:
-    """What the all_DC decoder conditions on: L per-band bottleneck
-    features ``[B, (P/16)^2, ed*16]`` (the reference's ``inter``)."""
+    """Everything the decoder conditions on (JAX ``DegradationContext``):
+
+    * ``band_inter``: L per-band bottleneck features ``[B, (P/16)^2,
+      ed*16]`` (the reference's ``inter``), for the ``all_*`` methods;
+    * ``pyramid``: the band-0 slice of each of the 5 stages' outputs,
+      ``[B, (P/2^s)^2, ed*2^s]``, the degradation maps of the per-scale
+      methods;
+    * ``kv``: per stage the last block's (K, V), regrouped by the
+      frequency-wise MSA to ``[B*nW, h, L*n, d]`` (bands major within a
+      window) and passed whole, for ``attention_kv``; else None.
+    """
 
     band_inter: Tuple[torch.Tensor, ...]
+    pyramid: Optional[Tuple[torch.Tensor, ...]] = None
+    kv: Optional[Tuple[Tuple[torch.Tensor, torch.Tensor], ...]] = None
 
 
 class UformerEncoder(nn.Module):
@@ -66,6 +77,8 @@ class UformerEncoder(nn.Module):
                 "L >= 2 bands; the origin-MSA encoder is not ported yet "
                 "(ROADMAP.md, Queue 1 item 9)")
         self.cfg, self.dtype, self.img_size = cfg, dtype, img_size
+        # the decoder's attention_kv reads each stage's last-block K / V
+        self.need_kv = "attention_kv" in cfg.degradation_embedding_method
         L, ed = cfg.L, cfg.encoder_embed_dim
         p = img_size
         depths = ENCODER_DEPTHS
@@ -80,7 +93,8 @@ class UformerEncoder(nn.Module):
             used += depths[i] if i < 4 else 0
             stage = BasicUformerLayer(
                 ed * 2 ** i, p // 2 ** i, depths[i], ENCODER_HEADS[i],
-                win_size=8, drop_path=dpr, msa_type="freq", L=L, impl=impl)
+                win_size=8, drop_path=dpr, msa_type="freq", L=L, impl=impl,
+                need_kv=self.need_kv)
             self.add_module(f"encoderlayer_{i}" if i < 4 else "bottleneck",
                             stage)
             if i < 4:
@@ -95,18 +109,27 @@ class UformerEncoder(nn.Module):
             self.add_module(f"mlp_{i}_1", nn.Linear(dim, dim))
 
     def features(self, x: torch.Tensor, generator=None) -> DegradationContext:
-        """``x [B, P, P, 3]`` float -> the per-band bottleneck features."""
+        """``x [B, P, P, 3]`` float -> the per-band bottleneck features, the
+        per-scale pyramid and, for ``attention_kv``, the per-stage (K, V)
+        (JAX encoder_uformer.py:115-140)."""
         L = self.cfg.L
         b, p = x.shape[0], x.shape[1]
         bands = frequency.frequency_decompose_1(x.permute(0, 3, 1, 2), L - 1)
         y = bands.permute(0, 1, 3, 4, 2).reshape(L * b, p, p, -1)
         y = self.input_proj(y, self.dtype)
-        for i in range(4):
-            y = getattr(self, f"encoderlayer_{i}")(y, generator=generator)
-            y = getattr(self, f"dowsample_{i}")(y, self.dtype)
-        y = self.bottleneck(y, generator=generator)
+        feats, kvs = [], []
+        for i in range(5):
+            stage = getattr(self, f"encoderlayer_{i}" if i < 4 else "bottleneck")
+            y, kv = stage.run(y, generator=generator)
+            feats.append(y)
+            kvs.append(kv)
+            if i < 4:
+                y = getattr(self, f"dowsample_{i}")(y, self.dtype)
         bands16 = y.reshape(L, b, *y.shape[1:])
-        return DegradationContext(band_inter=tuple(bands16[i] for i in range(L)))
+        return DegradationContext(
+            band_inter=tuple(bands16[i] for i in range(L)),
+            pyramid=tuple(f.reshape(L, b, *f.shape[1:])[0] for f in feats),
+            kv=tuple(kvs) if self.need_kv else None)
 
     def heads(self, ctx: DegradationContext) -> torch.Tensor:
         """Per-band contrastive heads -> ``[L, B, encoder_dim]`` float32

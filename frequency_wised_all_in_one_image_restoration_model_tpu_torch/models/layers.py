@@ -14,6 +14,11 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=slope)
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh-approximate GELU, as Flax's ``nn.gelu`` default."""
+    return F.gelu(x, approximate="tanh")
+
+
 def to_tokens(x: torch.Tensor) -> torch.Tensor:
     """[B, H, W, C] -> [B, H*W, C]."""
     b, h, w, c = x.shape
@@ -46,11 +51,22 @@ class DropPath(nn.Module):
         return (draw < keep).float() / keep
 
 
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: torch.Generator) -> None:
+    """Flax's default kernel initialiser: variance_scaling(1, fan_in,
+    truncated_normal), truncated at 2 sigma with the 0.8796 correction."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+
+
 def trunc_normal_init(module: nn.Module, generator: torch.Generator) -> None:
     """Draw a module tree's parameters the way the JAX package initialises
     them: Linear kernels and bias tables trunc-normal(0.02) with zero bias,
     convolutions LeCun-normal (Flax's default) with zero bias, norms at
-    identity. ``generator`` makes the draw reproducible from a seed."""
+    identity; then each module's own ``init_weights(generator)``, where it
+    has one, for the parameters JAX draws otherwise. ``generator`` makes the
+    draw reproducible from a seed."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04,
@@ -63,11 +79,7 @@ def trunc_normal_init(module: nn.Module, generator: torch.Generator) -> None:
                 fan_in = w.shape[0] * w.shape[2] * w.shape[3]
             else:
                 fan_in = w.shape[1] * w.shape[2] * w.shape[3]
-            # truncated at 2 sigma with the 0.8796 correction, as Flax's
-            # variance_scaling(1, fan_in, truncated_normal)
-            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                                  generator=generator)
+            lecun_normal_(w, fan_in, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
         elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
@@ -77,3 +89,7 @@ def trunc_normal_init(module: nn.Module, generator: torch.Generator) -> None:
             if name.startswith("relative_position_bias_table"):
                 nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04,
                                       generator=generator)
+    # modules whose JAX initialisers differ from the rules above
+    for m in module.modules():
+        if hasattr(m, "init_weights"):
+            m.init_weights(generator)

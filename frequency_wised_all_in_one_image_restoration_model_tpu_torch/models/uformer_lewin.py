@@ -1,8 +1,12 @@
 """LeWin transformer block and stage layer (the port of the JAX
-``models/uformer_lewin.py`` fused-block paths).
+``models/uformer_lewin.py``).
 
-Every block runs through the block kernels (``ops/kernels/lewin_block.py``)
-by one of two routes, or through their plain twins on the CPU:
+A block that carries none of the decoder's degradation-injection methods,
+no learnable modulator, no band modulation that needs the attention
+probabilities and no ``need_kv`` (exactly where JAX takes its fused path,
+uformer_lewin.py:97-109, 177-186) runs through the block kernels
+(``ops/kernels/lewin_block.py``) by one of two routes, or through their
+plain twins on the CPU:
 
 * the chain: origin MSA as K1 -> K2, frequency MSA as K1 (intra) -> K3
   (inter) -> K2, with the SW-MSA cyclic roll as ``torch.roll`` around the
@@ -23,6 +27,23 @@ all_DC gain MLP. The Functions save the block's input (and ``u``, ``y1``
 for the merged routes) only and the backward kernels recompute the rest,
 which is what rematerialisation buys the JAX package. Without gradients the
 cached kernel operands stay the fast path.
+
+Every other block is unfused, as in JAX (uformer_lewin.py:244-354): torch
+ops around the window-attention kernel K9 (``WindowAttention.attend``,
+``FrequencyWindowAttention.attend``; its autograd Function under
+gradients) and, for ``deform_conv``, the deformable convolution K11 in the
+LeFF. The decoder's methods:
+
+* ``self_modulator``: :class:`SelfModulatedLayerNorm` for norm1 / norm2,
+  conditioned on the degradation map (``norm{1,2}_deg_norm``);
+* ``modulator``: the degradation map strided to one window and
+  concat-embedded into every window (``degradation_modulator*``);
+* ``deform_conv``: the LeFF's depthwise conv becomes a DCN, hidden C;
+* ``attention_residual``: the windowed degradation map is the key / value
+  source (``attn_deg_norm``);
+* ``attention_kv``: the encoder's saved last-block K / V are;
+* the learnable ``modulator`` parameter ``[win^2, C]`` added to every
+  window (``--learnable_modulator``).
 """
 
 from __future__ import annotations
@@ -34,8 +55,9 @@ from torch import nn
 
 from ..ops import windows
 from ..ops.kernels import lewin_block as lb
-from .layers import DropPath, to_image, to_tokens
-from .uformer_blocks import FrequencyWindowAttention, LeFF, WindowAttention
+from .layers import DropPath, leaky_relu, lecun_normal_, to_image, to_tokens
+from .uformer_blocks import (Downsample, FrequencyWindowAttention, LeFF,
+                             SelfModulatedLayerNorm, WindowAttention, _linear)
 
 
 IMPLS = ("default", "kernel", "merged", "plain")
@@ -70,7 +92,12 @@ class LeWinBlock(nn.Module):
                  mlp_ratio: float = 4.0, drop_path: float = 0.0,
                  msa_type: str = "origin", L: int = 1,
                  all_bands_dc: bool = False, encoder_embed_dim: int = 28,
-                 impl: str = "kernel"):
+                 impl: str = "kernel", need_kv: bool = False,
+                 modulator: bool = False, injection: Sequence[str] = (),
+                 degradation_dim: int = -1,
+                 all_bands_num: Optional[int] = None,
+                 lamb_bands_num: Optional[int] = None,
+                 lamb_bands_dc: bool = False):
         super().__init__()
         res = input_resolution
         self.res = res
@@ -79,20 +106,54 @@ class LeWinBlock(nn.Module):
         self.msa_type, self.L = msa_type, L
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-        self.impl = impl
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        if msa_type == "freq":
-            self.attn_intra = FrequencyWindowAttention(dim, self.win, num_heads,
-                                                       L, "intra")
-            self.attn_inter = FrequencyWindowAttention(dim, self.win, num_heads,
-                                                       L, "inter")
-        elif msa_type == "origin":
-            self.attn = WindowAttention(dim, self.win, num_heads, all_bands_dc,
-                                        encoder_embed_dim)
-        else:
+        if msa_type not in ("origin", "freq"):
             raise ValueError(f"invalid msa_type: {msa_type!r}")
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = LeFF(dim, int(dim * mlp_ratio))
+        self.impl = impl
+        self.injection = tuple(injection)
+        self.need_kv, self.use_modulator = need_kv, modulator
+        # JAX's fused_ok / fused_freq_ok (uformer_lewin.py:97-109, 177-186)
+        self.unfused = bool(
+            modulator or need_kv or self.injection
+            or (msa_type == "origin"
+                and (lamb_bands_num is not None
+                     or (all_bands_num is not None and not all_bands_dc))))
+        win, deg = self.win, degradation_dim
+        if "self_modulator" in self.injection:
+            self.norm1_deg_norm = nn.LayerNorm(deg, eps=1e-6)
+            self.norm1 = SelfModulatedLayerNorm(dim, deg)
+        else:
+            self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        if modulator:
+            self.modulator = nn.Parameter(torch.zeros(win * win, dim))
+        if "modulator" in self.injection:
+            self.degradation_modulator = Downsample(deg, dim, kernel=1,
+                                                    stride=res // win)
+            self.degradation_modulator_norm = nn.LayerNorm(dim, eps=1e-6)
+            self.degradation_modulator_embed = nn.Linear(2 * dim, dim)
+        if "attention_residual" in self.injection:
+            self.attn_deg_norm = nn.LayerNorm(deg, eps=1e-6)
+        if msa_type == "freq":
+            self.attn_intra = FrequencyWindowAttention(dim, win, num_heads,
+                                                       L, "intra")
+            self.attn_inter = FrequencyWindowAttention(dim, win, num_heads,
+                                                       L, "inter")
+        else:
+            kv_source = next((m for m in ("attention_residual", "attention_kv")
+                              if m in self.injection), None)
+            self.attn = WindowAttention(
+                dim, win, num_heads, all_bands_dc, encoder_embed_dim,
+                num_win=(res // win) ** 2, kv_source=kv_source, dim_kv=deg,
+                all_bands_num=all_bands_num, lamb_bands_num=lamb_bands_num,
+                lamb_bands_dc=lamb_bands_dc)
+        if "self_modulator" in self.injection:
+            self.norm2_deg_norm = nn.LayerNorm(deg, eps=1e-6)
+            self.norm2 = SelfModulatedLayerNorm(dim, deg)
+        else:
+            self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        if "deform_conv" in self.injection:
+            self.mlp = LeFF(dim, dim, deform=True, degradation_dim=deg)
+        else:
+            self.mlp = LeFF(dim, int(dim * mlp_ratio))
         self.drop_path1 = DropPath(drop_path)
         self.drop_path2 = DropPath(drop_path)
         mask = None
@@ -100,6 +161,17 @@ class LeWinBlock(nn.Module):
             mask = torch.from_numpy(
                 windows.shift_attn_mask(res, res, self.win, self.shift))
         self.register_buffer("attn_mask", mask, persistent=False)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """JAX's initialisers where they differ from the model-wide rule:
+        the learnable modulator N(0, 1), the modulator embedding Dense
+        LeCun-normal (Flax's default)."""
+        with torch.no_grad():
+            if self.use_modulator:
+                self.modulator.normal_(0.0, 1.0, generator=generator)
+            if "modulator" in self.injection:
+                w = self.degradation_modulator_embed.weight
+                lecun_normal_(w, w.shape[1], generator)
 
     def route(self, dtype: torch.dtype, batch: int) -> str:
         """'kernel', 'merged' or 'plain': what a CUDA tensor of ``batch``
@@ -112,12 +184,25 @@ class LeWinBlock(nn.Module):
         return "merged" if merged else "kernel"
 
     def forward(self, x: torch.Tensor, all_inter=None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, inter=None,
+                inter_kv=None) -> torch.Tensor:
         """``x [B, N, C]`` tokens in the compute dtype -> same shape."""
+        return self.run(x, all_inter, generator, inter, inter_kv)[0]
+
+    def run(self, x: torch.Tensor, all_inter=None,
+            generator: Optional[torch.Generator] = None, inter=None,
+            inter_kv=None):
+        """``(out [B, N, C], kv)``: ``kv`` the block's (K, V) for a
+        ``need_kv`` block, else None. ``inter [B, N, deg]`` is the
+        degradation map of the per-scale methods, ``inter_kv`` the encoder's
+        (K, V) for ``attention_kv``."""
         b, dt = x.shape[0], x.dtype
         win, shift, L, mask = self.win, self.shift, self.L, self.attn_mask
         dps1 = self.drop_path1.scale(b, x.device, generator)
         dps2 = self.drop_path2.scale(b, x.device, generator)
+        if self.unfused:
+            return self._forward_unfused(x, inter, inter_kv, all_inter, dps1,
+                                         dps2)
         route = self.route(dt, b)
         on_card = route != "plain" and x.is_cuda
         img = to_image(x, self.res, self.res)
@@ -125,7 +210,7 @@ class LeWinBlock(nn.Module):
         n2 = (self.norm2.weight, self.norm2.bias)
         if torch.is_grad_enabled() and route != "plain":
             return to_tokens(self._forward_functions(
-                img, route == "merged", all_inter, n1, n2, dps1, dps2))
+                img, route == "merged", all_inter, n1, n2, dps1, dps2)), None
         if on_card and route == "merged":
             ffn = self.mlp.kernel_operands(dt)
             if self.msa_type == "freq":
@@ -140,7 +225,7 @@ class LeWinBlock(nn.Module):
                 y = lb.merged_kernel(img, *n1, self.attn.kernel_operands(dt),
                                      mask, lam, *n2, ffn, win, shift, 1e-6,
                                      dps1, dps2)
-            return to_tokens(y)
+            return to_tokens(y), None
         if shift > 0:
             img = torch.roll(img, (-shift, -shift), dims=(1, 2))
         if self.msa_type == "freq":
@@ -174,7 +259,61 @@ class LeWinBlock(nn.Module):
         else:
             y = lb.block_ffn_plain(y, *n2, *self.mlp.kernel_weights(), 1e-6,
                                    dps2)
-        return to_tokens(y)
+        return to_tokens(y), None
+
+    def _norm(self, which: int, x, inter):
+        """norm1 / norm2 in fp32, rounded to the compute dtype; the
+        self-modulated form with ``self_modulator``."""
+        dt = x.dtype
+        norm = getattr(self, f"norm{which}")
+        if "self_modulator" not in self.injection:
+            return norm(x.float()).to(dt)
+        g = leaky_relu(getattr(self, f"norm{which}_deg_norm")(inter.float()).to(dt))
+        return norm(x, g, dt)
+
+    def _forward_unfused(self, x, inter, inter_kv, all_inter, dps1, dps2):
+        """The unfused block (JAX uformer_lewin.py:244-354): ``(out, kv)``."""
+        b, _, c = x.shape
+        dt = x.dtype
+        res, win, shift, mask = self.res, self.win, self.shift, self.attn_mask
+        nw = (res // win) ** 2
+        plain = self.impl == "plain"
+        shortcut = x
+        img = lb.roll(to_image(self._norm(1, x, inter), res, res), shift)
+        xw = windows.window_partition(img, win).reshape(-1, win * win, c)
+        if self.use_modulator:
+            xw = xw + self.modulator.to(dt)[None]
+        if "modulator" in self.injection:
+            # the degradation map as one win x win token grid, concat-embedded
+            # into every window (decoder_Uformer.py:693-706)
+            mod = self.degradation_modulator(inter, dt)
+            mod = leaky_relu(self.degradation_modulator_norm(mod.float()).to(dt))
+            mod = mod[:, None].expand(b, nw, win * win, c)
+            xw = torch.cat([mod, xw.reshape(b, nw, win * win, c)], -1)
+            xw = _linear(self.degradation_modulator_embed, xw, dt).reshape(
+                -1, win * win, c)
+        if self.msa_type == "freq":
+            xw, _ = self.attn_intra.attend(xw, mask, plain)
+            xw, kv = self.attn_inter.attend(xw, mask, plain)
+        else:
+            attn_kv = None
+            if "attention_residual" in self.injection:
+                gi = leaky_relu(self.attn_deg_norm(inter.float()).to(dt))
+                gimg = lb.roll(to_image(gi, res, res), shift)
+                attn_kv = windows.window_partition(gimg, win).reshape(
+                    -1, win * win, gi.shape[-1])
+            elif "attention_kv" in self.injection:
+                attn_kv = inter_kv
+            xw, kv = self.attn.attend(xw, attn_kv, all_inter, mask, plain)
+        img = windows.window_reverse(xw.reshape(-1, win, win, c), win, res, res)
+        y = to_tokens(lb.roll(img, -shift))
+        if dps1 is not None:
+            y = y * dps1.to(dt)[:, None, None]
+        x = shortcut + y
+        y = self.mlp.composite(self._norm(2, x, inter), inter, plain)
+        if dps2 is not None:
+            y = y * dps2.to(dt)[:, None, None]
+        return x + y, (kv if self.need_kv else None)
 
 
     def _forward_functions(self, img, merged: bool, all_inter, n1, n2, dps1,
@@ -209,13 +348,15 @@ class LeWinBlock(nn.Module):
 
 class BasicUformerLayer(nn.Module):
     """A stage of LeWin blocks ``block0..``; odd blocks shifted by win // 2
-    (encoder_Uformer.py:687-743)."""
+    (encoder_Uformer.py:687-743). ``need_kv`` marks the last block, whose
+    (K, V) :meth:`run` returns; the other keywords go to every block."""
 
     def __init__(self, dim: int, input_resolution: int, depth: int,
                  num_heads: int, win_size: int = 8, mlp_ratio: float = 4.0,
                  drop_path: Sequence[float] = (), msa_type: str = "origin",
                  L: int = 1, all_bands_dc: bool = False,
-                 encoder_embed_dim: int = 28, impl: str = "kernel"):
+                 encoder_embed_dim: int = 28, impl: str = "kernel",
+                 need_kv: bool = False, **block_kw):
         super().__init__()
         dp = list(drop_path) or [0.0] * depth
         self.depth = depth
@@ -225,9 +366,19 @@ class BasicUformerLayer(nn.Module):
                 shift_size=win_size // 2 if i % 2 == 1 else 0,
                 mlp_ratio=mlp_ratio, drop_path=dp[i] if i < len(dp) else dp[-1],
                 msa_type=msa_type, L=L, all_bands_dc=all_bands_dc,
-                encoder_embed_dim=encoder_embed_dim, impl=impl))
+                encoder_embed_dim=encoder_embed_dim, impl=impl,
+                need_kv=need_kv and i + 1 == depth, **block_kw))
 
-    def forward(self, x, all_inter=None, generator=None):
+    def run(self, x, all_inter=None, generator=None, inter=None,
+            inter_kv=None):
+        """``(out, kv)``, kv from the last block when ``need_kv``."""
+        kv = None
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x, all_inter, generator)
-        return x
+            x, kv_i = getattr(self, f"block{i}").run(x, all_inter, generator,
+                                                    inter, inter_kv)
+            kv = kv_i if kv_i is not None else kv
+        return x, kv
+
+    def forward(self, x, all_inter=None, generator=None, inter=None,
+                inter_kv=None):
+        return self.run(x, all_inter, generator, inter, inter_kv)[0]

@@ -1,9 +1,13 @@
 """FFT frequency-band decomposition (the port of the JAX ``ops/frequency.py``).
 
-What the flagship needs: the ring masks, the DC-point + closed-ring
-decomposition ``frequency_decompose_1`` that splits the encoder's input into
-L bands, and the equal-width ring decomposition ``frequency_decompose`` whose
-masked spectra the frequency-L1 loss compares. The FFT runs in float32 /
+The ring masks, the DC-point + closed-ring decomposition
+``frequency_decompose_1`` that splits the encoder's input into L bands (and
+the decoder's ``all_<N>_bands`` attention maps), the equal-width ring
+decomposition ``frequency_decompose`` whose masked spectra the frequency-L1
+loss compares (and which splits attention maps for the learnable ``lamb``),
+and the mean / residual split ``frequency_decompose_dc``. Any leading
+shape goes through: attention maps ``[B', h, n, nk]`` decompose over their
+last two axes. The FFT runs in float32 /
 complex64 whatever the model's compute dtype (a bf16 FFT is lossy).
 """
 
@@ -82,3 +86,12 @@ def frequency_decompose(x: torch.Tensor, num_bands: int,
     if inverse is False:
         return torch.stack((banded.real, banded.imag), dim=-1)
     raise ValueError(f"invalid inverse mode: {inverse!r}")
+
+
+def frequency_decompose_dc(x: torch.Tensor) -> torch.Tensor:
+    """Mean / residual split over the trailing two axes, no FFT (reference
+    frequency_decompose.py:109-118): ``[2, ..., H, W]``, band 0 the
+    broadcast spatial mean, band 1 the residual. The decoder's ``all_DC``
+    and ``frequency_decompose_type DC`` split attention maps with it."""
+    dc = x.mean(dim=(-2, -1), keepdim=True).expand_as(x)
+    return torch.stack((dc, x - dc), dim=0)

@@ -65,6 +65,14 @@ SIGNATURES = {
     # y, g, wqkv, bqkv, wp, bias, mask, ws, dy, dwqkv, dbqkv, dwp, dbp, dbias,
     # ws_bytes, LB, H, W, C, h, win, L, bf16, stream
     "fairm_freq_inter_bwd": [_P] * 14 + [_Q] + [_I] * 8 + [_P],
+    # q, k, v, bias, mask, out, W, h, n, nk, d, nW, scale, bf16, stream
+    "fairm_window_attn": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+    # q, k, v, bias, mask, g, ws, dq, dk, dv, dbias, ws_bytes, W, h, n, nk,
+    # d, nW, scale, bf16, stream
+    "fairm_window_attn_bwd": [_P] * 11 + [_Q] + [_I] * 6 + [_F, _I, _P],
+    # x, offset, mask, wt, bias, cols, out, B, H, W, C, Ho, Wo, Cout, kh, kw,
+    # pad, dil, clamp, bf16, stream
+    "fairm_dcn": [_P] * 7 + [_I] * 11 + [_F, _I, _P],
 }
 # the backward kernels' workspace sizes in bytes (they return a long long)
 WORKSPACE_SIGNATURES = {
@@ -74,6 +82,8 @@ WORKSPACE_SIGNATURES = {
     "fairm_lewin_ffn_bwd_ws": [_I] * 6,
     # LB, H, W, C, h, win, L, bf16
     "fairm_freq_inter_bwd_ws": [_I] * 8,
+    # W, h, n, nk
+    "fairm_window_attn_bwd_ws": [_I] * 4,
 }
 
 

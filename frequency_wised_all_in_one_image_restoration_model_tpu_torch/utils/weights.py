@@ -15,6 +15,12 @@ changes layouts:
                                          (and ``num_batches_tracked`` 0)
   anything else (bias tables, biases) -> same name, same layout
 
+The raw parameters of the decoder's injection methods are of that last
+kind and keep JAX's layout: the ``deform_conv`` DCN's ``weight`` stays HWIO
+``[k, k, Cin, Cout]`` as JAX declares it (``DCNLayerLeFF`` reads it so),
+the learnable ``modulator`` ``[win^2, C]`` and the per-band ``lamb``
+``[N-1, 1, h]``.
+
 Reference ``.pth`` checkpoints reach the port through the JAX package:
 ``utils/torch_weights.py`` -> JAX variables -> :func:`from_jax`.
 

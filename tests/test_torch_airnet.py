@@ -141,9 +141,9 @@ def test_tile_layout_matches():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("degradation_embedding_method", ["residual"]),
-    ("learnable_modulator", True),
-    ("frequency_decompose_type", "DC"),
+    ("encoder_type", "ResNet"),
+    ("decoder_type", "ResNet"),
+    ("L", 1),
     ("encoder_msa_type", "origin"),
 ])
 def test_unported_options_raise(field, value):

@@ -255,7 +255,7 @@ def test_build_targets_hopper_and_tracks_sources(tmp_path, monkeypatch):
     assert {p.name for p in build.sources()} == {
         "lewin_attn.cu", "lewin_ffn.cu", "freq_inter.cu", "lewin_merged.cu",
         "freq_merged.cu", "lewin_attn_bwd.cu", "lewin_ffn_bwd.cu",
-        "freq_inter_bwd.cu"}
+        "freq_inter_bwd.cu", "window_attn.cu", "window_attn_bwd.cu", "dcn.cu"}
     # the library directory is named by a hash of every csrc file
     for p in build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
