@@ -8,7 +8,7 @@ Phases, each fatal on failure:
 
 1. the card: needs ``torch.cuda.is_available()``; prints the card's name
    and power limit;
-2. build: compiles the eleven kernels (the eight LeWin-block kernels, five
+2. build: compiles the thirteen kernels (the ten LeWin-block kernels, seven
    forward and three backward, the window attention forward and backward,
    the DCN) from ``csrc/`` into ``build/kernels/``, one ``nvcc`` per
    source, all started together;
@@ -58,8 +58,9 @@ Phases, each fatal on failure:
     fp32 (K10: every output, equal bits on a second launch), beside
     ``scaled_dot_product_attention`` with the same additive bias and mask;
     ``WindowAttentionFn`` against autograd of the plain forward; the DCN
-    K11 against ``dcn_plain`` at every deform_conv stage (C = 112 ... 896),
-    exact and with offsets clamped to 2, offsets past the image's edges;
+    K11 against ``dcn_plain`` at every deform_conv stage (C = 112 ... 896)
+    and at DGRN's (C = 64, 3), exact and with offsets clamped to 2, offsets
+    past the image's edges;
     ``DCNFn``'s gradients;
 11. the full-width eval forward of three injection configurations (the
     per-scale set ``residual modulator self_modulator deform_conv
@@ -74,9 +75,27 @@ Phases, each fatal on failure:
     per-scale set (one phase-A step, one joint step, one eval, the
     checkpoints, launch counts held); one joint step of the per-scale set
     by the default route against the plain route, fp32 and bf16; its step
-    time, split, and peak memory.
+    time, split, and peak memory;
+13. the split block kernels: K12 (attention, q / k / v as three [C, C]
+    blocks, the projection's reduction in fp32 partials) and K13 (FFN, a sum
+    over hidden blocks) against their plain versions and against K1 / K2 at
+    the flagship decoder's C = 896 stages (res 8 and 16, shifted and not,
+    with lam and DropPath), fp32 and bf16, B = 4 and 32, a second launch
+    giving equal bits, beside K1 / K2's time, the plain version's and the
+    bound; the per-block table split against chain; then the float32
+    flagship eval forward at B = 4 and 32 by the split, chain, default and
+    plain routes, each against plain, launch counts and MP/s;
+14. the other model families: the eval entry point and the training entry
+    point (one phase-A step, one joint step, one eval, the checkpoints) for
+    ``resnet_dgrn`` (``--encoder_type ResNet --decoder_type ResNet``) and
+    ``vit_freq`` (``--encoder_type ViT --decoder_type ResNet
+    --frequency_decompose_type DC``) at full width, offset heads and ``lamb``
+    drawn at random; the eval forward of those two, of ResNet + Uformer and
+    of the origin-MSA L = 1 Uformer encoder + Uformer decoder by the default
+    and the plain route (K11 launches of DGRN, 50 per forward, held); the
+    joint step of the DGRN families by both routes, and its time.
 
-``--phases 3 4`` runs only those of phases 3-12, for work on one of them:
+``--phases 3 4`` runs only those of phases 3-14, for work on one of them:
 such a partial run prints neither of the two result lines and exits with
 2. The whole run fails too if anything of JAX or of the JAX package was
 imported. Its line before the last is ``{"kernels": [...]}``, where
@@ -85,7 +104,8 @@ float32 and in bfloat16 on the default route, the requests by the chain
 and by the merged kernels in float32 and by the default route in
 bfloat16, the training entry point in bfloat16; phase 11's forwards, the
 eval entry point with the default method, the per-scale training entry
-point); the last line is
+point; phase 13's split and default forwards, phase 14's entry points and
+forwards); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with 1 and prints no result.
 """
@@ -129,8 +149,13 @@ KERNELS.update({  # the kernels of the decoder's injection methods
     "window_attn_bwd": (f"{PKG}/csrc/window_attn_bwd.cu", f"{PALLAS_WA}:183"),
     "dcn": (f"{PKG}/csrc/dcn.cu", f"{PALLAS_DCN}:62"),
 })
+KERNELS.update({  # the split block kernels (q / k / v blocks, hidden blocks)
+    "lewin_attn_split": (f"{PKG}/csrc/lewin_attn_split.cu", f"{PALLAS}:214"),
+    "lewin_ffn_split": (f"{PKG}/csrc/lewin_ffn_split.cu", f"{PALLAS}:882"),
+})
 BWD_KERNELS = ("lewin_attn_bwd", "lewin_ffn_bwd", "freq_inter_bwd")
 INJECTION_KERNELS = ("window_attn", "window_attn_bwd", "dcn")
+SPLIT_KERNELS = ("lewin_attn_split", "lewin_ffn_split")
 # per-kernel tolerance on max|kernel - plain| / max(1, max|plain|): fp32
 # differs only in summation order; bf16 rounds q/k/v, the hidden and the
 # output at other places than the plain path (a few bf16 ulps)
@@ -161,6 +186,22 @@ STEP_GRAD_TOL = {"float32": 1e-2, "bfloat16": 0.5}
 ZERO = {name: 0 for name in KERNELS}
 CHAIN_COUNTS = {**ZERO, "lewin_attn": 54, "lewin_ffn": 54, "freq_inter": 10}
 MERGED_COUNTS = {**ZERO, "lewin_merged": 44, "freq_merged": 10}
+# the split route: every decoder block K12 -> K13, the encoder's frequency
+# blocks the chain
+SPLIT_COUNTS = {**ZERO, "lewin_attn": 10, "lewin_ffn": 10, "freq_inter": 10,
+                "lewin_attn_split": 44, "lewin_ffn_split": 44}
+# the default route runs the split kernels for the decoder's C = 896 blocks
+# (in both dtypes) on batches of at most this many tokens per stage; the
+# stages hold (res, fused blocks): bottleneck_0 and bottleneck_1 at res 8,
+# decoderlayer_3 at res 16
+SPLIT_MAX_TOKENS = 1024
+SPLIT_STAGE_BLOCKS = ((8, 4), (16, 8))
+
+
+def split_blocks(B: int, stages=SPLIT_STAGE_BLOCKS) -> int:
+    """Decoder blocks of a default-route forward of ``B`` tiles that run
+    K12 -> K13, held apart from the model's own route table."""
+    return sum(n for res, n in stages if B * res * res <= SPLIT_MAX_TOKENS)
 # the default route in bf16: blocks of one forward that run merged, by the
 # tiles in its batch. The decoder's shifted blocks number 2 at res 128, 2 at
 # res 64 and 8 at res 32, and a stage runs them merged from 32768 tokens
@@ -172,8 +213,10 @@ def default_counts(dtype: str, B: int) -> dict:
     """Launches of one default-route forward of ``B`` tiles, held apart from
     the model's own route table."""
     k4 = DEFAULT_MERGED_BLOCKS[B] if dtype == "bfloat16" else 0
-    return {**ZERO, "lewin_attn": 54 - k4, "lewin_ffn": 54 - k4,
-            "freq_inter": 10, "lewin_merged": k4}
+    k12 = split_blocks(B)
+    return {**ZERO, "lewin_attn": 54 - k4 - k12, "lewin_ffn": 54 - k4 - k12,
+            "freq_inter": 10, "lewin_merged": k4, "lewin_attn_split": k12,
+            "lewin_ffn_split": k12}
 TRAIN_BATCH = 4          # the training CLI's batch: one sample per task
 
 
@@ -208,7 +251,7 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
-ALL_PHASES = frozenset((3, 4, 5, 6, 7, 8, 9, 10, 11, 12))
+ALL_PHASES = frozenset(range(3, 15))
 
 
 class Failed(Exception):
@@ -588,6 +631,9 @@ def route_counts(bundle, airnet, uformer_lewin, B: int) -> dict:
             route = m.route(dtype, B)
             if route == "merged":
                 counts["freq_merged" if freq else "lewin_merged"] += 1
+            elif route == "split":
+                counts["lewin_attn_split"] += 1
+                counts["lewin_ffn_split"] += 1
             elif route == "kernel":
                 counts["lewin_attn"] += 1
                 counts["lewin_ffn"] += 1
@@ -1314,8 +1360,10 @@ WINDOW_SHAPES = (
     (64, 192, 56, 2, 16, "decoder block, attention_kv"),
     (192, 192, 28, 1, 16, "encoder need_kv block, 3 bands"),
 )
-# the deform_conv LeFF's DCN at every stage it runs: (res, C)
-DCN_STAGES = ((128, 112), (64, 224), (32, 448), (16, 896), (8, 896))
+# the deform_conv LeFF's DCN at every stage it runs, then DGRN's behind the
+# ResNet encoder (C = 64) and behind the ViT (C = 3): (res, C)
+DCN_STAGES = ((128, 112), (64, 224), (32, 448), (16, 896), (8, 896),
+              (128, 64), (128, 3))
 
 
 class AttnCase(NamedTuple):
@@ -1570,7 +1618,8 @@ def injection_counts(name: str, dtype: str, B: int) -> dict:
     blocks are unfused: K9 once each, and K11 for deform_conv; where the
     attention probabilities are modulated (all_3_bands, lamb) the core is
     the plain one, as in JAX. attention_kv makes the encoder's last block
-    of each stage unfused (need_kv): K9 for intra and inter."""
+    of each stage unfused (need_kv): K9 for intra and inter. bottleneck_0's
+    two blocks (C = 896, res 8) run split up to SPLIT_MAX_TOKENS."""
     merged = sum(blocks for res, blocks in ((128, 1), (64, 1), (32, 4))
                  if dtype == "bfloat16" and B * res * res >= 32768)
     c = dict(ZERO)
@@ -1582,7 +1631,10 @@ def injection_counts(name: str, dtype: str, B: int) -> dict:
     else:
         fused_dec, enc_fused, k9 = 22, 10, 22
     merged = merged if fused_dec else 0
-    c["lewin_attn"] = c["lewin_ffn"] = fused_dec - merged + enc_fused
+    # of the fused decoder blocks, bottleneck_0's two at res 8 (C = 896)
+    k12 = split_blocks(B, ((8, 2),)) if fused_dec else 0
+    c["lewin_attn_split"] = c["lewin_ffn_split"] = k12
+    c["lewin_attn"] = c["lewin_ffn"] = fused_dec - merged - k12 + enc_fused
     c["freq_inter"] = enc_fused
     c["lewin_merged"] = merged
     c["window_attn"] = k9
@@ -1609,12 +1661,14 @@ def block_counts(bundle, airnet, uformer_lewin, B: int) -> dict:
 
 
 def liven(bundle, seed: int = 7) -> None:
-    """Offset heads and lamb drawn at random (JAX initialises them to zero,
-    which makes every DCN offset 0 and every band gain 0): offsets of up to
-    about 3.5 pixels, past the image's edge at the rim."""
+    """Offset heads and lamb drawn at random, the decoder's and then the
+    encoder's (the ViT's band gains; JAX initialises them to zero, which
+    makes every DCN offset 0 and every band gain 0): offsets of up to about
+    3.5 pixels, past the image's edge at the rim."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for name, p in bundle.decoder.named_parameters():
+        for name, p in [*bundle.decoder.named_parameters(),
+                        *bundle.encoder.named_parameters()]:
             if "conv_offset_mask" in name:
                 if name.endswith("bias"):
                     r = torch.rand(p.shape, generator=gen) * 7 - 3.5
@@ -1762,11 +1816,379 @@ def per_scale_training_entry_point(config, port_train, stats):
     add_launches(stats, "train_entry_per_scale_bfloat16", counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the split block kernels K12 / K13
+# ---------------------------------------------------------------------------
+
+
+# the flagship decoder's C = 896 stages: (res, heads); res 8 holds
+# bottleneck_0 and bottleneck_1, res 16 decoderlayer_3
+SPLIT_STAGES = ((8, 16), (16, 16))
+SPLIT_C = 896
+
+
+def split_cases(lb, windows, dtype, B):
+    """K12 and K13 at the C = 896 stages, shifted and not, with the all_DC
+    ``lam`` and DropPath; each with the chain kernel it equals (K1 / K2)
+    and the number of parts its launch takes by default."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    C, n = SPLIT_C, 64
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    cases = []
+    for res, h in SPLIT_STAGES:
+        d, M = C // h, B * res * res
+        x = rnd(B, res, res, C).to(dtype)
+        ln1 = [1 + rnd(C, scale=0.1), rnd(C, scale=0.1)]
+        aw = [rnd(h, C, d, scale=C ** -0.5) if i % 2 == 0 else
+              rnd(h, d, scale=0.1) for i in range(6)]
+        aw += [rnd(h, d, C, scale=C ** -0.5), rnd(C, scale=0.1)]
+        fw = [rnd(C, 4 * C, scale=C ** -0.5), rnd(4 * C, scale=0.1),
+              rnd(3, 3, 4 * C, scale=1 / 3), rnd(4 * C, scale=0.1),
+              rnd(4 * C, C, scale=(4 * C) ** -0.5), rnd(C, scale=0.1)]
+        bias, lam = rnd(h, n, n, scale=0.05), rnd(B, h, scale=0.3)
+        dps = (torch.rand(B, generator=gen, device="cuda") < 0.9).float() / 0.9
+        aop = lb.attn_operands(*aw, bias, dtype)
+        fop = lb.ffn_operands(*fw, dtype)
+        kb_a = lb.split_parts(M, C, C, dtype)
+        kb_f = lb.split_parts(M, C, 4 * C, dtype)
+        for shift in ((0,) if res == 8 else (0, 4)):
+            mask = (torch.from_numpy(windows.shift_attn_mask(res, res, 8, shift))
+                    .cuda() if shift else None)
+            cases.append(Case(
+                "lewin_attn_split",
+                f"block_attention_split res{res} C{C} h{h} shift{shift} lam "
+                f"kb{kb_a}",
+                [x, *ln1, *aw, bias, mask, lam, 8, 1e-6, dps, kb_a],
+                lb.block_attention_split, lb.lewin_attn_split_plain,
+                lambda x=x, ln1=ln1, aop=aop, mask=mask, lam=lam, dps=dps,
+                kb=kb_a: lb.attention_split_kernel(x, *ln1, aop, mask, lam, 8,
+                                                   1e-6, dps, kb),
+                2.0 * M * C * (4 * C + 2 * n), ("origin", res, shift),
+                lambda *a: lb.block_attention(*a[:-1]),
+                lambda x=x, ln1=ln1, aop=aop, mask=mask, lam=lam, dps=dps:
+                lb.attention_kernel(x, *ln1, aop, mask, lam, 8, 1e-6, True, 1,
+                                    dps)))
+        cases.append(Case(
+            "lewin_ffn_split", f"block_ffn_split res{res} C{C} kb{kb_f}",
+            [x, *ln1, *fw, 1e-6, dps, kb_f], lb.block_ffn_split,
+            lb.lewin_ffn_split_plain,
+            lambda x=x, ln1=ln1, fop=fop, dps=dps, kb=kb_f:
+            lb.ffn_split_kernel(x, *ln1, fop, 1e-6, dps, kb),
+            2.0 * M * 4 * C * (2 * C + 9), ("origin", res, 0),
+            lambda *a: lb.block_ffn(*a[:-1]),
+            lambda x=x, ln1=ln1, fop=fop, dps=dps:
+            lb.ffn_kernel(x, *ln1, fop, 1e-6, dps)))
+    return cases
+
+
+def check_split_kernels(lb, windows, stats, card: str):
+    """Phase 13a: K12 / K13 against their plain versions and against K1 /
+    K2, a second launch giving equal bits, their times beside K1 / K2's, the
+    plain version's and the bound, in fp32 and bf16 at B = 4 and 32. The
+    kernels line takes fp32 at B = 4, res 8: the eval entry point's dtype
+    and a batch of one image's tiles. Then the per-block table, split
+    against chain, that sets the default route's DEFAULT_SPLIT."""
+    blocks = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name_dt = str(dtype)[6:]
+        for B in (4, BATCH):
+            print(f"split kernel checks, {dtype}, B={B}:", flush=True)
+            for case in split_cases(lb, windows, dtype, B):
+                label = f"{case.label} {name_dt} B{B}"
+                got = case.wrapper(*case.args)
+                torch.cuda.synchronize()
+                want = case.plain(*case.args)
+                err = compare(label, got, want, KERNEL_TOL[dtype])
+                compare(f"{label} vs chain", got, case.chain(*case.args),
+                        CHAIN_TOL[dtype])
+                first, second = case.timed(), case.timed()
+                if not (torch.equal(first, got) and torch.equal(second, got)):
+                    raise Failed(f"{label}: a second launch gives other bits")
+                ms = time_ms(case.timed)
+                cms = time_ms(case.chain_timed)
+                pms = time_ms(lambda: case.plain(*case.args), iters=3)
+                bound, by = bound_of(case, dtype)
+                print(f"    time: kernel {ms:.4f} ms, chain kernel {cms:.4f} "
+                      f"ms, plain {pms:.4f} ms, bound {bound:.4f} ms by {by}",
+                      flush=True)
+                st = stats[case.kernel]
+                st["max_abs_err"] = max(st["max_abs_err"], err)
+                if dtype == torch.float32 and B == 4 and st["ms"] is None:
+                    st.update(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by)
+                _, res, shift = case.stage
+                blocks.setdefault((res, name_dt, B), {})[
+                    case.kernel, shift] = (ms, cms)
+                del got, want, first, second
+    print(f"split against chain, ms per block (K12 + K13 against K1 + K2; "
+          f"{card}):", flush=True)
+    for (res, name_dt, B), t in sorted(blocks.items()):
+        ffn = t["lewin_ffn_split", 0]
+        for shift in sorted({sh for k, sh in t if k == "lewin_attn_split"}):
+            ms = t["lewin_attn_split", shift][0] + ffn[0]
+            cms = t["lewin_attn_split", shift][1] + ffn[1]
+            print(f"  origin res {res:2d} C {SPLIT_C} shift {shift} {name_dt} "
+                  f"B={B}: split {ms:.4f}, chain {cms:.4f}, split/chain "
+                  f"{ms / cms:.3f}", flush=True)
+
+
+def split_forward(config, airnet, uformer_lewin, card: str, stats):
+    """Phase 13b: the flagship eval forward in float32 (the eval entry
+    point's dtype) at B = 4 and 32 by the split, chain, default and plain
+    routes, each against plain, with the launch counts and MP/s, the
+    routes timed in turns (plain, split, kernel, default and back). The
+    split and default forwards are main paths of the kernels line."""
+    order = ("plain", "split", "kernel", "default")
+    bundles = {impl: airnet.build_models(
+        flagship_config(config, "float32"), "cuda", impl) for impl in order}
+    for B in (4, BATCH):
+        x = torch.from_numpy(np.random.default_rng(3).random(
+            (B, P, P, 3), dtype=np.float32)).cuda()
+        want = airnet.eval_forward(bundles["plain"], x)
+        fixed = {"split": SPLIT_COUNTS, "kernel": CHAIN_COUNTS,
+                 "default": default_counts("float32", B)}
+        for impl in order[1:]:
+            COUNTERS.reset()
+            got = airnet.eval_forward(bundles[impl], x)
+            torch.cuda.synchronize()
+            counts = COUNTERS.read()
+            expect = route_counts(bundles[impl], airnet, uformer_lewin, B)
+            print(f"  float32 B={B} {impl}: launches per forward {counts}",
+                  flush=True)
+            if counts != fixed[impl] or expect != fixed[impl]:
+                raise Failed(f"{impl}: launch counts {counts}, the blocks' "
+                             f"routes give {expect}, expected {fixed[impl]}")
+            if impl != "kernel":
+                add_launches(stats, f"forward_{impl}_float32_B{B}", counts)
+            compare(f"eval_forward float32 B{B} {impl} vs plain", got, want,
+                    FORWARD_TOL[torch.float32])
+            del got
+        runs = {impl: [] for impl in order}
+        for impl in order + order[::-1]:
+            ms = time_ms(lambda b=bundles[impl]: airnet.eval_forward(b, x),
+                         iters=3, warmup=1)
+            runs[impl].append(B * P * P / (ms / 1e3) / 1e6)
+        for impl, mps in runs.items():
+            print(f"throughput float32 B={B} {impl}: {mps[0]:.4f} / "
+                  f"{mps[1]:.4f} MP/s (128x128; {card})", flush=True)
+        del want
+    del bundles
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the other model families through both entry points
+# ---------------------------------------------------------------------------
+
+
+# the parity configurations of the JAX package (tools/parity_train.py:77-86)
+# as command lines, and the configurations of phase 14's forwards
+FAMILY_FLAGS = {
+    "resnet_dgrn": ["--encoder_type", "ResNet", "--decoder_type", "ResNet"],
+    "vit_freq": ["--encoder_type", "ViT", "--decoder_type", "ResNet",
+                 "--frequency_decompose_type", "DC"],
+}
+FAMILIES = {
+    "resnet_dgrn": dict(encoder_type="ResNet", decoder_type="ResNet"),
+    "vit_freq": dict(encoder_type="ViT", decoder_type="ResNet",
+                     frequency_decompose_type="DC"),
+    "resnet_uformer": dict(encoder_type="ResNet",
+                           degradation_embedding_method=["residual"]),
+    "origin_l1_uformer": dict(encoder_msa_type="origin", L=1,
+                              degradation_embedding_method=["residual"]),
+}
+# DGRN at the CLI's depth: 5 groups of 5 blocks, two DGMs each, one DCN
+# (K11) per DGM
+DGRN_DCNS = 50
+
+
+def family_counts(name: str, B: int) -> dict:
+    """Launches of one default-route eval forward of a family, held apart
+    from the model: DGRN's DCNs; behind the ResNet encoder the Uformer
+    decoder's 44 blocks, behind the origin-MSA L = 1 encoder also its 10
+    origin blocks (both on the chain in float32, but for the decoder's
+    C = 896 blocks that the default route runs split)."""
+    if name in ("resnet_dgrn", "vit_freq"):
+        return {**ZERO, "dcn": DGRN_DCNS}
+    k12 = split_blocks(B)
+    blocks = 44 + (10 if name == "origin_l1_uformer" else 0) - k12
+    return {**ZERO, "lewin_attn": blocks, "lewin_ffn": blocks,
+            "lewin_attn_split": k12, "lewin_ffn_split": k12}
+
+
+def family_eval_entry(config, airnet, port_test, ckpt, stats, name: str):
+    """Phase 14a: ``<port>.test.main`` for a family's command line at full
+    width on two synthetic test sets, from seed weights with the offset
+    heads (and the ViT's lamb) drawn at random, handed over as the
+    checkpoint main loads."""
+    tasks = ["denoising_bsd68_25", "deraining"]
+    with tempfile.TemporaryDirectory() as out:
+        cfg = config.parse_args(
+            ["--synthetic_data", *FAMILY_FLAGS[name], "--test_de_type", *tasks,
+             "--output_path", out + "/", "--epochs", "1"])
+        bundle = airnet.build_models(cfg, "cuda")
+        liven(bundle)
+        ckpt.save_eval(cfg.ckpt_path, 1, bundle.encoder.state_dict(),
+                       bundle.decoder.state_dict())
+        del bundle
+        torch.cuda.synchronize()
+        COUNTERS.reset()
+        t0 = time.perf_counter()
+        rows = port_test.main(cfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = COUNTERS.read()
+        with open(f"{out}/epoch_1_results.log") as f:
+            log = f.read()
+    print(f"eval entry point {name} ({cfg.eval_dtype}): {len(tasks)} tasks in "
+          f"{secs:.3f} s, launches {counts}", flush=True)
+    for task, result in rows:
+        print(f"  {task}: {result}", flush=True)
+    want_log = "".join(f"{t}: {' ' * (25 - len(t))}{r}\n" for t, r in rows)
+    if [t for t, _ in rows] != tasks or log != want_log or any(
+            not r.startswith("PSNR/SSIM: ") or "nan" in r for _, r in rows):
+        raise Failed(f"{name}: results log {log!r}")
+    # one forward of 16 tiles per task (the synthetic sets of phase 5)
+    want = {k: v * len(tasks)
+            for k, v in family_counts(name, ENTRY_BATCH).items()}
+    if counts != want:
+        raise Failed(f"{name} eval entry point launch counts {counts} != {want}")
+    add_launches(stats, f"entry_{name}", counts)
+
+
+def family_train_entry(config, airnet, port_train, train_state, stats,
+                       name: str):
+    """Phase 14b: ``<port>.train.main`` for a family's command line at full
+    width, the CLI's batch and dtype, the synthetic loader, the offset heads
+    (and lamb) drawn at random: one phase-A step, one joint step, the eval
+    of one task after the joint epoch, the checkpoints."""
+    task = "denoising_bsd68_25"
+    with tempfile.TemporaryDirectory() as out:
+        cfg = config.parse_args(
+            ["--synthetic_data", *FAMILY_FLAGS[name], "--test_de_type", task,
+             "--output_path", out + "/", "--epochs", "2", "--epochs_encoder",
+             "1", "--steps_per_epoch", "1"])
+        bundle = airnet.build_models(cfg, "cuda", eval_mode=False)
+        liven(bundle)
+        state = train_state.create_train_state(cfg, bundle)
+        del bundle
+        seen = []
+        torch.cuda.synchronize()
+        COUNTERS.reset()
+        t0 = time.perf_counter()
+        state = port_train.main(cfg, progress=lambda e, m: seen.append((e, m)),
+                                state=state)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = COUNTERS.read()
+        with open(f"{out}/results.log") as f:
+            results_log = f.read()
+        files = sorted(os.listdir(f"{out}/ckpt"))
+        ckpt = torch.load(f"{out}/ckpt/epoch_2.pt", map_location="cpu",
+                          weights_only=True)
+    print(f"training entry point {name} ({cfg.dtype}, B={cfg.batch_size}): 1 + "
+          f"1 steps, eval of 1 task and checkpoints in {secs:.3f} s, launches "
+          f"{counts}", flush=True)
+    print("  results.log: " + results_log.replace("\n", " | "), flush=True)
+    if [e for e, _ in seen] != [0, 1] or not all(
+            math.isfinite(v) for _, m in seen for v in m.values()):
+        raise Failed(f"{name} training metrics {seen}")
+    if seen[1][1]["l1_loss"] <= 0 or state.step != 2:
+        raise Failed(f"{name} joint step: {seen[1]}, step {state.step}")
+    lines = results_log.splitlines()
+    if len(lines) != 2 or not lines[1].startswith(task + ": ") \
+            or "PSNR/SSIM: " not in lines[1]:
+        raise Failed(f"{name} results.log {results_log!r}")
+    if files != ["best.pt", "epoch_2.pt"]:
+        raise Failed(f"{name} checkpoints {files}")
+    ts = ckpt["train_state"]
+    if tuple(ts["queue"].shape)[0] != 1 or ts["step"] != 2:
+        raise Failed(f"{name}: queue {tuple(ts['queue'].shape)}, step "
+                     f"{ts['step']}")
+    # the joint step's decoder forward and the eval's: K11 for every DCN;
+    # the DCN's backward is autograd of the plain version
+    want = {**ZERO, "dcn": 2 * DGRN_DCNS}
+    if counts != want:
+        raise Failed(f"{name} training entry point launch counts {counts} != "
+                     f"{want}")
+    add_launches(stats, f"train_entry_{name}", counts)
+
+
+def family_forwards(config, airnet, card: str, stats):
+    """Phase 14c: the full-width eval forward of each family by the default
+    and the plain route from one set of weights (offset heads and lamb made
+    live), in the eval entry point's float32 at B = 4 and, for the DGRN
+    families, B = 32; launch counts and MP/s of both routes."""
+    for name, fields in FAMILIES.items():
+        sizes = (4, BATCH) if name in FAMILY_FLAGS else (4,)
+        cfg = flagship_config(config, "float32", **fields)
+        bundles = {}
+        for impl in ("default", "plain"):
+            bundles[impl] = airnet.build_models(cfg, "cuda", impl)
+            liven(bundles[impl])
+        for B in sizes:
+            x = torch.from_numpy(np.random.default_rng(4).random(
+                (B, P, P, 3), dtype=np.float32)).cuda()
+            want = airnet.eval_forward(bundles["plain"], x)
+            torch.cuda.synchronize()
+            COUNTERS.reset()
+            got = airnet.eval_forward(bundles["default"], x)
+            torch.cuda.synchronize()
+            counts = COUNTERS.read()
+            fixed = family_counts(name, B)
+            print(f"{name} eval forward float32 B={B}: launches {counts}",
+                  flush=True)
+            if counts != fixed:
+                raise Failed(f"{name}: launch counts {counts} != {fixed}")
+            add_launches(stats, f"forward_{name}_B{B}", counts)
+            if got.shape != (B, P, P, 3):
+                raise Failed(f"{name}: forward shape {tuple(got.shape)}")
+            compare(f"{name} eval_forward float32 B{B} default vs plain", got,
+                    want, FORWARD_TOL[torch.float32])
+            mps = {impl: B * P * P / time_ms(
+                lambda b=b: airnet.eval_forward(b, x), iters=3, warmup=1) / 1e3
+                for impl, b in bundles.items()}
+            print(f"  MP/s default {mps['default']:.4f}, plain "
+                  f"{mps['plain']:.4f} (128x128, B={B}, float32; {card})",
+                  flush=True)
+            del got, want
+        del bundles
+        torch.cuda.empty_cache()
+
+
+# the joint step by the plain route keeps every DCN's gather for autograd:
+# at full depth (50 DCNs) it does not fit the card's 80 GB at B = 4, so the
+# step of both routes is compared with one DGRN group of two blocks
+SHALLOW_DGRN = dict(dgrn_groups=1, dgrn_blocks=2)
+
+
+def families(config, airnet, port_test, port_train, ckpt, train_state,
+             steps_lib, synthetic, card: str, stats):
+    """Phase 14: every family through both entry points, their forwards by
+    both routes, the joint step of the DGRN families by both routes at the
+    depth of SHALLOW_DGRN (the step's launches: K11 for the query decoder's
+    4 DCNs), and the step time by the default route at full depth."""
+    for name in FAMILY_FLAGS:
+        family_eval_entry(config, airnet, port_test, ckpt, stats, name)
+        family_train_entry(config, airnet, port_train, train_state, stats,
+                           name)
+    family_forwards(config, airnet, card, stats)
+    for name in FAMILY_FLAGS:
+        shallow = {**FAMILIES[name], **SHALLOW_DGRN}
+        step_against_plain(config, airnet, train_state, steps_lib, synthetic,
+                           f"{name} (1 x 2 DGRN blocks)", shallow,
+                           {**ZERO, "dcn": 4})
+        step_times(config, airnet, train_state, steps_lib, synthetic, card,
+                   name, FAMILIES[name], (("bfloat16", "default", TRAIN_BATCH),))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one H100")
     ap.add_argument("--phases", type=int, nargs="+",
                     default=sorted(ALL_PHASES), choices=sorted(ALL_PHASES),
-                    help="of phases 3-12, run only these: a development aid "
+                    help="of phases 3-14, run only these: a development aid "
                     "that prints no result and exits with 2 (default: all)")
     phases = set(ap.parse_args(argv).phases)
     if not torch.cuda.is_available():
@@ -1786,7 +2208,7 @@ def main(argv=None) -> int:
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops.kernels import (
         build, lewin_block as lb, window_attention as wa)
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch.training import (
-        state as train_state, steps as steps_lib)
+        checkpoint as ckpt, state as train_state, steps as steps_lib)
 
     COUNTERS.modules = (lb, wa, dc)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1810,42 +2232,53 @@ def main(argv=None) -> int:
                     "launches": 0, "launches_by_path": {}}
              for name in KERNELS}
     t0 = time.perf_counter()
+    marks = []     # (phase, the time it started)
     try:
         bundles = Bundles(config, airnet)
         if 3 in phases:
+            marks.append((3, time.perf_counter()))
             check_kernels(lb, windows, uformer_lewin.DEFAULT_MERGED,
                           uformer_lewin.MERGED_MIN_TOKENS, stats, card)
         if 4 in phases:
+            marks.append((4, time.perf_counter()))
             full_forward(bundles, airnet, lb, uformer_lewin, frequency)
         if 5 in phases:
+            marks.append((5, time.perf_counter()))
             for dtype in ("float32", "bfloat16"):
                 eval_entry_point(config, airnet, runner, metrics, port_test,
                                  lb, uformer_lewin, stats, dtype)
             requests(bundles, tiling, lb, stats)
         if 6 in phases:
+            marks.append((6, time.perf_counter()))
             throughput(bundles, airnet, card)
         if 7 in phases:
+            marks.append((7, time.perf_counter()))
             profile(bundles, airnet, card)
         bundles.cache.clear()
         torch.cuda.empty_cache()
         if 8 in phases:
+            marks.append((8, time.perf_counter()))
             check_bwd_kernels(lb, windows, stats, card)
         if 9 in phases:
+            marks.append((9, time.perf_counter()))
             training_entry_point(config, port_train, lb, stats)
             step_against_plain(config, airnet, train_state, steps_lib,
-                               synthetic, lb)
+                               synthetic)
             step_times(config, airnet, train_state, steps_lib, synthetic, card)
         if 10 in phases:
+            marks.append((10, time.perf_counter()))
             check_window_attention(wa, windows, stats, card)
             for dtype in (torch.bfloat16, torch.float32):
                 check_window_function(wa, windows, dtype)
             check_dcn(dc, stats, card)
         if 11 in phases:
+            marks.append((11, time.perf_counter()))
             injection_forward(
                 config, airnet, uformer_lewin,
                 lambda b, x, label: profile_forward(airnet, b, x, label, card),
                 card, stats)
         if 12 in phases:
+            marks.append((12, time.perf_counter()))
             eval_entry_point(config, airnet, runner, metrics, port_test, lb,
                              uformer_lewin, stats, "float32", method=None)
             per_scale_training_entry_point(config, port_train, stats)
@@ -1861,6 +2294,14 @@ def main(argv=None) -> int:
                            ("float32", "plain", TRAIN_BATCH)))
             profile_step(config, airnet, train_state, steps_lib, synthetic,
                          card, fields)
+        if 13 in phases:
+            marks.append((13, time.perf_counter()))
+            check_split_kernels(lb, windows, stats, card)
+            split_forward(config, airnet, uformer_lewin, card, stats)
+        if 14 in phases:
+            marks.append((14, time.perf_counter()))
+            families(config, airnet, port_test, port_train, ckpt, train_state,
+                     steps_lib, synthetic, card, stats)
         if phases == ALL_PHASES:
             idle = [n for n in KERNELS if not stats[n]["launches"]]
             if idle:
@@ -1891,8 +2332,10 @@ def main(argv=None) -> int:
     except Failed as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
-    print(f"phases {sorted(phases)} took {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    marks.append((None, time.perf_counter()))
+    print(f"phases {sorted(phases)} took {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{n} {b - a:.1f} s" for (n, a), (_, b)
+                      in zip(marks, marks[1:])), flush=True)
     if phases != ALL_PHASES:
         print(f"chip_smoke: partial run of phases {sorted(phases)}: not the "
               "check, no result printed", file=sys.stderr, flush=True)

@@ -388,11 +388,6 @@ def from_fields(cfg) -> Config:
 
 def check_ported(cfg: Config) -> None:
     """Raise for a value that would change the result and is not ported."""
-    if cfg.encoder_type != "Uformer" or cfg.decoder_type != "Uformer":
-        raise NotImplementedError(
-            f"{cfg.encoder_type} encoder / {cfg.decoder_type} decoder: the "
-            "port runs Uformer + Uformer only; the other backbones are not "
-            "ported yet (ROADMAP.md, Queue 1 item 9)")
     if cfg.mesh_data * cfg.mesh_task > 1:
         raise NotImplementedError(
             f"mesh_data * mesh_task = {cfg.mesh_data * cfg.mesh_task}: the "

@@ -334,6 +334,7 @@ struct GemmArgs {
   long long M;
   int N;
   int act;             // 1: tanh-GELU after the bias
+  int ktiles;          // GBK-wide k-tiles to contract from A, Wt (0: lda / GBK)
 };
 
 // one element of C at physical row pc
@@ -458,9 +459,9 @@ constexpr size_t mma_smem_bytes() {
 }
 
 // output tile (bx, by) of BM = 128 rows x BN columns; BN = 64 (4 warps) or
-// 128 (8 warps), each warp owns 64 x 32. Ends with a barrier, so the next
-// tile may reuse the shared memory.
-template <int BN>
+// 128 (8 warps), each warp owns 64 x 32; C of type TC. Ends with a barrier,
+// so the next tile may reuse the shared memory.
+template <int BN, typename TC = bf16_t>
 __device__ __forceinline__ void gemm_mma_tile(const GemmArgs& a, long long bx,
                                               int by, unsigned char* smem_raw) {
   constexpr int NT = BN * 2;
@@ -475,7 +476,7 @@ __device__ __forceinline__ void gemm_mma_tile(const GemmArgs& a, long long bx,
   const int n0 = by * BN;
   const bf16_t* A = static_cast<const bf16_t*>(a.A);
   const bf16_t* Wt = static_cast<const bf16_t*>(a.Wt);
-  const int KT = a.lda / GBK;
+  const int KT = a.ktiles ? a.ktiles : a.lda / GBK;
 
   auto load_tile = [&](int stage, int kt) {
     bf16_t* as = As + stage * MMA_BM * MMA_LDS;
@@ -563,7 +564,7 @@ __device__ __forceinline__ void gemm_mma_tile(const GemmArgs& a, long long bx,
   const bool vec =
       a.N % 4 == 0 &&
       (reinterpret_cast<uintptr_t>(a.C) | reinterpret_cast<uintptr_t>(a.res)) %
-              (4 * sizeof(bf16_t)) == 0;
+              (4 * sizeof(TC)) == 0;
   const int g = lane >> 2, t4 = lane & 3;
   const int rbase = (wm * 64) % RP;
 #pragma unroll
@@ -586,7 +587,7 @@ __device__ __forceinline__ void gemm_mma_tile(const GemmArgs& a, long long bx,
       const int row = pass * RP + lr, col = n0 + cv * 4;
       const long long pc = s_crow[row];
       if (pc < 0 || col >= a.N) continue;
-      gemm_store4<bf16_t>(a, pc, s_scale[row], col,
+      gemm_store4<TC>(a, pc, s_scale[row], col,
                           *reinterpret_cast<const float4*>(Cs + lr * LDC + cv * 4),
                           vec);
     }
@@ -631,7 +632,8 @@ __device__ __forceinline__ void gemm_fma_tile(const GemmArgs& a, long long bx,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < a.lda; k0 += GBK) {
+  const int kend = a.ktiles ? a.ktiles * GBK : a.lda;
+  for (int k0 = 0; k0 < kend; k0 += GBK) {
     for (int e = tid; e < FMA_BM * GBK; e += FMA_NT) {
       const int i = e / GBK, kk = e % GBK;
       const long long r = m0 + i;

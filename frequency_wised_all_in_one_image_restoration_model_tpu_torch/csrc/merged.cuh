@@ -98,7 +98,7 @@ __device__ __forceinline__ void gemm_phase(const void* A, const void* Wt, int K,
                                            long long hw, const void* res,
                                            void* C, RowMap cmap, long long M,
                                            int N, int act, unsigned char* smem) {
-  GemmArgs a;
+  GemmArgs a{};
   a.A = A;
   a.Wt = Wt;
   a.lda = kpad(K);

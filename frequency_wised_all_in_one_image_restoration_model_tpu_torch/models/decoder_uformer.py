@@ -19,6 +19,10 @@ transposed-conv upsample and skip concat -> OutputProj -> global residual
   bottleneck_1 and the up stages, each stage conditioned on the pyramid
   level (and the encoder's K / V) of its scale (JAX :149-189);
 * ``--learnable_modulator`` on the up stages.
+
+Behind the ResNet or ViT encoder the conditioning is a plain tensor, which
+carries none of this wiring (JAX :83-87): no band features, no pyramid, so
+no ``degradation_embed`` layers.
 """
 
 from __future__ import annotations
@@ -63,7 +67,9 @@ class UformerDecoder(nn.Module):
         self.dtype, self.in_chans = dtype, in_chans
         ed, p, eed = cfg.embed_dim, img_size, cfg.encoder_embed_dim
         methods = tuple(cfg.degradation_embedding_method)
-        self.residual = "residual" in methods
+        # the embeddings read the Uformer encoder's pyramid (JAX :146, 170)
+        self.residual = ("residual" in methods
+                         and cfg.encoder_type == "Uformer")
         per_scale = tuple(m for m in methods if m in PER_SCALE)
         all_num, all_dc, lamb_num, lamb_dc = _band_config(cfg)
         self.all_num = all_num
@@ -112,15 +118,19 @@ class UformerDecoder(nn.Module):
                 degradation_dim=eed * 2 ** s))
         self.output_proj = OutputProj(ed * 2, out_chans)
 
-    def forward(self, x: torch.Tensor, ctx: DegradationContext,
-                generator=None) -> torch.Tensor:
-        """``x [B, P, P, 3]`` -> restored ``[B, P, P, 3]`` float32."""
+    def forward(self, x: torch.Tensor, ctx, generator=None) -> torch.Tensor:
+        """``x [B, P, P, 3]`` -> restored ``[B, P, P, 3]`` float32. ``ctx`` is
+        the Uformer encoder's :class:`DegradationContext`, or the spatial map
+        of the ResNet / ViT encoder."""
         dt = self.dtype
-        bands, pyramid, kv = ctx.band_inter, ctx.pyramid, ctx.kv
-        if self.all_num is not None and len(bands) < self.all_num:
+        bands = pyramid = kv = None
+        if isinstance(ctx, DegradationContext):
+            bands, pyramid, kv = ctx.band_inter, ctx.pyramid, ctx.kv
+        got = 0 if bands is None else len(bands)
+        if self.all_num is not None and got < self.all_num:
             raise ValueError(
                 f"'all_*' methods need an encoder emitting >= {self.all_num} "
-                f"bands (got {len(bands)}); use the Uformer encoder with "
+                f"bands (got {got}); use the Uformer encoder with "
                 "L >= num_bands")
         level = lambda t, s: None if t is None else t[s]
 

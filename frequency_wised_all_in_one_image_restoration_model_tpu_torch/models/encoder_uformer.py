@@ -1,11 +1,14 @@
 """Uformer contrastive degradation encoder (the port of the JAX
-``models/encoder_uformer.py``), frequency-wise MSA with L >= 2 bands.
+``models/encoder_uformer.py``).
 
-InputProj -> 4 x (stage + 4x4/s2 downsample) -> bottleneck stage, on the
-input split into L FFT bands folded into the batch ``(l b) h w c``
-(encoder_Uformer.py:934-935, 964-966), then per-band contrastive heads
-(:940-957, 973-984). :meth:`UformerEncoder.features` is what the eval
-forward needs; the heads run only in :meth:`UformerEncoder.forward`.
+InputProj -> 4 x (stage + 4x4/s2 downsample) -> bottleneck stage, then
+per-band contrastive heads (encoder_Uformer.py:940-957, 973-984). With
+``L >= 2`` the input is split into L FFT bands folded into the batch ``(l
+b) h w c`` (:934-935, 964-966); with ``L = 1`` it is the image itself. The
+stages run the frequency-wise MSA (``encoder_msa_type freq``) or the
+origin MSA, whose blocks see the L bands as L times the batch.
+:meth:`UformerEncoder.features` is what the eval forward needs; the heads
+run only in :meth:`UformerEncoder.forward`.
 """
 
 from __future__ import annotations
@@ -15,32 +18,12 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops import frequency
-from .layers import leaky_relu
+from .layers import batch_norm, leaky_relu
 from .uformer_blocks import Downsample, InputProj, _linear
 from .uformer_lewin import BasicUformerLayer
-
-def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """BatchNorm over ``x [B, C, H, W]`` float32 as Flax's ``nn.BatchNorm
-    (momentum=0.9)`` does it: in training the batch's mean and biased
-    variance normalise and also enter the running statistics (torch's own
-    layer puts the unbiased variance there); in eval the running
-    statistics normalise."""
-    if not bn.training:
-        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                            bn.bias, False, 0.0, bn.eps)
-    mean = x.mean(dim=(0, 2, 3))
-    var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
-    with torch.no_grad():
-        bn.running_mean.mul_(0.9).add_(mean, alpha=0.1)
-        bn.running_var.mul_(0.9).add_(var, alpha=0.1)
-        bn.num_batches_tracked += 1
-    shape = (1, -1, 1, 1)
-    y = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + bn.eps)
-    return y * bn.weight.reshape(shape) + bn.bias.reshape(shape)
 
 
 ENCODER_DEPTHS = (2, 2, 2, 2, 2)        # encoder_Uformer.py:748 (first 5 used)
@@ -58,7 +41,11 @@ class DegradationContext:
       methods;
     * ``kv``: per stage the last block's (K, V), regrouped by the
       frequency-wise MSA to ``[B*nW, h, L*n, d]`` (bands major within a
-      window) and passed whole, for ``attention_kv``; else None.
+      window) and passed whole, or band 0's ``[B*nW, h, n, d]`` of the
+      origin MSA, for ``attention_kv``; else None.
+
+    With ``L = 1`` ``band_inter`` is the bottleneck output and ``pyramid``
+    every stage's output.
     """
 
     band_inter: Tuple[torch.Tensor, ...]
@@ -71,11 +58,6 @@ class UformerEncoder(nn.Module):
                  drop_path_rate: float = 0.1, dtype=torch.float32,
                  impl: str = "kernel"):
         super().__init__()
-        if cfg.encoder_msa_type != "freq" or cfg.L < 2:
-            raise NotImplementedError(
-                "the port's Uformer encoder runs the frequency-wise MSA with "
-                "L >= 2 bands; the origin-MSA encoder is not ported yet "
-                "(ROADMAP.md, Queue 1 item 9)")
         self.cfg, self.dtype, self.img_size = cfg, dtype, img_size
         # the decoder's attention_kv reads each stage's last-block K / V
         self.need_kv = "attention_kv" in cfg.degradation_embedding_method
@@ -93,8 +75,8 @@ class UformerEncoder(nn.Module):
             used += depths[i] if i < 4 else 0
             stage = BasicUformerLayer(
                 ed * 2 ** i, p // 2 ** i, depths[i], ENCODER_HEADS[i],
-                win_size=8, drop_path=dpr, msa_type="freq", L=L, impl=impl,
-                need_kv=self.need_kv)
+                win_size=8, drop_path=dpr, msa_type=cfg.encoder_msa_type, L=L,
+                impl=impl, need_kv=self.need_kv)
             self.add_module(f"encoderlayer_{i}" if i < 4 else "bottleneck",
                             stage)
             if i < 4:
@@ -114,8 +96,11 @@ class UformerEncoder(nn.Module):
         (JAX encoder_uformer.py:115-140)."""
         L = self.cfg.L
         b, p = x.shape[0], x.shape[1]
-        bands = frequency.frequency_decompose_1(x.permute(0, 3, 1, 2), L - 1)
-        y = bands.permute(0, 1, 3, 4, 2).reshape(L * b, p, p, -1)
+        y = x
+        if L != 1:
+            bands = frequency.frequency_decompose_1(x.permute(0, 3, 1, 2),
+                                                    L - 1)
+            y = bands.permute(0, 1, 3, 4, 2).reshape(L * b, p, p, -1)
         y = self.input_proj(y, self.dtype)
         feats, kvs = [], []
         for i in range(5):
@@ -125,11 +110,22 @@ class UformerEncoder(nn.Module):
             kvs.append(kv)
             if i < 4:
                 y = getattr(self, f"dowsample_{i}")(y, self.dtype)
+        if L == 1:
+            return DegradationContext(band_inter=(y,), pyramid=tuple(feats),
+                                      kv=tuple(kvs) if self.need_kv else None)
+        band0 = lambda t: t.reshape(L, -1, *t.shape[1:])[0]
+        kv = None
+        if self.need_kv:
+            # the origin MSA folds the bands into the batch of K / V: band 0;
+            # the frequency-wise MSA regroups them into each window's tokens
+            kv = tuple(kvs)
+            if self.cfg.encoder_msa_type == "origin":
+                kv = tuple(None if t is None else tuple(map(band0, t))
+                           for t in kvs)
         bands16 = y.reshape(L, b, *y.shape[1:])
         return DegradationContext(
             band_inter=tuple(bands16[i] for i in range(L)),
-            pyramid=tuple(f.reshape(L, b, *f.shape[1:])[0] for f in feats),
-            kv=tuple(kvs) if self.need_kv else None)
+            pyramid=tuple(band0(f) for f in feats), kv=kv)
 
     def heads(self, ctx: DegradationContext) -> torch.Tensor:
         """Per-band contrastive heads -> ``[L, B, encoder_dim]`` float32

@@ -19,6 +19,26 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """BatchNorm over ``x [B, C, H, W]`` float32 as Flax's ``nn.BatchNorm
+    (momentum=0.9)`` does it: in training the batch's mean and biased
+    variance normalise and also enter the running statistics (torch's own
+    layer puts the unbiased variance there); in eval the running
+    statistics normalise."""
+    if not bn.training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    mean = x.mean(dim=(0, 2, 3))
+    var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+        bn.running_var.mul_(0.9).add_(var, alpha=0.1)
+        bn.num_batches_tracked += 1
+    shape = (1, -1, 1, 1)
+    y = (x - mean.reshape(shape)) * torch.rsqrt(var.reshape(shape) + bn.eps)
+    return y * bn.weight.reshape(shape) + bn.bias.reshape(shape)
+
+
 def to_tokens(x: torch.Tensor) -> torch.Tensor:
     """[B, H, W, C] -> [B, H*W, C]."""
     b, h, w, c = x.shape
@@ -49,6 +69,31 @@ class DropPath(nn.Module):
         keep = 1.0 - self.rate
         draw = torch.rand(batch, generator=generator, device=device)
         return (draw < keep).float() / keep
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax's ``nn.Dropout``: in training every element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, the draw from
+    ``generator``; in eval the identity."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    draw = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(draw < keep, x / keep, torch.zeros_like(x))
+
+
+def torch_default_(module: nn.Module, generator: torch.Generator) -> None:
+    """torch's default reset, which the JAX package's ResNet and DGRN
+    layers copy (``torch_conv_init``, ``torch_bias_init``): every Conv2d and
+    Linear kernel and bias of ``module`` uniform in +-1/sqrt(fan_in)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            bound = (1.0 / (m.weight[0].numel())) ** 0.5
+            with torch.no_grad():
+                m.weight.uniform_(-bound, bound, generator=generator)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=generator)
 
 
 def lecun_normal_(w: torch.Tensor, fan_in: int,

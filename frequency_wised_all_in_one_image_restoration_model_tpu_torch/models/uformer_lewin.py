@@ -12,11 +12,17 @@ plain twins on the CPU:
   (inter) -> K2, with the SW-MSA cyclic roll as ``torch.roll`` around the
   attention half (JAX uformer_lewin.py:163-170, 227-238);
 * merged: the whole block as one K4 / K5 launch on the true-layout image,
-  the roll inside the kernel (JAX uformer_lewin.py:150-161, 214-225).
+  the roll inside the kernel (JAX uformer_lewin.py:150-161, 214-225);
+* split (origin MSA): K12 -> K13, the attention half with its q / k / v
+  blocks and the FFN half as a sum over hidden blocks, each product's
+  reduction cut into fp32 partials (the Pallas split kernels, which JAX
+  takes for fp32 at C = 896 under ``FAIRM_SPLIT_KERNELS``,
+  lewin_block.py:341-372).
 
 The JAX package picks the route per stage from gates measured on the TPU;
-here :data:`DEFAULT_MERGED` and :data:`MERGED_MIN_TOKENS` hold what an H100
-measured (``chip_smoke.py`` phase 3, PERF.md section 6).
+here :data:`DEFAULT_MERGED`, :data:`MERGED_MIN_TOKENS`,
+:data:`DEFAULT_SPLIT` and :data:`SPLIT_MAX_TOKENS` hold what an H100
+measured (``chip_smoke.py`` phases 3 and 13, PERF.md section 6).
 
 With gradients enabled a block goes through the autograd Functions of
 ``ops/kernels/lewin_block.py`` (``BlockAttention``, ``FreqIntra``,
@@ -60,7 +66,7 @@ from .uformer_blocks import (Downsample, FrequencyWindowAttention, LeFF,
                              SelfModulatedLayerNorm, WindowAttention, _linear)
 
 
-IMPLS = ("default", "kernel", "merged", "plain")
+IMPLS = ("default", "kernel", "merged", "split", "plain")
 
 # The blocks ``impl='default'`` runs as one merged kernel: (msa_type, stage
 # resolution, shifted, compute dtype), on a batch of at least
@@ -78,14 +84,29 @@ DEFAULT_MERGED = frozenset(
     ("origin", res, True, torch.bfloat16) for res in (128, 64, 32))
 MERGED_MIN_TOKENS = 32768
 
+# The origin-MSA blocks ``impl='default'`` runs as K12 -> K13: (width C,
+# compute dtype), on a batch of at most SPLIT_MAX_TOKENS tokens (images x
+# res^2). From the per-block A/B of the split kernels against the chain on
+# an H100 at the C = 896 stages (res 8 and 16), B = 4 and 32, fp32 and bf16
+# (``chip_smoke.py`` phase 13; PERF.md section 6, "split against chain"):
+# the split kernels are ahead where the chain's products leave SMs idle, at
+# 256 and 1024 tokens (fp32 0.45 and 0.70 of the chain's time, bf16 0.82 and
+# 0.88); from 2048 tokens up they tie or lose (0.97-1.11).
+DEFAULT_SPLIT = frozenset((896, dt) for dt in (torch.float32, torch.bfloat16))
+SPLIT_MAX_TOKENS = 1024
+
 
 class LeWinBlock(nn.Module):
     """One (S)W-MSA + LeFF block. ``impl='kernel'`` launches the chain of
     kernels on a CUDA tensor, with each module's cached kernel operands,
-    ``'merged'`` the one merged kernel, ``'default'`` what
-    :data:`DEFAULT_MERGED` names for the block and the batch; all three run
-    the plain twins on a CPU tensor, as the kernel entry points do.
-    ``'plain'`` runs the plain twins everywhere, for comparisons."""
+    ``'merged'`` the one merged kernel, ``'split'`` K12 -> K13 (origin
+    MSA), ``'default'`` what :data:`DEFAULT_MERGED` and
+    :data:`DEFAULT_SPLIT` (with their token limits) name for the block and
+    the batch; all four run the plain twins on a CPU tensor, as the kernel
+    entry points do.
+    ``'plain'`` runs the plain twins everywhere, for comparisons. With
+    gradients enabled a split block runs the chain's autograd Functions:
+    the split kernels have no backward of their own, as in JAX."""
 
     def __init__(self, dim: int, input_resolution: int, num_heads: int,
                  win_size: int = 8, shift_size: int = 0,
@@ -100,7 +121,7 @@ class LeWinBlock(nn.Module):
                  lamb_bands_dc: bool = False):
         super().__init__()
         res = input_resolution
-        self.res = res
+        self.res, self.dim = res, dim
         self.win = min(win_size, res)
         self.shift = shift_size if res > win_size else 0
         self.msa_type, self.L = msa_type, L
@@ -174,14 +195,22 @@ class LeWinBlock(nn.Module):
                 lecun_normal_(w, w.shape[1], generator)
 
     def route(self, dtype: torch.dtype, batch: int) -> str:
-        """'kernel', 'merged' or 'plain': what a CUDA tensor of ``batch``
-        images in ``dtype`` runs through."""
+        """'kernel', 'merged', 'split' or 'plain': what a CUDA tensor of
+        ``batch`` images in ``dtype`` runs through. The split kernels take
+        origin-MSA blocks only: a frequency-MSA block takes the chain."""
+        split = self.msa_type == "origin"
+        if self.impl == "split":
+            return "split" if split else "kernel"
         if self.impl != "default":
             return self.impl
         key = (self.msa_type, self.res, self.shift > 0, dtype)
-        merged = (key in DEFAULT_MERGED
-                  and batch * self.res * self.res >= MERGED_MIN_TOKENS)
-        return "merged" if merged else "kernel"
+        if (key in DEFAULT_MERGED
+                and batch * self.res * self.res >= MERGED_MIN_TOKENS):
+            return "merged"
+        if (split and (self.dim, dtype) in DEFAULT_SPLIT
+                and batch * self.res * self.res <= SPLIT_MAX_TOKENS):
+            return "split"
+        return "kernel"
 
     def forward(self, x: torch.Tensor, all_inter=None,
                 generator: Optional[torch.Generator] = None, inter=None,
@@ -246,7 +275,15 @@ class LeWinBlock(nn.Module):
             lam = None
             if self.attn.all_bands_dc:
                 lam = self.attn.lam(all_inter, dt)
-            if on_card:
+            if on_card and route == "split":
+                y = lb.attention_split_kernel(
+                    img, *n1, self.attn.kernel_operands(dt), mask, lam, win,
+                    1e-6, dps1)
+            elif route == "split":
+                y = lb.block_attention_split(img, *n1,
+                                             *self.attn.kernel_weights(),
+                                             mask, lam, win, 1e-6, dps1)
+            elif on_card:
                 y = lb.attention_kernel(img, *n1, self.attn.kernel_operands(dt),
                                         mask, lam, win, 1e-6, True, 1, dps1)
             else:
@@ -254,7 +291,13 @@ class LeWinBlock(nn.Module):
                                              mask, lam, win, 1e-6, dps1)
         if shift > 0:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
-        if on_card:
+        if on_card and route == "split":
+            y = lb.ffn_split_kernel(y, *n2, self.mlp.kernel_operands(dt), 1e-6,
+                                    dps2)
+        elif route == "split":
+            y = lb.block_ffn_split(y, *n2, *self.mlp.kernel_weights(), 1e-6,
+                                   dps2)
+        elif on_card:
             y = lb.ffn_kernel(y, *n2, self.mlp.kernel_operands(dt), 1e-6, dps2)
         else:
             y = lb.block_ffn_plain(y, *n2, *self.mlp.kernel_weights(), 1e-6,

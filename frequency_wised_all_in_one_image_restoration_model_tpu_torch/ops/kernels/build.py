@@ -46,6 +46,12 @@ SIGNATURES = {
     # x, lns, lnb, w1t, b1, wd, bd, w2t, b2, dps, xn, hid1, hid2, out,
     # B, H, W, C, Hd, bf16, eps, stream
     "fairm_lewin_ffn": [_P] * 14 + [_I] * 6 + [_F, _P],
+    # x, lns, lnb, wqkv, bqkv, wp, bp, bias, mask, lam, dps, xo, qkv, parts,
+    # out, B, H, W, C, h, win, res, kb, bf16, eps, stream
+    "fairm_lewin_attn_split": [_P] * 15 + [_I] * 9 + [_F, _P],
+    # x, lns, lnb, w1t, b1, wd, bd, w2t, b2, dps, xn, hid1, hid2, parts, out,
+    # B, H, W, C, Hd, kb, bf16, eps, stream
+    "fairm_lewin_ffn_split": [_P] * 15 + [_I] * 7 + [_F, _P],
     # x, ln1s, ln1b, wqkv, bqkv, wp, bp, bias, mask, lam, dps1, ln2s, ln2b,
     # w1t, b1, wd, bd, w2t, b2, dps2, scratch, out, stamps, scratch_elems,
     # B, H, W, C, h, win, shift, Hd, bf16, eps, stream

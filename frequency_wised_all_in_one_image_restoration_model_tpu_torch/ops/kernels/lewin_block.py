@@ -19,7 +19,14 @@ Six entry points, signatures as their Pallas counterparts (images
   (K4, ``csrc/lewin_merged.cu``; ``fused_block_merged``);
 * :func:`block_freq_merged` — one whole frequency-MSA block, intra ->
   inter -> FFN, likewise (K5, ``csrc/freq_merged.cu``;
-  ``fused_block_freq_merged``).
+  ``fused_block_freq_merged``);
+* :func:`block_attention_split` — :func:`block_attention` with the q / k /
+  v projections as three [C, C] blocks and the projection's reduction cut
+  into fp32 partials (K12, ``csrc/lewin_attn_split.cu``; Pallas
+  ``_attn_kernel_split``);
+* :func:`block_ffn_split` — :func:`block_ffn` as a sum over hidden blocks,
+  linear2's partials in fp32 (K13, ``csrc/lewin_ffn_split.cu``; Pallas
+  ``_ffn_kernel_split``).
 
 Each has a ``*_plain`` twin in plain PyTorch that mirrors the JAX package's
 XLA composite (``_xla_block_attention`` and friends) with a per-row-max
@@ -46,7 +53,8 @@ import torch
 import torch.nn.functional as F
 
 LAUNCHES = {"lewin_attn": 0, "lewin_ffn": 0, "freq_inter": 0,
-            "lewin_merged": 0, "freq_merged": 0}
+            "lewin_merged": 0, "freq_merged": 0, "lewin_attn_split": 0,
+            "lewin_ffn_split": 0}
 
 
 def reset_launches() -> None:
@@ -103,16 +111,39 @@ def _softmax_av(q, k, v, bias, mask, groups, nW, dtype):
     return torch.matmul(p.to(dtype), v).float()       # [M, h, n, d]
 
 
-def _project(out, wp3, bp, dtype):
-    """[M, h, n, d] fp32 -> [M, n, C] fp32 output projection."""
+def split_cols(k: int, kb: int):
+    """The ``kb`` ranges of a reduction of width ``k`` as the split kernels
+    (K12, K13) cut it: ``kpad(k) / kb`` columns each, a whole number of
+    32-wide k-tiles, the last range clipped to ``k``."""
+    if kb < 1 or (kpad(k) // 32) % kb:
+        raise ValueError(f"{kb} parts do not divide the {kpad(k) // 32} "
+                         f"k-tiles of a width-{k} reduction")
+    step = kpad(k) // kb
+    return [slice(z * step, min((z + 1) * step, k)) for z in range(kb)]
+
+
+def _split_product(a, w, kb: int):
+    """``a @ w`` as ``kb`` partial products over :func:`split_cols` of the
+    reduction, each in fp32, added in order (the split kernels' partials)."""
+    acc = None
+    for s in split_cols(w.shape[0], kb):
+        part = torch.matmul(a[..., s], w[s]).float()
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def _project(out, wp3, bp, dtype, kb: int = 1):
+    """[M, h, n, d] fp32 -> [M, n, C] fp32 output projection, its reduction
+    in ``kb`` fp32 partials."""
     M, h, n, d = out.shape
     C = wp3.shape[-1]
     o = out.to(dtype).permute(0, 2, 1, 3).reshape(M, n, h * d)
-    return torch.matmul(o, wp3.reshape(h * d, C).to(dtype)).float() + bp.float()
+    return _split_product(o, wp3.reshape(h * d, C).to(dtype), kb) + bp.float()
 
 
 def _attention_plain(x_img, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp,
-                     bias, mask, lam, win, eps, res, bias_groups, dps):
+                     bias, mask, lam, win, eps, res, bias_groups, dps,
+                     kb: int = 1):
     B, H, W, C = x_img.shape
     h = wq3.shape[0]
     n = win * win
@@ -129,7 +160,7 @@ def _attention_plain(x_img, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp,
         lam_w = lam.float().repeat_interleave(nW, dim=0)[:, :, None, None]
         vs = v.float().sum(dim=2, keepdim=True)
         out = (1.0 + lam_w) * out - (lam_w / n) * vs
-    y = _unwindows(_project(out, wp3, bp, dtype), B, H, W, win)
+    y = _unwindows(_project(out, wp3, bp, dtype, kb), B, H, W, win)
     if dps is not None:
         y = y * dps.float()[:, None, None, None]
     return (xf + y).to(dtype) if res else y.to(dtype)
@@ -192,6 +223,45 @@ def block_ffn_plain(x_img, lns, lnb, w1, b1, wd, bd, w2, b2,
                    wd.float().permute(2, 0, 1)[:, None], padding=1, groups=Hd)
     hdn = _gelu(hdn.permute(0, 2, 3, 1) + bd.float())
     y = torch.matmul(hdn.to(dtype), w2.to(dtype)).float() + b2.float()
+    if dps is not None:
+        y = y * dps.float()[:, None, None, None]
+    return (xf + y).to(dtype)
+
+
+def lewin_attn_split_plain(x_img, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3, wp3,
+                           bp, bias, mask, lam, win: int = 8,
+                           eps: float = 1e-6, dps=None, kb: int = 1):
+    """Plain twin of :func:`block_attention_split` (JAX
+    ``_attn_kernel_split``): q, k and v each projected by its own [C, C]
+    block and rounded to the compute dtype before the core (``part.astype
+    (dtype)``, lewin_block.py:244-252), the projection's reduction in ``kb``
+    fp32 partials."""
+    return _attention_plain(x_img, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3,
+                            wp3, bp, bias, mask, lam, win, eps, True, 1, dps,
+                            kb)
+
+
+def lewin_ffn_split_plain(x_img, lns, lnb, w1, b1, wd, bd, w2, b2,
+                          eps: float = 1e-6, dps=None, kb: int = 1):
+    """Plain twin of :func:`block_ffn_split` (JAX ``_ffn_kernel_split``):
+    each of the ``kb`` hidden blocks (:func:`split_cols`) through linear1,
+    GELU, the depthwise conv and GELU into its fp32 partial product with its
+    rows of ``w2``; the partials added in order in fp32, then b2, dps and
+    the residual (lewin_block.py:928-940)."""
+    dtype = x_img.dtype
+    xf, xn = _layer_norm(x_img, lns, lnb, eps)
+    xn = xn.to(dtype)
+    acc = None
+    for s in split_cols(w1.shape[1], kb):
+        hdn = _gelu(torch.matmul(xn, w1[:, s].to(dtype)).float()
+                    + b1[s].float())
+        hdn = F.conv2d(hdn.permute(0, 3, 1, 2),
+                       wd[..., s].float().permute(2, 0, 1)[:, None], padding=1,
+                       groups=hdn.shape[-1])
+        hdn = _gelu(hdn.permute(0, 2, 3, 1) + bd[s].float())
+        part = torch.matmul(hdn.to(dtype), w2[s].to(dtype)).float()
+        acc = part if acc is None else acc + part
+    y = acc + b2.float()
     if dps is not None:
         y = y * dps.float()[:, None, None, None]
     return (xf + y).to(dtype)
@@ -459,6 +529,92 @@ def ffn_kernel(x_img, lns, lnb, op: FfnOperands, eps: float, dps):
     return out
 
 
+# the H100's SMs: the split kernels cut a reduction until its product puts
+# at least one CTA on each
+SMS = 132
+
+
+def split_parts(rows: int, cols: int, k: int, dtype) -> int:
+    """How many parts K12 / K13 cut a product's reduction into: the fewest
+    of 1, 2, 4, 8 that gives the ``rows x cols`` output at least one CTA per
+    SM (tiles of 128 x 64 in fp32, 128 x 128 in bf16 past 64 columns), as
+    long as the part divides the k-tiles and keeps at least 4 of them."""
+    bn = 64 if dtype == torch.float32 or cols <= 64 else 128
+    ctas = -(-rows // 128) * -(-cols // bn)
+    kt = kpad(k) // 32
+    kb = 1
+    while ctas * kb < SMS and kb < 8 and kt % (2 * kb) == 0 \
+            and kt // (2 * kb) >= 4:
+        kb *= 2
+    return kb
+
+
+def attention_split_kernel(x_img, lns, lnb, op: AttnOperands, mask, lam,
+                           win: int, eps: float, dps, kb: Optional[int] = None):
+    """Launch K12 (:func:`block_attention_split`) on ``x_img [B, H, W, C]``
+    (CUDA) with K1's operands; ``kb`` parts of the projection's reduction,
+    by default :func:`split_parts`."""
+    from .build import load
+
+    B, H, W, C = x_img.shape
+    h = op.heads
+    n = win * win
+    nW = (H // win) * (W // win)
+    _check(x_img, lns, mask, lam, dps)
+    if H % win or W % win or C % h:
+        raise ValueError(f"unsupported shape {tuple(x_img.shape)}, h={h}, "
+                         f"win={win}")
+    _check_attn_operands(op, x_img, (h, n, n))
+    M = B * H * W
+    kb = split_parts(M, C, C, x_img.dtype) if kb is None else kb
+    split_cols(C, kb)
+    mask = _f32(mask, (nW, n, n))
+    lam = _f32(lam, (B, h))
+    dps = _f32(dps, (B,))
+    lns, lnb = _f32(lns, (C,)), _f32(lnb, (C,))
+    dt = x_img.dtype
+    xo = torch.empty((M, kpad(C)), dtype=dt, device=x_img.device)
+    qkv = torch.empty((M, 3 * C), dtype=dt, device=x_img.device)
+    parts = torch.empty((kb, M, C), dtype=torch.float32, device=x_img.device)
+    out = torch.empty_like(x_img)
+    _run(load().fairm_lewin_attn_split, _ptr(x_img), _ptr(lns), _ptr(lnb),
+         _ptr(op.wqkv), _ptr(op.bqkv), _ptr(op.wp), _ptr(op.bp),
+         _ptr(op.bias), _ptr(mask), _ptr(lam), _ptr(dps), _ptr(xo), _ptr(qkv),
+         _ptr(parts), _ptr(out), B, H, W, C, h, win, 1, kb, _DTYPES[dt],
+         float(eps), _stream(x_img))
+    LAUNCHES["lewin_attn_split"] += 1
+    return out
+
+
+def ffn_split_kernel(x_img, lns, lnb, op: FfnOperands, eps: float, dps,
+                     kb: Optional[int] = None):
+    """Launch K13 (:func:`block_ffn_split`) on a CUDA tensor with K2's
+    operands; ``kb`` hidden blocks, by default :func:`split_parts`."""
+    from .build import load
+
+    B, H, W, C = x_img.shape
+    _check(x_img, lns, dps)
+    Hd = _check_ffn_operands(op, x_img)
+    M = B * H * W
+    kb = split_parts(M, C, Hd, x_img.dtype) if kb is None else kb
+    split_cols(Hd, kb)
+    lns, lnb = _f32(lns, (C,)), _f32(lnb, (C,))
+    dps = _f32(dps, (B,))
+    dt = x_img.dtype
+    xn = torch.empty((M, kpad(C)), dtype=dt, device=x_img.device)
+    hid1 = torch.empty((M, Hd), dtype=dt, device=x_img.device)
+    hid2 = torch.empty((M, kpad(Hd)), dtype=dt, device=x_img.device)
+    parts = torch.empty((kb, M, C), dtype=torch.float32, device=x_img.device)
+    out = torch.empty_like(x_img)
+    _run(load().fairm_lewin_ffn_split, _ptr(x_img), _ptr(lns), _ptr(lnb),
+         _ptr(op.w1), _ptr(op.b1), _ptr(op.wd), _ptr(op.bd), _ptr(op.w2),
+         _ptr(op.b2), _ptr(dps), _ptr(xn), _ptr(hid1), _ptr(hid2),
+         _ptr(parts), _ptr(out), B, H, W, C, Hd, kb, _DTYPES[dt], float(eps),
+         _stream(x_img))
+    LAUNCHES["lewin_ffn_split"] += 1
+    return out
+
+
 def _merged_scratch(x_img, Hd: int, freq: bool) -> torch.Tensor:
     """The merged kernels' working buffer (csrc/merged.cuh): per pixel the
     LN'd / attention rows, qkv, (the intra output,) u and both hidden rows."""
@@ -649,6 +805,42 @@ def block_ffn(x_img, lns, lnb, w1, b1, wd, bd, w2, b2, eps: float = 1e-6,
                                dps)
     op = _kernel_operands(x_img, ffn_operands, w1, b1, wd, bd, w2, b2)
     return ffn_kernel(x_img, lns, lnb, op, eps, dps)
+
+
+def block_attention_split(x_img, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3, wp3,
+                          bp, bias, mask, lam, win: int = 8,
+                          eps: float = 1e-6, dps=None,
+                          kb: Optional[int] = None):
+    """:func:`block_attention` with the q / k / v projections as three
+    [C, C] blocks and the projection's reduction in ``kb`` fp32 partials
+    (:func:`split_parts` by default): the plain twin on a CPU tensor, K12
+    on a CUDA tensor."""
+    if kb is None:
+        B, H, W, C = x_img.shape
+        kb = split_parts(B * H * W, C, C, x_img.dtype)
+    if x_img.device.type == "cpu":
+        return lewin_attn_split_plain(x_img, lns, lnb, wq3, bq3, wk3, bk3,
+                                      wv3, bv3, wp3, bp, bias, mask, lam, win,
+                                      eps, dps, kb)
+    op = _kernel_operands(x_img, attn_operands, wq3, bq3, wk3, bk3, wv3, bv3,
+                          wp3, bp, bias)
+    return attention_split_kernel(x_img, lns, lnb, op, mask, lam, win, eps,
+                                  dps, kb)
+
+
+def block_ffn_split(x_img, lns, lnb, w1, b1, wd, bd, w2, b2,
+                    eps: float = 1e-6, dps=None, kb: Optional[int] = None):
+    """:func:`block_ffn` as a sum over ``kb`` hidden blocks
+    (:func:`split_parts` by default), linear2's partials in fp32: the
+    plain twin on a CPU tensor, K13 on a CUDA tensor."""
+    if kb is None:
+        B, H, W, C = x_img.shape
+        kb = split_parts(B * H * W, C, w1.shape[1], x_img.dtype)
+    if x_img.device.type == "cpu":
+        return lewin_ffn_split_plain(x_img, lns, lnb, w1, b1, wd, bd, w2, b2,
+                                     eps, dps, kb)
+    op = _kernel_operands(x_img, ffn_operands, w1, b1, wd, bd, w2, b2)
+    return ffn_split_kernel(x_img, lns, lnb, op, eps, dps, kb)
 
 
 def block_merged(x_img, ln1s, ln1b, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp,

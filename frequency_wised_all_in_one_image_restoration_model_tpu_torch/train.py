@@ -15,8 +15,9 @@ epoch, every ``--ckpt_every`` epochs) and ``ckpt/best.pt``, each with the
 whole train state. ``--remat`` is accepted and changes nothing: the block
 kernels' backward recomputes by construction.
 
-The CLI default ``--degradation_embedding_method residual`` is not ported
-yet: the flagship needs ``--degradation_embedding_method all_DC``.
+Every model family of the flags trains: ``--encoder_type ResNet
+--decoder_type ResNet`` and ``--encoder_type ViT --decoder_type ResNet``
+as well as the Uformer pair with any ``--degradation_embedding_method``.
 """
 
 from __future__ import annotations

@@ -15,11 +15,13 @@ changes layouts:
                                          (and ``num_batches_tracked`` 0)
   anything else (bias tables, biases) -> same name, same layout
 
-The raw parameters of the decoder's injection methods are of that last
-kind and keep JAX's layout: the ``deform_conv`` DCN's ``weight`` stays HWIO
+The raw parameters are of that last kind and keep JAX's layout: every DCN
+``weight`` (the ``deform_conv`` LeFF's and DGRN's ``DCNLayer``) stays HWIO
 ``[k, k, Cin, Cout]`` as JAX declares it (``DCNLayerLeFF`` reads it so),
-the learnable ``modulator`` ``[win^2, C]`` and the per-band ``lamb``
-``[N-1, 1, h]``.
+the learnable ``modulator`` ``[win^2, C]``, the per-band ``lamb`` of the
+Uformer decoder ``[N-1, 1, h]`` and of the ViT ``[N, 1 or batch, h]``, the
+ViT ``pos_embedding [1, n, dim]``. The ResNet encoder's BatchNorm
+statistics come over as every ``batch_stats`` does.
 
 Reference ``.pth`` checkpoints reach the port through the JAX package:
 ``utils/torch_weights.py`` -> JAX variables -> :func:`from_jax`.

@@ -118,6 +118,20 @@ def test_eval_forward_matches(slice_run):
                                rtol=TOL_MODEL, atol=TOL_MODEL)
 
 
+def test_split_route_matches_jax(slice_run):
+    """``impl='split'``: every decoder block through the split kernels'
+    plain versions (K12 / K13's functions) gives JAX's forward too."""
+    tb = tairnet.build_models(tconfig.from_fields(slice_run["cfg"]), "cpu",
+                              impl="split")
+    tb.encoder.load_state_dict(from_jax(slice_run["enc_vars"]), strict=True)
+    tb.decoder.load_state_dict(from_jax(slice_run["dec_vars"]), strict=True)
+    blocks = [m for m in tb.decoder.modules() if hasattr(m, "route")]
+    assert blocks and {m.route(torch.float32, 8) for m in blocks} == {"split"}
+    got = tairnet.eval_forward(tb, torch.from_numpy(slice_run["tiles"]))
+    np.testing.assert_allclose(got.numpy(), slice_run["y"],
+                               rtol=TOL_MODEL, atol=TOL_MODEL)
+
+
 def test_stitch_tiles_matches(slice_run):
     got = ttiling.stitch_tiles(torch.from_numpy(slice_run["y"]),
                                slice_run["offsets"], slice_run["n"], *IMG_HW)
@@ -141,10 +155,8 @@ def test_tile_layout_matches():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("encoder_type", "ResNet"),
-    ("decoder_type", "ResNet"),
-    ("L", 1),
-    ("encoder_msa_type", "origin"),
+    ("mesh_data", 2),
+    ("mesh_task", 4),
 ])
 def test_unported_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,0 +1,160 @@
+"""The split block kernels K12 / K13 against their plain PyTorch versions,
+and the tiny model families by the default and the plain route, on the
+card.
+
+Every test here is marked ``cuda`` and skips where there is no NVIDIA GPU.
+The file imports neither JAX nor the JAX package:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_backbones.py
+
+``chip_smoke.py`` checks the flagship shapes (phases 13 and 14).
+"""
+
+import pytest
+import torch
+
+from frequency_wised_all_in_one_image_restoration_model_tpu_torch import config
+from frequency_wised_all_in_one_image_restoration_model_tpu_torch.models import (
+    airnet)
+from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops import (
+    deform_conv as dc, windows)
+from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops.kernels import (
+    lewin_block as lb)
+
+# max|kernel - plain| / max(1, max|plain|)
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+P = 32
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rnd(gen, *shape, scale=1.0):
+    return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+
+def _check(got, want, tol):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item() / max(1.0, want.abs().max().item())
+    assert err <= tol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C,h,res,shift,kb", [
+    (64, 2, 16, 4, 2), (96, 3, 8, 0, 1), (128, 4, 16, 0, 4)])
+def test_attn_split_kernel_matches_plain(card, dtype, C, h, res, shift, kb):
+    """K12 with the mask, lam and DropPath, ``kb`` parts of the projection
+    (C = 96: three k-tiles, not a multiple of the tile widths); a second
+    launch gives equal bits."""
+    B, d, n = 3, C // h, 64
+    x = _rnd(card, B, res, res, C).to(dtype)
+    w = [1 + _rnd(card, C, scale=0.1), _rnd(card, C, scale=0.1)]
+    for _ in range(3):
+        w += [_rnd(card, h, C, d, scale=C ** -0.5), _rnd(card, h, d, scale=0.1)]
+    w += [_rnd(card, h, d, C, scale=C ** -0.5), _rnd(card, C, scale=0.1),
+          _rnd(card, h, n, n, scale=0.05)]
+    mask = (torch.from_numpy(windows.shift_attn_mask(res, res, 8, shift))
+            .cuda() if shift else None)
+    lam = _rnd(card, B, h, scale=0.3)
+    dps = torch.tensor([2.0, 0.0, 1.0], device="cuda")
+    lb.reset_launches()
+    got = lb.block_attention_split(x, *w, mask, lam, 8, 1e-6, dps, kb)
+    again = lb.block_attention_split(x, *w, mask, lam, 8, 1e-6, dps, kb)
+    assert lb.LAUNCHES["lewin_attn_split"] == 2
+    assert torch.equal(got, again)
+    _check(got, lb.lewin_attn_split_plain(x, *w, mask, lam, 8, 1e-6, dps, kb),
+           TOL[dtype])
+    _check(got, lb.block_attention_plain(x, *w, mask, lam, 8, 1e-6, dps),
+           TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C,Hd,res,kb", [(8, 512, 16, 4), (64, 256, 8, 2),
+                                         (24, 96, 16, 1)])
+def test_ffn_split_kernel_matches_plain(card, dtype, C, Hd, res, kb):
+    """K13 with DropPath over ``kb`` hidden blocks (Hd = 96: a padded
+    reduction); a second launch gives equal bits."""
+    B = 2
+    x = _rnd(card, B, res, res, C).to(dtype)
+    w = [1 + _rnd(card, C, scale=0.1), _rnd(card, C, scale=0.1),
+         _rnd(card, C, Hd, scale=C ** -0.5), _rnd(card, Hd, scale=0.1),
+         _rnd(card, 3, 3, Hd, scale=1 / 3), _rnd(card, Hd, scale=0.1),
+         _rnd(card, Hd, C, scale=Hd ** -0.5), _rnd(card, C, scale=0.1)]
+    dps = torch.tensor([0.0, 1.25], device="cuda")
+    lb.reset_launches()
+    got = lb.block_ffn_split(x, *w, 1e-6, dps, kb)
+    assert torch.equal(got, lb.block_ffn_split(x, *w, 1e-6, dps, kb))
+    assert lb.LAUNCHES["lewin_ffn_split"] == 2
+    _check(got, lb.lewin_ffn_split_plain(x, *w, 1e-6, dps, kb), TOL[dtype])
+    _check(got, lb.block_ffn_plain(x, *w, 1e-6, dps), TOL[dtype])
+
+
+def _liven(bundle, seed=3):
+    """Random DCN offset heads and lamb, so that they matter."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for net in (bundle.encoder, bundle.decoder):
+            for name, p in net.named_parameters():
+                if "conv_offset_mask" in name and name.endswith("bias"):
+                    p.copy_((torch.rand(p.shape, generator=gen) * 7 - 3.5))
+                elif "conv_offset_mask" in name:
+                    p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+                elif name.endswith(".lamb"):
+                    p.copy_(0.5 * torch.randn(p.shape, generator=gen))
+
+
+FAMILIES = {
+    "resnet_dgrn": dict(encoder_type="ResNet", decoder_type="ResNet",
+                        encoder_dim=32),
+    "vit_freq": dict(encoder_type="ViT", decoder_type="ResNet",
+                     frequency_decompose_type="DC"),
+    "resnet_uformer": dict(encoder_type="ResNet", decoder_type="Uformer",
+                           encoder_dim=32),
+    "origin_l1_uformer": dict(encoder_msa_type="origin", L=1),
+    "flagship_split": dict(degradation_embedding_method=["all_DC"]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_tiny_family_default_route_against_plain(card, name):
+    """Eval forward fp32 of a tiny model (P=32, widths 8, one DGRN group of
+    two blocks) by the default (the flagship: the split) route against the
+    plain route; DGRN launches K11 once per DGM."""
+    cfg = config.make_config(**{
+        **dict(patch_size=P, crop_test_imgs_size=P, encoder_embed_dim=8,
+               embed_dim=8, uformer_depth_cap=2, dgrn_groups=1,
+               dgrn_blocks=2, de_type=["2tasks"], seed=1),
+        **FAMILIES[name]})
+    x = torch.rand(2, P, P, 3, generator=card, device="cuda")
+    outs = {}
+    for impl in ("split" if name == "flagship_split" else "default", "plain"):
+        bundle = airnet.build_models(cfg, "cuda", impl)
+        _liven(bundle)
+        lb.reset_launches()
+        dc.reset_launches()
+        outs[impl] = airnet.eval_forward(bundle, x)
+        torch.cuda.synchronize()
+        if impl == "plain":
+            assert not any(lb.LAUNCHES.values()) and not dc.LAUNCHES["dcn"]
+        elif cfg.decoder_type == "ResNet":
+            assert dc.LAUNCHES["dcn"] == 4
+        elif impl == "split":
+            assert lb.LAUNCHES["lewin_attn_split"] > 0
+            assert lb.LAUNCHES["lewin_ffn_split"] > 0
+        else:
+            assert lb.LAUNCHES["lewin_attn"] > 0
+    plain = outs.pop("plain")
+    (routed,) = outs.values()
+    _check(routed, plain, 1e-3)

@@ -295,9 +295,6 @@ def test_parser_rejects_what_jax_rejects():
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (dict(encoder_type="ResNet", decoder_type="ResNet"), "item 9"),
-    (dict(decoder_type="ResNet"), "item 9"),
-    (dict(encoder_msa_type="origin"), "item 9"),
     (dict(mesh_data=2), "item 10"),
     (dict(mesh_task=4), "item 10"),
 ])

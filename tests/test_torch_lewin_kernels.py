@@ -198,8 +198,15 @@ def test_cpu_tensors_take_the_plain_twin(rng):
     fargs = list(map(_t, _ffn_np(rng)))
     torch.testing.assert_close(tlb.block_ffn(*fargs),
                                tlb.block_ffn_plain(*fargs), rtol=0, atol=0)
+    torch.testing.assert_close(
+        tlb.block_attention_split(*args, mask, lam),
+        tlb.lewin_attn_split_plain(*args, mask, lam), rtol=0, atol=0)
+    torch.testing.assert_close(tlb.block_ffn_split(*fargs),
+                               tlb.lewin_ffn_split_plain(*fargs), rtol=0,
+                               atol=0)
     assert set(tlb.LAUNCHES) == {"lewin_attn", "lewin_ffn", "freq_inter",
                                  "lewin_merged", "freq_merged",
+                                 "lewin_attn_split", "lewin_ffn_split",
                                  "lewin_attn_bwd", "lewin_ffn_bwd",
                                  "freq_inter_bwd"}
     assert not any(tlb.LAUNCHES.values())
@@ -255,7 +262,8 @@ def test_build_targets_hopper_and_tracks_sources(tmp_path, monkeypatch):
     assert {p.name for p in build.sources()} == {
         "lewin_attn.cu", "lewin_ffn.cu", "freq_inter.cu", "lewin_merged.cu",
         "freq_merged.cu", "lewin_attn_bwd.cu", "lewin_ffn_bwd.cu",
-        "freq_inter_bwd.cu", "window_attn.cu", "window_attn_bwd.cu", "dcn.cu"}
+        "freq_inter_bwd.cu", "window_attn.cu", "window_attn_bwd.cu", "dcn.cu",
+        "lewin_attn_split.cu", "lewin_ffn_split.cu"}
     # the library directory is named by a hash of every csrc file
     for p in build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
