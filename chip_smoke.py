@@ -8,10 +8,10 @@ Phases, each fatal on failure:
 
 1. the card: needs ``torch.cuda.is_available()``; prints the card's name
    and power limit;
-2. build: compiles the thirteen kernels (the ten LeWin-block kernels, seven
+2. build: compiles the fourteen kernels (the ten LeWin-block kernels, seven
    forward and three backward, the window attention forward and backward,
-   the DCN) from ``csrc/`` into ``build/kernels/``, one ``nvcc`` per
-   source, all started together;
+   the DCN and its backward) from ``csrc/`` into ``build/kernels/``, one
+   ``nvcc`` per source, all started together;
 3. per-kernel check: every kernel's wrapper against its plain PyTorch twin
    on the card at the flagship shapes, in bf16 and fp32 (TF32 off), the
    merged kernels K4 / K5 also against the chain of kernels they equal;
@@ -40,8 +40,11 @@ Phases, each fatal on failure:
    against their plain twins at flagship stage shapes and the training
    batch, in bf16 and fp32, every output compared (``dx`` and each weight
    gradient), two launches of a case giving equal bits, with times and
-   bounds; then each autograd Function's gradients against
-   ``torch.autograd.grad`` of the forward twin;
+   bounds (bf16 also at B=32); then each autograd Function's gradients
+   against ``torch.autograd.grad`` of the forward twin; then K7's table:
+   bf16 / fp32 x B = 4 / 32 x res 128 (C = 56) / res 16 (C = 896), against
+   its twin, beside a yardstick of ``torch.matmul`` over its five
+   products' shapes;
 9. training, the main path of the training slice: the entry point
    ``<port>.train.main`` on the synthetic loader at full width, B=4,
    bfloat16 (two phase-A steps, two joint steps, the end-of-epoch eval, the
@@ -93,9 +96,19 @@ Phases, each fatal on failure:
     drawn at random; the eval forward of those two, of ResNet + Uformer and
     of the origin-MSA L = 1 Uformer encoder + Uformer decoder by the default
     and the plain route (K11 launches of DGRN, 50 per forward, held); the
-    joint step of the DGRN families by both routes, and its time.
+    joint step of the DGRN families by both routes (1 x 2 DGRN blocks), and
+    its time at full depth by the default route; first, K14 (the DCN's
+    backward) against ``dcn_bwd_plain`` at DGRN's and the deform LeFF's
+    shapes, bf16 and fp32, every output, equal bits on a second launch,
+    with times and bounds;
+15. reproducible steps: three joint steps of the flagship, of the per-scale
+    set (a ``deform_conv`` user) and of ``resnet_dgrn`` (bf16, B=4, full
+    width and depth, the default route) twice from one saved state on a
+    fresh generator of the same seed; every loss and every tensor of the
+    train state after them (parameters, buffers, key encoder, queue, Adam's
+    moments) equal bit for bit.
 
-``--phases 3 4`` runs only those of phases 3-14, for work on one of them:
+``--phases 3 4`` runs only those of phases 3-15, for work on one of them:
 such a partial run prints neither of the two result lines and exits with
 2. The whole run fails too if anything of JAX or of the JAX package was
 imported. Its line before the last is ``{"kernels": [...]}``, where
@@ -113,6 +126,7 @@ with 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import functools
 import json
@@ -153,8 +167,12 @@ KERNELS.update({  # the split block kernels (q / k / v blocks, hidden blocks)
     "lewin_attn_split": (f"{PKG}/csrc/lewin_attn_split.cu", f"{PALLAS}:214"),
     "lewin_ffn_split": (f"{PKG}/csrc/lewin_ffn_split.cu", f"{PALLAS}:882"),
 })
+# K14, the DCN's backward: the JAX package has no Pallas DCN backward (its
+# backward is jax.vjp of the gather composite); it replaces the backward of
+# the kernel K11 ports
+KERNELS["dcn_bwd"] = (f"{PKG}/csrc/dcn_bwd.cu", f"{PALLAS_DCN}:62")
 BWD_KERNELS = ("lewin_attn_bwd", "lewin_ffn_bwd", "freq_inter_bwd")
-INJECTION_KERNELS = ("window_attn", "window_attn_bwd", "dcn")
+INJECTION_KERNELS = ("window_attn", "window_attn_bwd", "dcn", "dcn_bwd")
 SPLIT_KERNELS = ("lewin_attn_split", "lewin_ffn_split")
 # per-kernel tolerance on max|kernel - plain| / max(1, max|plain|): fp32
 # differs only in summation order; bf16 rounds q/k/v, the hidden and the
@@ -251,7 +269,7 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
-ALL_PHASES = frozenset(range(3, 15))
+ALL_PHASES = frozenset(range(3, 16))
 
 
 class Failed(Exception):
@@ -1100,14 +1118,90 @@ def function_checks(lb, windows, dtype):
                 want, tol)
 
 
-def check_bwd_kernels(lb, windows, stats, card: str):
-    """Phase 8: K6-K8 against their twins, then the Functions. The kernels
-    line takes each kernel's first (res-128) case in bf16 at B=4."""
+# K7's table: (images, res, C) at the decoder's res-128 and res-16 stages
+K7_SHAPES = ((128, 56), (16, 896))
+K7_BATCHES = (TRAIN_BATCH, BATCH)
+
+
+def k7_cases(lb, dtype, B):
+    """K7 at the decoder's res 128 (C = 56) and res 16 (C = 896) stages,
+    ``B`` images: each a BwdCase whose ``yardstick`` is ``torch.matmul``
+    over the shapes of K7's five products in ``dtype`` (linear1 again,
+    ``g W2^T``, ``a2^T g``, ``xn^T dh1``, ``dh1 W1^T``), on operands made
+    once: a fixed measure of what the card's products cost, so that two
+    calls on two cards compare K7's time over it."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = []
+    for res, C in K7_SHAPES:
+        Hd, M = 4 * C, B * res * res
+
+        def rnd(*shape, scale=1.0):
+            return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+        x, g = rnd(B, res, res, C).to(dtype), rnd(B, res, res, C).to(dtype)
+        args = [x, g, 1 + rnd(C, scale=0.1), rnd(C, scale=0.1),
+                rnd(C, Hd, scale=C ** -0.5), rnd(Hd, scale=0.1),
+                rnd(3, 3, Hd, scale=1 / 3), rnd(Hd, scale=0.1),
+                rnd(Hd, C, scale=Hd ** -0.5), rnd(C, scale=0.1), 1e-6]
+        mc, mh = rnd(M, C).to(dtype), rnd(M, Hd).to(dtype)
+        wch, whc = rnd(C, Hd).to(dtype), rnd(Hd, C).to(dtype)
+
+        def yardstick(mc=mc, mh=mh, wch=wch, whc=whc):
+            torch.matmul(mc, wch)          # linear1
+            torch.matmul(mc, whc.t())      # g W2^T
+            torch.matmul(mh.t(), mc)       # dW2 = a2^T g
+            torch.matmul(mc.t(), mh)       # dW1 = xn^T dh1
+            torch.matmul(mh, wch.t())      # dh1 W1^T
+        nbytes = (3 * x.numel() * x.element_size()
+                  + 2 * 4 * sum(a.numel() for a in args[2:10]))
+        out.append((BwdCase(
+            "lewin_ffn_bwd", f"ffn_block_bwd res{res} C{C} images{B}",
+            lambda a=args: lb.ffn_block_bwd(*a),
+            lambda a=args: lb.ffn_block_bwd_plain(*a),
+            2.0 * M * Hd * (5 * C + 27), nbytes), yardstick))
+    return out
+
+
+def k7_table(lb, card: str):
+    """Phase 8b: K7 against its twin (every output, equal bits on a second
+    launch) at bf16 / fp32 x B = 4 / 32 x res 128 / res 16, with its time
+    beside the bound and the yardstick of its five products in
+    ``torch.matmul`` (K7 / yardstick is the ratio two calls compare)."""
+    print(f"K7 table: kernel ms, yardstick ms (torch.matmul over its five "
+          f"products), bound ({card}):", flush=True)
     for dtype in (torch.bfloat16, torch.float32):
         name_dt = str(dtype)[6:]
-        print(f"backward kernel checks, {dtype}, B={TRAIN_BATCH} ({card}):",
-              flush=True)
-        for case in bwd_cases(lb, windows, dtype, TRAIN_BATCH):
+        for B in K7_BATCHES:
+            for case, yardstick in k7_cases(lb, dtype, B):
+                label = f"{case.label} {name_dt}"
+                got = case.run()
+                torch.cuda.synchronize()
+                compare_all(label, got, case.plain(), BWD_TOL[dtype])
+                again = case.run()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise Failed(f"{label}: two launches give different bits")
+                del got, again
+                ms = time_ms(case.run, iters=5, warmup=1)
+                yms = time_ms(yardstick, iters=5, warmup=1)
+                t_bytes = case.nbytes / PEAK_BYTES * 1e3
+                t_flops = case.flops / PEAK_FLOPS[dtype] * 1e3
+                bound, by = max(t_bytes, t_flops), (
+                    "bytes" if t_bytes >= t_flops else "operations")
+                print(f"  K7 {label}: kernel {ms:.4f} ms, yardstick {yms:.4f} "
+                      f"ms, kernel / yardstick {ms / yms:.3f}, bound "
+                      f"{bound:.4f} ms by {by}", flush=True)
+                torch.cuda.empty_cache()
+
+
+def check_bwd_kernels(lb, windows, stats, card: str):
+    """Phase 8: K6-K8 against their twins (bf16 and fp32 at B=4, bf16 at
+    B=32), the Functions, then K7's table. The kernels line takes each
+    kernel's first (res-128) case in bf16 at B=4."""
+    for dtype, B in ((torch.bfloat16, TRAIN_BATCH), (torch.float32, TRAIN_BATCH),
+                     (torch.bfloat16, BATCH)):
+        name_dt = str(dtype)[6:]
+        print(f"backward kernel checks, {dtype}, B={B} ({card}):", flush=True)
+        for case in bwd_cases(lb, windows, dtype, B):
             label = f"{case.label} {name_dt}"
             got = case.run()
             torch.cuda.synchronize()
@@ -1132,7 +1226,10 @@ def check_bwd_kernels(lb, windows, stats, card: str):
             if dtype == torch.bfloat16 and st["ms"] is None:
                 st.update(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by)
             del got
-        function_checks(lb, windows, dtype)
+            torch.cuda.empty_cache()
+        if B == TRAIN_BATCH:
+            function_checks(lb, windows, dtype)
+    k7_table(lb, card)
 
 
 # ---------------------------------------------------------------------------
@@ -1456,9 +1553,10 @@ def library_attention_ms(c: AttnCase, backward: bool):
 def check_window_attention(wa, windows, stats, card: str):
     """K9 against ``window_attention_plain`` and K10 against
     ``window_attention_bwd_plain`` at every case, bf16 at the eval batch
-    (B=32) and the training batch (B=4) and fp32 at B=4; K10's dbias on the
+    (B=32) and the training batch (B=4) and fp32 at B=4 (the kernels line
+    takes K10 at B=4); K10's dbias on the
     floor rule of the backward checks, and equal bits on a second launch."""
-    for dtype, B, fwd, bwd in ((torch.bfloat16, BATCH, True, False),
+    for dtype, B, fwd, bwd in ((torch.bfloat16, BATCH, True, True),
                                (torch.bfloat16, TRAIN_BATCH, False, True),
                                (torch.float32, TRAIN_BATCH, True, True)):
         name_dt = str(dtype)[6:]
@@ -1510,7 +1608,8 @@ def check_window_attention(wa, windows, stats, card: str):
                       flush=True)
                 st = stats["window_attn_bwd"]
                 st["max_abs_err"] = max(st["max_abs_err"], err)
-                if dtype == torch.bfloat16 and st["ms"] is None:
+                if dtype == torch.bfloat16 and B == TRAIN_BATCH \
+                        and st["ms"] is None:
                     st.update(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by,
                               library_ms=lms)
                 del got, again
@@ -1752,8 +1851,8 @@ def per_scale_train_counts(joint: bool) -> dict:
     blocks (K9 for intra and inter); the query encoder's backward K6, K8,
     K7 and K10 twice per need_kv block. The joint step adds the decoder: 22
     fused blocks (1 merged at this batch, the shifted one at res 128),
-    forward K1 / K2 or K4, backward K6 and K7; 22 unfused blocks, K9, K11
-    and K10 each."""
+    forward K1 / K2 or K4, backward K6 and K7; 22 unfused blocks, K9, K11,
+    K10 and K14 each."""
     c = {**ZERO, "lewin_attn": 10, "freq_inter": 10, "lewin_ffn": 10,
          "lewin_attn_bwd": 5, "freq_inter_bwd": 5, "lewin_ffn_bwd": 5,
          "window_attn": 20, "window_attn_bwd": 10}
@@ -1766,6 +1865,7 @@ def per_scale_train_counts(joint: bool) -> dict:
         c["window_attn"] += 22
         c["window_attn_bwd"] += 22
         c["dcn"] += 22
+        c["dcn_bwd"] += 22
     return c
 
 
@@ -2108,8 +2208,8 @@ def family_train_entry(config, airnet, port_train, train_state, stats,
         raise Failed(f"{name}: queue {tuple(ts['queue'].shape)}, step "
                      f"{ts['step']}")
     # the joint step's decoder forward and the eval's: K11 for every DCN;
-    # the DCN's backward is autograd of the plain version
-    want = {**ZERO, "dcn": 2 * DGRN_DCNS}
+    # the joint step's backward: K14 for every DCN
+    want = {**ZERO, "dcn": 2 * DGRN_DCNS, "dcn_bwd": DGRN_DCNS}
     if counts != want:
         raise Failed(f"{name} training entry point launch counts {counts} != "
                      f"{want}")
@@ -2179,16 +2279,142 @@ def families(config, airnet, port_test, port_train, ckpt, train_state,
         shallow = {**FAMILIES[name], **SHALLOW_DGRN}
         step_against_plain(config, airnet, train_state, steps_lib, synthetic,
                            f"{name} (1 x 2 DGRN blocks)", shallow,
-                           {**ZERO, "dcn": 4})
+                           {**ZERO, "dcn": 4, "dcn_bwd": 4})
         step_times(config, airnet, train_state, steps_lib, synthetic, card,
                    name, FAMILIES[name], (("bfloat16", "default", TRAIN_BATCH),))
+
+
+# K14 at DGRN's DCNLayer (C = Cout = 64) and the deform LeFF's at res 128
+# (C = Cout = 112), the training batch
+DCN_BWD_SHAPES = (("DGRN", 128, 64), ("deform LeFF", 128, 112))
+
+
+def check_dcn_bwd(dc, stats, card: str):
+    """Phase 14a: K14 against ``dcn_bwd_plain`` at DGRN's and the deform
+    LeFF's shapes, bf16 and fp32, B=4, offsets up to +-3.5 (past every
+    edge, some on integer coordinates), the modulation in [0.1, 0.9]; every
+    output, equal bits on a second launch, time, plain time and bound (the
+    bytes of x, offset, mask, weight and g read once and of the four
+    gradients written once; the operations of the dcol and dW products)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    B = TRAIN_BATCH
+    for dtype in (torch.bfloat16, torch.float32):
+        name_dt = str(dtype)[6:]
+        print(f"K14 (DCN backward) checks, {name_dt}, B={B} ({card}):",
+              flush=True)
+        for where, res, C in DCN_BWD_SHAPES:
+            rnd = lambda *shape: torch.rand(*shape, generator=gen, device="cuda")
+            x = (torch.randn(B, res, res, C, generator=gen, device="cuda")
+                 * 0.5).to(dtype)
+            off = rnd(B, res, res, 18) * 7 - 3.5
+            off[:, ::3, ::2] = off[:, ::3, ::2].round()
+            off, mask = off.to(dtype), (0.1 + 0.8 * rnd(B, res, res, 9)).to(dtype)
+            w = (torch.randn(3, 3, C, C, generator=gen, device="cuda")
+                 * (9 * C) ** -0.5).to(dtype)
+            g = torch.randn(B, res, res, C, generator=gen, device="cuda").to(dtype)
+            args = (x, off, mask, w, None, g, 1, 1)
+            label = f"dcn_bwd {where} res{res} C{C} {name_dt} B{B}"
+            got = dc.dcn_bwd_kernel(*args)
+            torch.cuda.synchronize()
+            err = compare_all(label, got, dc.dcn_bwd_plain(*args),
+                              BWD_TOL[dtype])
+            again = dc.dcn_bwd_kernel(*args)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)
+                       if a is not None):
+                raise Failed(f"{label}: two launches give different bits")
+            del got, again
+            ms = time_ms(lambda: dc.dcn_bwd_kernel(*args), iters=5)
+            pms = time_ms(lambda: dc.dcn_bwd_plain(*args), iters=3, warmup=1)
+            nbytes = (sum(t.numel() * t.element_size()
+                          for t in (x, off, mask, w, g))
+                      + x.numel() * x.element_size()
+                      + 4 * (off.numel() + mask.numel() + w.numel()))
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            t_flops = (2 * 2.0 * B * res * res * 9 * C * C
+                       / PEAK_FLOPS[dtype] * 1e3)
+            bound, by = max(t_bytes, t_flops), (
+                "bytes" if t_bytes >= t_flops else "operations")
+            print(f"    time: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+                  f"{bound:.4f} ms by {by}; equal bits on a second launch "
+                  "(no PyTorch call computes a DCN's backward)", flush=True)
+            st = stats["dcn_bwd"]
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            if dtype == torch.bfloat16 and st["ms"] is None:
+                st.update(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by)
+            torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 15: a training step gives equal bits when run twice
+# ---------------------------------------------------------------------------
+
+
+REPEAT_STEPS = 3
+
+
+def _leaves(tree, prefix=""):
+    """Every tensor of a state tree, by its path."""
+    if torch.is_tensor(tree):
+        yield prefix, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+
+
+def repeated_steps(config, airnet, train_state, steps_lib, synthetic, ckpt,
+                   card: str):
+    """Phase 15 (C1): for the flagship, the per-scale set (a deform_conv
+    user) and ``resnet_dgrn`` at full width and depth, bf16, B=4, the
+    default route: three joint steps from one saved state on a fresh
+    generator of the same seed, twice. Every loss and every tensor of the
+    train state after them (both models' parameters and buffers, the key
+    encoder, the queue and its pointer, Adam's moments) must be equal bit
+    for bit."""
+    runs_of = (("flagship", None),
+               ("per-scale set", INJECTION_CONFIGS["per_scale_set"]),
+               ("resnet_dgrn", FAMILIES["resnet_dgrn"]))
+    for name, fields in runs_of:
+        cfg, bundle, state = fresh_state(config, airnet, train_state,
+                                         "bfloat16", "default", TRAIN_BATCH,
+                                         fields)
+        loader = synthetic.SyntheticTrainLoader(cfg, seed=0)
+        batches = [steps_lib.array_batch(loader.next_batch(), "cuda")
+                   for _ in range(REPEAT_STEPS)]
+        step = steps_lib.make_train_step(cfg, bundle, joint=True)
+        saved = copy.deepcopy(ckpt.state_tree(state))
+        runs = []
+        for _ in range(2):
+            ckpt.load_state_tree(state, saved)
+            state.generator = torch.Generator(device="cuda").manual_seed(cfg.seed)
+            COUNTERS.reset()
+            losses = []
+            for batch in batches:
+                state, m = step(state, batch)
+                losses.append(m["loss"].clone())
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in COUNTERS.read().items() if v}
+            after = {k: v.clone() for k, v in _leaves(ckpt.state_tree(state))}
+            after["losses"] = torch.stack(losses)
+            runs.append(after)
+        first, second = runs
+        differ = [k for k in first if not torch.equal(first[k], second[k])]
+        print(f"repeated steps {name} bfloat16 B={TRAIN_BATCH} ({card}): "
+              f"{REPEAT_STEPS} joint steps twice from one state, losses "
+              f"{[round(float(v), 6) for v in first['losses']]}, "
+              f"{len(first)} tensors compared, {len(differ)} differ; launches "
+              f"a run {counts}", flush=True)
+        if differ:
+            raise Failed(f"{name}: a repeated step gives other bits in "
+                         f"{differ[:8]}")
+        del state, bundle, runs, saved
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one H100")
     ap.add_argument("--phases", type=int, nargs="+",
                     default=sorted(ALL_PHASES), choices=sorted(ALL_PHASES),
-                    help="of phases 3-14, run only these: a development aid "
+                    help="of phases 3-15, run only these: a development aid "
                     "that prints no result and exits with 2 (default: all)")
     phases = set(ap.parse_args(argv).phases)
     if not torch.cuda.is_available():
@@ -2300,8 +2526,13 @@ def main(argv=None) -> int:
             split_forward(config, airnet, uformer_lewin, card, stats)
         if 14 in phases:
             marks.append((14, time.perf_counter()))
+            check_dcn_bwd(dc, stats, card)
             families(config, airnet, port_test, port_train, ckpt, train_state,
                      steps_lib, synthetic, card, stats)
+        if 15 in phases:
+            marks.append((15, time.perf_counter()))
+            repeated_steps(config, airnet, train_state, steps_lib, synthetic,
+                           ckpt, card)
         if phases == ALL_PHASES:
             idle = [n for n in KERNELS if not stats[n]["launches"]]
             if idle:

@@ -1,4 +1,4 @@
-// Shared pieces of the LeWin-block backward kernels (K6-K8): a workspace
+// Shared pieces of the backward kernels (K6-K8, K14): a workspace
 // carver, a strided GEMM with fp32 output, the fixed-order reductions that
 // take the place of the TPU's sequential accumulation, and the LayerNorm
 // backward pass.
@@ -366,10 +366,11 @@ inline void column_sums(const void* X, int x_f32, long long ld, long long M,
 
 constexpr int LNB_NT = 128;
 
-// rows per block of the LayerNorm backward: at most 1024 blocks
+// rows per block of the LayerNorm backward: at most 1024 blocks, at least 8
+// rows (two a warp), so that a few rows of C = 896 still fill the card
 __host__ __device__ inline long long ln_bwd_rows(long long M) {
   long long r = (M + 1023) / 1024;
-  return r < 64 ? 64 : r;
+  return r < 8 ? 8 : r;
 }
 
 __host__ __device__ inline long long ln_bwd_blocks(long long M) {

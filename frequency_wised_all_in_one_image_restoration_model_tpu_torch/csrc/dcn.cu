@@ -30,95 +30,16 @@
 // (an implicit GEMM that builds its A tile in shared memory) is the open
 // step.
 
-#include "gemm.cuh"
+#include "dcn.cuh"
 
 using namespace fairm;
 
 namespace {
 
-struct ColArgs {
-  const void* x;
-  const float* off;
-  const float* mask;
-  void* cols;
-  int B, H, W, C, Ho, Wo, kh, kw, pad, dil, ldc;
-  float clamp;
-};
-
-// V consecutive channels moved as one access (16 bytes when the rows allow)
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Pack {
-  T v[V];
-};
-
-template <typename T, int V>
-__device__ __forceinline__ void add_corner(float* s, float w, const T* p) {
-  const Pack<T, V> x = *reinterpret_cast<const Pack<T, V>*>(p);
-#pragma unroll
-  for (int i = 0; i < V; ++i) s[i] += w * to_f(x.v[i]);
-}
-
-// one warp per output pixel; its lanes walk the pixel's (tap, V channels)
-// items, so that every lane has work at any C
-template <typename T, int V>
-__global__ void __launch_bounds__(256) cols_kernel(const ColArgs a) {
-  const int K = a.kh * a.kw;
-  const long long pix = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (pix >= (long long)a.B * a.Ho * a.Wo) return;  // whole warps
-  const int hw = a.Ho * a.Wo;
-  const long long b = pix / hw;
-  const int rem = (int)(pix - b * hw);
-  const int oy = rem / a.Wo, ox = rem - oy * a.Wo;
-  const int cv = a.C / V;
-  const T* xb = static_cast<const T*>(a.x) + b * a.H * (long long)a.W * a.C;
-  T* dst = static_cast<T*>(a.cols) + pix * a.ldc;
-
-  for (int e = lane; e < K * cv; e += 32) {
-    const int t = e / cv, c = (e - t * cv) * V;
-    float dy = a.off[pix * 2 * K + t], dx = a.off[pix * 2 * K + K + t];
-    if (a.clamp >= 0.f) {
-      dy = fminf(fmaxf(dy, -a.clamp), a.clamp);
-      dx = fminf(fmaxf(dx, -a.clamp), a.clamp);
-    }
-    const float m = a.mask[pix * K + t];
-    const float yy = (float)(oy - a.pad + (t / a.kw) * a.dil) + dy;
-    const float xx = (float)(ox - a.pad + (t % a.kw) * a.dil) + dx;
-    const float yyc = fminf(fmaxf(yy, -1.f), (float)a.H);
-    const float xxc = fminf(fmaxf(xx, -1.f), (float)a.W);
-    const float y0 = fminf(fmaxf(floorf(yyc), -1.f), (float)(a.H - 1));
-    const float x0 = fminf(fmaxf(floorf(xxc), -1.f), (float)(a.W - 1));
-    const float fy = yyc - y0, fx = xxc - x0;
-    const int iy = (int)y0, ix = (int)x0;
-    const bool r0 = iy >= 0, r1 = iy + 1 < a.H, c0 = ix >= 0, c1 = ix + 1 < a.W;
-    const T* p00 = xb + ((long long)iy * a.W + ix) * a.C + c;
-    const T* p10 = p00 + (long long)a.W * a.C;
-    float s[V];
-#pragma unroll
-    for (int i = 0; i < V; ++i) s[i] = 0.f;
-    if (r0 && c0) add_corner<T, V>(s, (1.f - fy) * (1.f - fx), p00);
-    if (r0 && c1) add_corner<T, V>(s, (1.f - fy) * fx, p00 + a.C);
-    if (r1 && c0) add_corner<T, V>(s, fy * (1.f - fx), p10);
-    if (r1 && c1) add_corner<T, V>(s, fy * fx, p10 + a.C);
-    Pack<T, V> out;
-#pragma unroll
-    for (int i = 0; i < V; ++i) out.v[i] = from_f<T>(s[i] * m);
-    *reinterpret_cast<Pack<T, V>*>(dst + t * a.C + c) = out;
-  }
-  for (int c = K * a.C + lane; c < a.ldc; c += 32)  // the GEMM operand's zero pad
-    dst[c] = from_f<T>(0.f);
-}
-
 template <typename T>
 cudaError_t run(const ColArgs& c, const void* wt, const float* bias, void* out,
                 int Cout, cudaStream_t st) {
-  const long long blocks = ((long long)c.B * c.Ho * c.Wo * 32 + 255) / 256;
-  constexpr int V = 16 / sizeof(T);
-  if (c.C % V == 0 && reinterpret_cast<uintptr_t>(c.x) % 16 == 0)
-    cols_kernel<T, V><<<(unsigned)blocks, 256, 0, st>>>(c);
-  else
-    cols_kernel<T, 1><<<(unsigned)blocks, 256, 0, st>>>(c);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_cols<T>(c, st);
   if (err != cudaSuccess) return err;
   GemmArgs g{};
   g.A = c.cols;

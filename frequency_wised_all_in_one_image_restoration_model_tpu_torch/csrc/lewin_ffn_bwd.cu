@@ -14,255 +14,409 @@
 // with xn, a2, g, dh1 rounded to the compute type before each product and
 // h1, hc, dhc, dh1 kept in fp32, as the Pallas body keeps them.
 //
-// What bounds it on the H100: the [M, 4C] hidden tensors, three of them in
-// fp32 in device memory, and five products of M x C x 4C against the
-// forward's two, on the CUDA cores here (bwd.cuh).
-// What the design does about it: the Pallas body recomputes a halo of rows
-// for the 3x3 conv inside each tile; with the hidden rows in device memory
-// no halo is needed, the transposed conv reads its neighbours with zero
-// padding. The weight gradients are chunk partials and a fixed-order
-// reduction, so the result does not change from run to run.
+// What bounds it on the H100: five products of 2 M C 4C operations (the
+// bound is the products' at bf16 and fp32 alike) and the [M, 4C] hidden
+// tensors, which cross device memory between the products and the 3x3
+// stencils: at bf16, B = 4, res 128 (M = 65536, Hd = 224) each fp32 one is
+// 58.7 MB.
+// What the design does about it:
+//  - the five products run through bwd_gemm.cuh: in bf16 a 3-stage cp.async
+//    pipeline of 16-byte copies, ldmatrix (.trans for the weight gradients'
+//    k-major tiles) and mma.sync m16n8k16, tiles of 128 x 64 / 128; in fp32 a
+//    register-tiled FMA GEMM with float4 loads. Their epilogues add b1,
+//    multiply by gelu'(hc) and write fp32 rows or the weight gradients'
+//    chunk partials, added later in a fixed order;
+//  - the depthwise conv mixes no channels, so two slab passes walk down the
+//    image rows of a (rows, columns, channels) slab with a 3-row window in
+//    registers and vector loads, no per-element div / mod: the first makes a2
+//    and gelu'(hc) from h1; the second makes dh1 from dhc and h1, and the
+//    dwd, dbd and db1 partials of the slab, reduced in a fixed order in
+//    shared memory and then across slabs;
+//  - a2 and dh1 are stored in the compute type, because every consumer
+//    rounds them to it (dh1's fp32 values feed only db1, inside the pass that
+//    makes them); h1, gelu'(hc) and dhc stay fp32.
+// The hidden tensors left, [M, Hd] each: h1 (fp32) written once, read twice;
+// gelu'(hc) (fp32) written once, read once, its buffer then holding dhc
+// (fp32), written once, read once; a2 and then dh1 (compute type) written
+// once each, read once and twice. In bf16 that is 38 bytes an element
+// (PERF.md gives the bytes at each shape). No float atomics: a second launch
+// gives equal bits.
 
-#include "bwd.cuh"
+#include "bwd_gemm.cuh"
 
 using namespace fairm;
 
-// hc = dwconv3x3(gelu(h1)) + bd in fp32, a2 = gelu(hc) in the compute type
-template <typename T>
-__global__ void conv_fwd_kernel(const float* h1, const float* wd,
-                                const float* bd, float* hc, T* a2, long long M,
-                                int H, int W, int Hd) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M * Hd) return;
-  const long long m = idx / Hd;
-  const int ch = (int)(idx - m * Hd);
-  const int x = (int)(m % W), y = (int)((m / W) % H);
-  float acc = 0.f;
-#pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-    const int yy = y + dy - 1;
-    if (yy < 0 || yy >= H) continue;
-#pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      const int xx = x + dx - 1;
-      if (xx < 0 || xx >= W) continue;
-      const long long mm = m + (long long)(dy - 1) * W + (dx - 1);
-      acc = fmaf(wd[(dy * 3 + dx) * Hd + ch], gelu_tanh(h1[mm * Hd + ch]), acc);
-    }
-  }
-  acc += bd[ch];
-  hc[idx] = acc;
-  a2[idx] = from_f<T>(gelu_tanh(acc));
+namespace {
+
+// a slab pass's CTA: image b, rows [yb R, yb R + R), columns [xb XT, xb XT +
+// XT), channel vectors [cb CVB, cb CVB + CVB) of V channels; thread (xl,
+// cvl) walks its column down the rows
+struct Slab {
+  int B, H, W, Hd, ldh, R, XT, CVB, nyb, nxb;
+};
+
+constexpr int SLAB_NT = 256;
+
+Slab make_slab(int B, int H, int W, int Hd, int ldh) {
+  Slab s{B, H, W, Hd, ldh, 16, 32, 0, 0, 0};
+  while (s.XT > 1 && s.XT / 2 >= W) s.XT /= 2;  // the power of two >= W, <= 32
+  s.CVB = SLAB_NT / s.XT;
+  s.nyb = (H + s.R - 1) / s.R;
+  s.nxb = (W + s.XT - 1) / s.XT;
+  return s;
 }
 
-// part[z, t, ch] = sum over the pixels m of chunk z of
-// gelu(h1)[m shifted by tap t, ch] dhc[m, ch]. A block is 32 channels x 8
-// pixel lanes: lane s takes the chunk's pixels s, s + 8, ..., and the eight
-// lanes' sums are added in lane order.
-constexpr int DWD_CH = 32, DWD_LANES = 8;
+template <int V>
+struct alignas(4 * V) F4 {
+  float v[V];
+};
 
-static __global__ void __launch_bounds__(DWD_CH * DWD_LANES) dwd_kernel(
-    const float* h1, const float* dhc, long long M, int H, int W, int Hd,
-    long long rc, float* part) {
-  __shared__ float sums[DWD_LANES][9][DWD_CH];
-  const int cl = threadIdx.x % DWD_CH, sub = threadIdx.x / DWD_CH;
-  const int ch = blockIdx.x * DWD_CH + cl;
-  const long long lo = (long long)blockIdx.y * rc;
-  long long hi = lo + rc;
-  if (hi > M) hi = M;
-  float acc[9];
+template <int V>
+__device__ __forceinline__ void load_f(float* d, const float* p) {
+  const F4<V> q = *reinterpret_cast<const F4<V>*>(p);
 #pragma unroll
-  for (int t = 0; t < 9; ++t) acc[t] = 0.f;
-  if (ch < Hd) {
-    for (long long m = lo + sub; m < hi; m += DWD_LANES) {
-      const int x = (int)(m % W), y = (int)((m / W) % H);
-      const float dv = dhc[m * Hd + ch];
+  for (int i = 0; i < V; ++i) d[i] = q.v[i];
+}
+
+template <int V>
+__device__ __forceinline__ void store_f(float* p, const float* v) {
+  F4<V> q;
 #pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        const int yy = y + dy - 1;
-        if (yy < 0 || yy >= H) continue;
+  for (int i = 0; i < V; ++i) q.v[i] = v[i];
+  *reinterpret_cast<F4<V>*>(p) = q;
+}
+
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ void store_t(T* p, const float* v) {
+  Pack<T, V> q;
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const int xx = x + dx - 1;
-          if (xx < 0 || xx >= W) continue;
-          const long long mm = m + (long long)(dy - 1) * W + (dx - 1);
-          acc[dy * 3 + dx] =
-              fmaf(gelu_tanh(h1[mm * Hd + ch]), dv, acc[dy * 3 + dx]);
-        }
+  for (int i = 0; i < V; ++i) q.v[i] = from_f<T>(v[i]);
+  *reinterpret_cast<Pack<T, V>*>(p) = q;
+}
+
+// pass 1: hc = dwconv(gelu(h1)) + bd; a2 = gelu(hc) in T (zero pad columns
+// up to ldh); gp = gelu'(hc) in fp32
+template <typename T, int V>
+__global__ void __launch_bounds__(SLAB_NT, 2) slab_fwd_kernel(
+    const float* h1, const float* wd, const float* bd, T* a2, float* gp,
+    const Slab s) {
+  const int cvl = threadIdx.x % s.CVB, xl = threadIdx.x / s.CVB;
+  const int c = (blockIdx.x * s.CVB + cvl) * V;
+  const int yb = blockIdx.y / s.nxb, xb = blockIdx.y - yb * s.nxb;
+  const int x = xb * s.XT + xl, b = blockIdx.z;
+  const int y0 = yb * s.R, y1 = min(y0 + s.R, s.H);
+  if (x >= s.W || c >= s.ldh) return;
+  const long long img = (long long)b * s.H * s.W;
+  if (c >= s.Hd) {  // the operand's pad columns
+    const float z[V] = {};
+    for (int y = y0; y < y1; ++y)
+      store_t<T, V>(a2 + (img + (long long)y * s.W + x) * s.ldh + c, z);
+    return;
+  }
+  float w[9][V], bias[V];
+#pragma unroll
+  for (int t = 0; t < 9; ++t) load_f<V>(w[t], wd + t * s.Hd + c);
+  load_f<V>(bias, bd + c);
+  // win[r][d][i]: gelu(h1) at row y - 1 + r, column x - 1 + d; nxt: the raw
+  // h1 of the row after, loaded while this row is computed
+  float win[3][3][V], nxt[3][V];
+  auto fetch = [&](float (*dst)[V], int yy) {  // zeros outside the image
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const int xx = x + d - 1;
+      if (yy >= 0 && yy < s.H && xx >= 0 && xx < s.W) {
+        load_f<V>(dst[d], h1 + (img + (long long)yy * s.W + xx) * s.Hd + c);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) dst[d][i] = 0.f;
       }
     }
-  }
+  };
+  auto take = [&](float (*dst)[V]) {  // gelu(0) = 0 keeps the zero padding
 #pragma unroll
-  for (int t = 0; t < 9; ++t) sums[sub][t][cl] = acc[t];
-  __syncthreads();
-  for (int e = threadIdx.x; e < 9 * DWD_CH; e += DWD_CH * DWD_LANES) {
-    const int t = e / DWD_CH, c = e % DWD_CH;
-    if (blockIdx.x * DWD_CH + c >= Hd) continue;
-    float v = 0.f;
-    for (int s2 = 0; s2 < DWD_LANES; ++s2) v += sums[s2][t][c];
-    part[((long long)blockIdx.y * 9 + t) * Hd + blockIdx.x * DWD_CH + c] = v;
+    for (int d = 0; d < 3; ++d)
+#pragma unroll
+      for (int i = 0; i < V; ++i) dst[d][i] = gelu_tanh(nxt[d][i]);
+  };
+  fetch(nxt, y0 - 1);
+  take(win[0]);
+  fetch(nxt, y0);
+  take(win[1]);
+  fetch(nxt, y0 + 1);
+  for (int y = y0; y < y1; ++y) {
+    take(win[2]);
+    fetch(nxt, y + 2);
+    float hc[V], a[V], gr[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      float acc = 0.f;
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+#pragma unroll
+        for (int d = 0; d < 3; ++d) acc = fmaf(w[r * 3 + d][i], win[r][d][i], acc);
+      hc[i] = acc + bias[i];
+      a[i] = gelu_tanh(hc[i]);
+      gr[i] = gelu_tanh_grad(hc[i]);
+    }
+    const long long p = img + (long long)y * s.W + x;
+    store_t<T, V>(a2 + p * s.ldh + c, a);
+    store_f<V>(gp + p * s.Hd + c, gr);
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        win[0][d][i] = win[1][d][i];
+        win[1][d][i] = win[2][d][i];
+      }
   }
 }
 
-// dh1 = dwconv^T(dhc) gelu'(h1): the transposed depthwise pass, zero padding
-static __global__ void conv_bwd_kernel(const float* h1, const float* dhc,
-                                       const float* wd, float* dh1, long long M,
-                                       int H, int W, int Hd) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M * Hd) return;
-  const long long m = idx / Hd;
-  const int ch = (int)(idx - m * Hd);
-  const int x = (int)(m % W), y = (int)((m / W) % H);
-  float acc = 0.f;
+// pass 2, per centre pixel (y, x) with the dhc window dw[r][d] = dhc[y - 1 +
+// r, x - 1 + d]:
+//   dh1[y, x]   = gelu'(h1[y, x]) sum_t wd[t] dw[2 - t / 3][2 - t % 3]
+//   dwd[t]     += gelu(h1[y, x]) dw[2 - t / 3][2 - t % 3]
+//   dbd += dhc[y, x];  db1 += dh1[y, x]
+// dh1 in T (zero pad columns); the slab's partials [11, Hd] (dwd, dbd, db1)
+// summed over its columns in a fixed order into part[slab]
+template <typename T, int V>
+__global__ void __launch_bounds__(SLAB_NT, 2) slab_bwd_kernel(
+    const float* h1, const float* dhc, const float* wd, T* dh1, float* part,
+    const Slab s) {
+  __shared__ float red[11][SLAB_NT * V];
+  const int cvl = threadIdx.x % s.CVB, xl = threadIdx.x / s.CVB;
+  const int c = (blockIdx.x * s.CVB + cvl) * V;
+  const int yb = blockIdx.y / s.nxb, xb = blockIdx.y - yb * s.nxb;
+  const int x = xb * s.XT + xl, b = blockIdx.z;
+  const int y0 = yb * s.R, y1 = min(y0 + s.R, s.H);
+  const long long img = (long long)b * s.H * s.W;
+  float acc[11][V];
 #pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-    const int yy = y - dy + 1;
-    if (yy < 0 || yy >= H) continue;
+  for (int q = 0; q < 11; ++q)
 #pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      const int xx = x - dx + 1;
-      if (xx < 0 || xx >= W) continue;
-      const long long mm = m + (long long)(1 - dy) * W + (1 - dx);
-      acc = fmaf(wd[(dy * 3 + dx) * Hd + ch], dhc[mm * Hd + ch], acc);
+    for (int i = 0; i < V; ++i) acc[q][i] = 0.f;
+
+  if (x < s.W && c < s.Hd) {
+    float w[9][V];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) load_f<V>(w[t], wd + t * s.Hd + c);
+    // dw: dhc rows y - 1 .. y + 1; nxt / hn: dhc of row y + 2 and h1 of row
+    // y + 1, loaded while row y is computed
+    float dw[3][3][V], nxt[3][V], hv[V], hn[V];
+    auto fetch = [&](float (*dst)[V], int yy) {  // zeros outside the image
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const int xx = x + d - 1;
+        if (yy >= 0 && yy < s.H && xx >= 0 && xx < s.W) {
+          load_f<V>(dst[d], dhc + (img + (long long)yy * s.W + xx) * s.Hd + c);
+        } else {
+#pragma unroll
+          for (int i = 0; i < V; ++i) dst[d][i] = 0.f;
+        }
+      }
+    };
+    fetch(dw[0], y0 - 1);
+    fetch(dw[1], y0);
+    fetch(dw[2], y0 + 1);
+    load_f<V>(hn, h1 + (img + (long long)y0 * s.W + x) * s.Hd + c);
+    for (int y = y0; y < y1; ++y) {
+      fetch(nxt, y + 2);
+      const long long p = img + (long long)y * s.W + x;
+#pragma unroll
+      for (int i = 0; i < V; ++i) hv[i] = hn[i];
+      if (y + 1 < y1) load_f<V>(hn, h1 + (p + s.W) * s.Hd + c);
+      float out[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float a = gelu_tanh(hv[i]);
+        float t1 = 0.f;
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          const float d = dw[2 - t / 3][2 - t % 3][i];
+          t1 = fmaf(w[t][i], d, t1);
+          acc[t][i] = fmaf(a, d, acc[t][i]);
+        }
+        out[i] = t1 * gelu_tanh_grad(hv[i]);
+        acc[9][i] += dw[1][1][i];
+        acc[10][i] += out[i];
+      }
+      store_t<T, V>(dh1 + p * s.ldh + c, out);
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          dw[0][d][i] = dw[1][d][i];
+          dw[1][d][i] = dw[2][d][i];
+          dw[2][d][i] = nxt[d][i];
+        }
     }
+  } else if (x < s.W && c < s.ldh) {  // the operand's pad columns
+    const float z[V] = {};
+    for (int y = y0; y < y1; ++y)
+      store_t<T, V>(dh1 + (img + (long long)y * s.W + x) * s.ldh + c, z);
   }
-  dh1[idx] = acc * gelu_tanh_grad(h1[idx]);
+
+  // the slab's sums over its columns xl = 0, 1, ... in order
+#pragma unroll
+  for (int q = 0; q < 11; ++q)
+#pragma unroll
+    for (int i = 0; i < V; ++i) red[q][threadIdx.x * V + i] = acc[q][i];
+  __syncthreads();
+  const int width = s.CVB * V;  // channels of the slab
+  const long long slab = ((long long)b * s.nyb + yb) * s.nxb + xb;
+  for (int e = threadIdx.x; e < 11 * width; e += SLAB_NT) {
+    const int q = e / width, j = e - q * width;
+    const int ch = blockIdx.x * width + j;
+    if (ch >= s.Hd) continue;
+    const int cv = j / V, i = j - cv * V;
+    float v = 0.f;
+    for (int xs = 0; xs < s.XT; ++xs) v += red[q][(xs * s.CVB + cv) * V + i];
+    part[(slab * 11 + q) * s.Hd + ch] = v;
+  }
+}
+
+template <typename T, int V>
+void launch_slabs_fwd(const float* h1, const float* wd, const float* bd, T* a2,
+                      float* gp, const Slab& s, cudaStream_t st) {
+  const dim3 grid((unsigned)((s.ldh / V + s.CVB - 1) / s.CVB),
+                  (unsigned)(s.nyb * s.nxb), (unsigned)s.B);
+  slab_fwd_kernel<T, V><<<grid, SLAB_NT, 0, st>>>(h1, wd, bd, a2, gp, s);
+}
+
+template <typename T, int V>
+void launch_slabs_bwd(const float* h1, const float* dhc, const float* wd, T* dh1,
+                      float* part, const Slab& s, cudaStream_t st) {
+  const dim3 grid((unsigned)((s.ldh / V + s.CVB - 1) / s.CVB),
+                  (unsigned)(s.nyb * s.nxb), (unsigned)s.B);
+  slab_bwd_kernel<T, V><<<grid, SLAB_NT, 0, st>>>(h1, dhc, wd, dh1, part, s);
 }
 
 template <typename T>
 struct FfnBwdBuffers {
-  T *xn, *a2;
-  float *h1, *hc, *dhc, *dxn, *part;
+  T *xn, *gpad, *hid;        // [M, kpad(C)], [M, kpad(C)], a2 then dh1 [M, ldh]
+  float *h1, *gp, *dxn, *red, *part;
 };
 
-static long long max_ll(long long a, long long b) { return a > b ? a : b; }
+long long max_ll(long long a, long long b) { return a > b ? a : b; }
 
 template <typename T>
-static FfnBwdBuffers<T> ffn_bwd_buffers(Workspace& ws, long long M, int C, int Hd) {
+FfnBwdBuffers<T> ffn_bwd_buffers(Workspace& ws, int B, int H, int W, int C,
+                                 int Hd) {
+  const long long M = (long long)B * H * W;
+  const Slab s = make_slab(B, H, W, Hd, kpad(Hd));
   FfnBwdBuffers<T> b;
   b.xn = ws.take<T>(M * kpad(C));
-  b.a2 = ws.take<T>(M * Hd);
+  b.gpad = ws.take<T>(M * kpad(C));
+  b.hid = ws.take<T>(M * kpad(Hd));
   b.h1 = ws.take<float>(M * Hd);
-  b.hc = ws.take<float>(M * Hd);  // then dh1
-  b.dhc = ws.take<float>(M * Hd);
+  b.gp = ws.take<float>(M * Hd);  // gelu'(hc), then dhc
   b.dxn = ws.take<float>(M * C);
+  b.red = ws.take<float>(11LL * Hd);
   long long part = chunk_count(M) * (long long)C * Hd;
-  part = max_ll(part, chunk_count(M) * 9LL * Hd);
+  part = max_ll(part, (long long)s.B * s.nyb * s.nxb * 11LL * Hd);
   part = max_ll(part, ln_bwd_blocks(M) * 2LL * C);
+  part = max_ll(part, chunk_count(M) * (long long)C);
   b.part = ws.take<float>(part);
   return b;
 }
 
 template <typename T>
-static cudaError_t lewin_ffn_bwd(const void* x, const void* g, const float* lns,
-                                 const float* lnb, const void* w1t,
-                                 const float* b1, const float* wd,
-                                 const float* bd, const void* w2t, void* ws_base,
-                                 long long ws_bytes, void* dx, float* dln,
-                                 float* dw1, float* db1, float* dwd, float* dbd,
-                                 float* dw2, float* db2, int B, int H, int W,
-                                 int C, int Hd, float eps, cudaStream_t st) {
+cudaError_t lewin_ffn_bwd(const void* x, const void* g, const float* lns,
+                          const float* lnb, const void* w1t, const void* w1n,
+                          const float* b1, const float* wd, const float* bd,
+                          const void* w2n, void* ws_base, long long ws_bytes,
+                          void* dx, float* dln, float* dw1, float* db1,
+                          float* dwd, float* dbd, float* dw2, float* db2, int B,
+                          int H, int W, int C, int Hd, float eps,
+                          cudaStream_t st) {
   const long long M = (long long)B * H * W;
   Workspace ws{static_cast<unsigned char*>(ws_base), 0};
-  const FfnBwdBuffers<T> b = ffn_bwd_buffers<T>(ws, M, C, Hd);
+  const FfnBwdBuffers<T> b = ffn_bwd_buffers<T>(ws, B, H, W, C, Hd);
   if ((long long)ws.off > ws_bytes) return cudaErrorInvalidValue;
   const int ldc = kpad(C), ldh = kpad(Hd);
-  const unsigned eblocks = (unsigned)((M * Hd + 255) / 256);
+  const bool vec = Hd % 4 == 0;
+  const Slab s = make_slab(B, H, W, Hd, ldh);
+  cudaError_t err;
 
-  // recompute: xn = LN2(x), h1 = xn W1 + b1, hc, a2
+  // xn = LN2(x) and g, as the products' operands [M, kpad(C)]
   launch_prep<T>(x, C, identity_map(), M, lns, lnb, eps, b.xn, st);
-  BGemmArgs g1{};
-  g1.A = b.xn;
-  g1.sam = ldc;
-  g1.sak = 1;
-  g1.B = w1t;  // [Hd, kpad(C)]: B(k = c, n = j) = w1t[j, c]
-  g1.sbk = 1;
-  g1.sbn = ldc;
-  g1.C = b.h1;
-  g1.M = M;
-  g1.N = Hd;
-  g1.K = C;
-  g1.bias = b1;
-  launch_bgemm<T>(g1, st);
-  conv_fwd_kernel<T><<<eblocks, 256, 0, st>>>(b.h1, wd, bd, b.hc, b.a2, M, H, W, Hd);
+  launch_prep<T>(g, C, identity_map(), M, nullptr, nullptr, 0.f, b.gpad, st);
 
-  // db2 = sum g; dhc = (g W2^T) gelu'(hc); dW2 = a2^T g; dbd = sum dhc
+  // h1 = xn W1 + b1 (fp32); a2 and gelu'(hc)
+  err = gemm_nt<T>(b.xn, ldc, w1t, ldc, b.h1, Hd, M, Hd, ldc, b1, nullptr, 0, st);
+  if (err != cudaSuccess) return err;
+  if (vec)
+    launch_slabs_fwd<T, 4>(b.h1, wd, bd, b.hid, b.gp, s, st);
+  else
+    launch_slabs_fwd<T, 1>(b.h1, wd, bd, b.hid, b.gp, s, st);
+
+  // dhc = (g W2^T) gelu'(hc), over gelu'(hc); dW2 = a2^T g; db2 = sum g
+  err = gemm_nt<T>(b.gpad, ldc, w2n, ldc, b.gp, Hd, M, Hd, ldc, nullptr, b.gp,
+                   Hd, st);
+  if (err != cudaSuccess) return err;
+  err = weight_grad_tn<T>(b.hid, ldh, b.gpad, ldc, M, Hd, C, b.part, dw2, st);
+  if (err != cudaSuccess) return err;
   column_sums<T>(g, 0, C, M, C, b.part, db2, st);
-  BGemmArgs g2{};
-  g2.A = g;
-  g2.sam = C;
-  g2.sak = 1;
-  g2.B = w2t;  // [C, kpad(Hd)]: B(k = c, n = j) = w2t[c, j]
-  g2.sbk = ldh;
-  g2.sbn = 1;
-  g2.C = b.dhc;
-  g2.M = M;
-  g2.N = Hd;
-  g2.K = C;
-  g2.aux = b.hc;
-  launch_bgemm<T>(g2, st);
-  weight_grad<T>(b.a2, Hd, 0, g, C, 0, M, Hd, C, b.part, dw2, st);
-  column_sums<T>(b.dhc, 1, Hd, M, Hd, b.part, dbd, st);
 
-  // dwd
-  {
-    const long long rc = chunk_rows(M), S = chunk_count(M);
-    const dim3 grid((unsigned)((Hd + DWD_CH - 1) / DWD_CH), (unsigned)S);
-    dwd_kernel<<<grid, DWD_CH * DWD_LANES, 0, st>>>(b.h1, b.dhc, M, H, W, Hd,
-                                                    rc, b.part);
-    launch_reduce(b.part, dwd, 1, S, 9LL * Hd, st);
-  }
+  // dh1 (over a2, which is spent) and the dwd / dbd / db1 partials
+  const float* dhc = b.gp;
+  if (vec)  // two channels a thread: its windows and 11 sums fit two CTAs a SM
+    launch_slabs_bwd<T, 2>(b.h1, dhc, wd, b.hid, b.part, s, st);
+  else
+    launch_slabs_bwd<T, 1>(b.h1, dhc, wd, b.hid, b.part, s, st);
+  launch_reduce8(b.part, b.red, (long long)s.B * s.nyb * s.nxb, 11LL * Hd, st);
+  err = cudaMemcpyAsync(dwd, b.red, sizeof(float) * 9 * Hd,
+                        cudaMemcpyDeviceToDevice, st);
+  if (err == cudaSuccess)
+    err = cudaMemcpyAsync(dbd, b.red + 9 * Hd, sizeof(float) * Hd,
+                          cudaMemcpyDeviceToDevice, st);
+  if (err == cudaSuccess)
+    err = cudaMemcpyAsync(db1, b.red + 10 * Hd, sizeof(float) * Hd,
+                          cudaMemcpyDeviceToDevice, st);
+  if (err != cudaSuccess) return err;
 
-  // dh1 (over hc, which is spent); dW1 = xn^T dh1; db1 = sum dh1
-  float* dh1 = b.hc;
-  conv_bwd_kernel<<<eblocks, 256, 0, st>>>(b.h1, b.dhc, wd, dh1, M, H, W, Hd);
-  weight_grad<T>(b.xn, ldc, 0, dh1, Hd, 1, M, C, Hd, b.part, dw1, st);
-  column_sums<T>(dh1, 1, Hd, M, Hd, b.part, db1, st);
-
-  // dxn = dh1 W1^T; dx = LN backward of dxn + g
-  BGemmArgs g3{};
-  g3.A = dh1;
-  g3.a_f32 = 1;
-  g3.sam = Hd;
-  g3.sak = 1;
-  g3.B = w1t;  // B(k = j, n = c) = w1t[j, c]
-  g3.sbk = ldc;
-  g3.sbn = 1;
-  g3.C = b.dxn;
-  g3.M = M;
-  g3.N = C;
-  g3.K = Hd;
-  launch_bgemm<T>(g3, st);
+  // dW1 = xn^T dh1; dxn = dh1 W1^T; dx = LN backward of dxn + g
+  err = weight_grad_tn<T>(b.xn, ldc, b.hid, ldh, M, C, Hd, b.part, dw1, st);
+  if (err != cudaSuccess) return err;
+  err = gemm_nt<T>(b.hid, ldh, w1n, ldh, b.dxn, C, M, C, ldh, nullptr, nullptr,
+                   0, st);
+  if (err != cudaSuccess) return err;
   return launch_ln_bwd<T>(x, g, b.dxn, lns, identity_map(), M, C, eps, 1, dx,
                           b.part, dln, st);
 }
+
+}  // namespace
 
 // bytes of workspace fairm_lewin_ffn_bwd needs
 extern "C" long long fairm_lewin_ffn_bwd_ws(int B, int H, int W, int C, int Hd,
                                             int is_bf16) {
   Workspace ws{nullptr, 0};
-  const long long M = (long long)B * H * W;
   if (is_bf16)
-    ffn_bwd_buffers<bf16_t>(ws, M, C, Hd);
+    ffn_bwd_buffers<bf16_t>(ws, B, H, W, C, Hd);
   else
-    ffn_bwd_buffers<float>(ws, M, C, Hd);
+    ffn_bwd_buffers<float>(ws, B, H, W, C, Hd);
   return (long long)ws.off + 256;
 }
 
 extern "C" int fairm_lewin_ffn_bwd(const void* x, const void* g, const void* lns,
                                    const void* lnb, const void* w1t,
-                                   const void* b1, const void* wd,
-                                   const void* bd, const void* w2t, void* ws,
-                                   void* dx, void* dln, void* dw1, void* db1,
-                                   void* dwd, void* dbd, void* dw2, void* db2,
+                                   const void* w1n, const void* b1,
+                                   const void* wd, const void* bd,
+                                   const void* w2n, void* ws, void* dx,
+                                   void* dln, void* dw1, void* db1, void* dwd,
+                                   void* dbd, void* dw2, void* db2,
                                    long long ws_bytes, int B, int H, int W,
                                    int C, int Hd, int is_bf16, float eps,
                                    void* stream) {
   auto f = [&](auto tag) {
     using T = decltype(tag);
     return lewin_ffn_bwd<T>(x, g, (const float*)lns, (const float*)lnb, w1t,
-                            (const float*)b1, (const float*)wd,
-                            (const float*)bd, w2t, ws, ws_bytes, dx,
+                            w1n, (const float*)b1, (const float*)wd,
+                            (const float*)bd, w2n, ws, ws_bytes, dx,
                             (float*)dln, (float*)dw1, (float*)db1, (float*)dwd,
                             (float*)dbd, (float*)dw2, (float*)db2, B, H, W, C,
                             Hd, eps, (cudaStream_t)stream);

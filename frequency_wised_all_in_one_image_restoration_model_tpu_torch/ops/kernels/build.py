@@ -65,9 +65,9 @@ SIGNATURES = {
     # dbqkv, dwp, dbp, dbias, dlam, ws_bytes, B, H, W, C, h, win, groups, res,
     # bf16, eps, stream
     "fairm_lewin_attn_bwd": [_P] * 19 + [_Q] + [_I] * 9 + [_F, _P],
-    # x, g, lns, lnb, w1t, b1, wd, bd, w2t, ws, dx, dln, dw1, db1, dwd, dbd,
-    # dw2, db2, ws_bytes, B, H, W, C, Hd, bf16, eps, stream
-    "fairm_lewin_ffn_bwd": [_P] * 18 + [_Q] + [_I] * 6 + [_F, _P],
+    # x, g, lns, lnb, w1t, w1n, b1, wd, bd, w2n, ws, dx, dln, dw1, db1, dwd,
+    # dbd, dw2, db2, ws_bytes, B, H, W, C, Hd, bf16, eps, stream
+    "fairm_lewin_ffn_bwd": [_P] * 19 + [_Q] + [_I] * 6 + [_F, _P],
     # y, g, wqkv, bqkv, wp, bias, mask, ws, dy, dwqkv, dbqkv, dwp, dbp, dbias,
     # ws_bytes, LB, H, W, C, h, win, L, bf16, stream
     "fairm_freq_inter_bwd": [_P] * 14 + [_Q] + [_I] * 8 + [_P],
@@ -79,6 +79,9 @@ SIGNATURES = {
     # x, offset, mask, wt, bias, cols, out, B, H, W, C, Ho, Wo, Cout, kh, kw,
     # pad, dil, clamp, bf16, stream
     "fairm_dcn": [_P] * 7 + [_I] * 11 + [_F, _I, _P],
+    # x, offset, mask, wkn, g, ws, dx, doffset, dmask, dweight, dbias,
+    # ws_bytes, B, H, W, C, Ho, Wo, Cout, kh, kw, pad, dil, bf16, stream
+    "fairm_dcn_bwd": [_P] * 11 + [_Q] + [_I] * 12 + [_P],
 }
 # the backward kernels' workspace sizes in bytes (they return a long long)
 WORKSPACE_SIGNATURES = {
@@ -90,6 +93,8 @@ WORKSPACE_SIGNATURES = {
     "fairm_freq_inter_bwd_ws": [_I] * 8,
     # W, h, n, nk
     "fairm_window_attn_bwd_ws": [_I] * 4,
+    # B, H, W, C, Ho, Wo, Cout, kh, kw, bf16
+    "fairm_dcn_bwd_ws": [_I] * 10,
 }
 
 

@@ -1254,8 +1254,9 @@ def ffn_bwd_kernel(x_img, g, lns, lnb, w1, b1, wd, bd, w2, eps: float):
             (C, Hd), (3, 3, Hd), (Hd, C)):
         raise ValueError(f"FFN weights {tuple(w1.shape)}, {tuple(wd.shape)}, "
                          f"{tuple(w2.shape)} for C={C}")
-    with torch.no_grad():  # the forward's formats (ffn_operands)
-        w1t, w2t = _nk(w1.t(), x_img.dtype), _nk(w2.t(), x_img.dtype)
+    with torch.no_grad():  # the products' operands [N, kpad(K)]
+        dt = x_img.dtype
+        w1t, w1n, w2n = _nk(w1.t(), dt), _nk(w1, dt), _nk(w2, dt)
         b1, bd = _f32(b1, (Hd,)), _f32(bd, (Hd,))
         wd = _f32(wd, (3, 3, Hd))
         lns, lnb = _f32(lns, (C,)), _f32(lnb, (C,))
@@ -1268,7 +1269,7 @@ def ffn_bwd_kernel(x_img, g, lns, lnb, w1, b1, wd, bd, w2, eps: float):
     nbytes = lib.fairm_lewin_ffn_bwd_ws(B, H, W, C, Hd, _DTYPES[dt])
     ws = _workspace(nbytes, x_img)
     _run(lib.fairm_lewin_ffn_bwd, _ptr(x_img), _ptr(g), _ptr(lns), _ptr(lnb),
-         _ptr(w1t), _ptr(b1), _ptr(wd), _ptr(bd), _ptr(w2t),
+         _ptr(w1t), _ptr(w1n), _ptr(b1), _ptr(wd), _ptr(bd), _ptr(w2n),
          _ptr(ws), _ptr(dx), _ptr(dln), _ptr(dw1), _ptr(db1), _ptr(dwd),
          _ptr(dbd), _ptr(dw2), _ptr(db2), nbytes, B, H, W, C, Hd, _DTYPES[dt],
          float(eps), _stream(x_img))

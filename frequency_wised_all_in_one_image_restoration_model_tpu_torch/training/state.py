@@ -34,6 +34,19 @@ class TrainState:
         return list(self.encoder.parameters()) + list(self.decoder.parameters())
 
 
+def reproducible_backends() -> None:
+    """Make a training step give equal bits when run twice from one state,
+    as the JAX package's steps do. cuDNN picks its convolution algorithms
+    by timing them (``benchmark``) and may pick weight-gradient algorithms
+    that add with float atomics, so the ResNet encoder's and the decoders'
+    convolutions (InputProj, Downsample, Upsample, OutputProj, DGRN, the
+    offset heads) would change their gradients from run to run in the last
+    bits; ``deterministic`` restricts it to reproducible ones. The port's
+    own kernels need nothing: none adds with float atomics."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
 def make_optimizer(cfg, params) -> torch.optim.Adam:
     """Adam over the full parameter list (reference train.py:63), PyTorch's
     defaults (betas 0.9 / 0.999, eps 1e-8), which are also optax's."""

@@ -23,7 +23,7 @@ import torch
 from ..models import moco
 from ..models.airnet import ModelBundle
 from . import losses
-from .state import TrainState
+from .state import TrainState, reproducible_backends
 
 ARRAY_BATCH_KEYS = ("d1", "d2", "c1", "c2", "de_id")
 
@@ -55,6 +55,7 @@ def make_train_step(cfg, bundle: ModelBundle, joint: bool,
     if upto not in ("loss", "grads", "full"):
         raise ValueError(f"upto must be loss / grads / full, got {upto!r}")
     del bundle  # the modules a step runs are the state's
+    reproducible_backends()
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:

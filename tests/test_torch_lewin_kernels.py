@@ -263,7 +263,7 @@ def test_build_targets_hopper_and_tracks_sources(tmp_path, monkeypatch):
         "lewin_attn.cu", "lewin_ffn.cu", "freq_inter.cu", "lewin_merged.cu",
         "freq_merged.cu", "lewin_attn_bwd.cu", "lewin_ffn_bwd.cu",
         "freq_inter_bwd.cu", "window_attn.cu", "window_attn_bwd.cu", "dcn.cu",
-        "lewin_attn_split.cu", "lewin_ffn_split.cu"}
+        "lewin_attn_split.cu", "lewin_ffn_split.cu", "dcn_bwd.cu"}
     # the library directory is named by a hash of every csrc file
     for p in build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())

@@ -1,10 +1,12 @@
 """Where one launch of a backward block kernel (K6, K7, K8) spends its device
 time: every ``__global__`` pass of the launch by name, from ``torch.profiler``,
-at the flagship's res-128 shapes and the training batch.
+at the flagship's res-128 shapes and the training batch; with ``--k7``, K7
+at the shapes of ``chip_smoke.py``'s K7 table (res 128, C = 56 and res 16,
+C = 896).
 
 Run on a machine with an NVIDIA GPU, from the root of the checkout:
 
-    python3 tools/bwd_kernel_profile.py [--dtype bfloat16] [--batch 4]
+    python3 tools/bwd_kernel_profile.py [--dtype bfloat16] [--batch 4] [--k7]
 
 Prints the card's name and power limit, then per kernel the passes in order
 of device time. Imports the PyTorch port only.
@@ -26,6 +28,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--k7", action="store_true",
+                    help="K7 at the shapes of chip_smoke.py's K7 table")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -43,9 +47,12 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip())
     dtype = getattr(torch, args.dtype)
-    for case in chip_smoke.bwd_cases(lb, windows, dtype, args.batch):
-        if "res128" not in case.label:
-            continue
+    if args.k7:
+        cases = [c for c, _ in chip_smoke.k7_cases(lb, dtype, args.batch)]
+    else:
+        cases = [c for c in chip_smoke.bwd_cases(lb, windows, dtype, args.batch)
+                 if "res128" in c.label]
+    for case in cases:
         case.run()
         ms = chip_smoke.time_ms(case.run, iters=5, warmup=1)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
