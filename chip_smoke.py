@@ -44,7 +44,9 @@ Phases, each fatal on failure:
    against ``torch.autograd.grad`` of the forward twin; then K7's table:
    bf16 / fp32 x B = 4 / 32 x res 128 (C = 56) / res 16 (C = 896), against
    its twin, beside a yardstick of ``torch.matmul`` over its five
-   products' shapes;
+   products' shapes; then K6's table, the same at the shapes of K6's
+   cases (decoder res 128 / 8, encoder intra res 128 / 8) beside
+   ``torch.matmul`` over its eleven products' shapes;
 9. training, the main path of the training slice: the entry point
    ``<port>.train.main`` on the synthetic loader at full width, B=4,
    bfloat16 (two phase-A steps, two joint steps, the end-of-epoch eval, the
@@ -53,13 +55,15 @@ Phases, each fatal on failure:
    counts held against fixed numbers); one joint step by the default route
    against the plain route from the same state (loss and every gradient,
    fp32 and bf16); the step time and its forward / backward / optimizer
-   split by CUDA events;
+   split by CUDA events; one traced joint step at B=32 (bf16, default
+   route), with each kernel's device time over all of its passes;
 10. the kernels of the decoder's injection methods: the window attention
     K9 and its backward K10 against their plain versions at the main
     path's three window shapes ((n, nk, d) = (64, 64, 56), (64, 192, 56),
     (192, 192, 28)) at res 128, shifted and not, and at res 8, in bf16 and
     fp32 (K10: every output, equal bits on a second launch), beside
-    ``scaled_dot_product_attention`` with the same additive bias and mask;
+    ``scaled_dot_product_attention`` with the same additive bias and mask
+    (K10 over the library's backward printed for each case);
     ``WindowAttentionFn`` against autograd of the plain forward; the DCN
     K11 against ``dcn_plain`` at every deform_conv stage (C = 112 ... 896)
     and at DGRN's (C = 64, 3), exact and with offsets clamped to 2, offsets
@@ -126,6 +130,7 @@ with 1 and prints no result.
 from __future__ import annotations
 
 import argparse
+import bisect
 import copy
 import dataclasses
 import functools
@@ -883,23 +888,55 @@ def profile_forward(airnet, bundle, x, label: str, card: str, top: int = 15):
                  f"{label} (bf16, B={x.shape[0]}; {card}): forward", top)
 
 
+class LauncherRanges:
+    """While active, every kernel launcher of the port's wrappers (their
+    ``_run``) runs inside a profiler range named after its C entry point,
+    so that a trace can add up each kernel's device time over all of its
+    passes; measurement only, restored on exit."""
+
+    def __init__(self, *modules):
+        self.modules = [m for m in modules if hasattr(m, "_run")]
+        self.saved = []
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        self.saved = [(m, m._run) for m in self.modules]
+        for m, run in self.saved:
+            def ranged(fn, *args, run=run):
+                with record_function(fn.__name__):
+                    run(fn, *args)
+            m._run = ranged
+        return self
+
+    def __exit__(self, *exc):
+        for m, run in self.saved:
+            m._run = run
+
+
 def profile_call(fn, label: str, top: int = 15):
     """One traced call of ``fn``: device time by kernel name, busy time
-    against the untraced call's time by CUDA events."""
+    against the untraced call's time by CUDA events, and the device time of
+    each kernel of the port over all of its passes (its launcher's range)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace
 
     fwd = time_ms(fn, iters=5)
-    with trace(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with LauncherRanges(*COUNTERS.modules), trace(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans, by_name = [], {}
+    spans, by_name, ranges = [], {}, []
     for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name.startswith("fairm_"):  # a launcher's range on the device
+            ranges.append((e.time_range.start, e.time_range.end, e.name))
+            continue
         # device work only: a range such as Optimizer.step is annotated on
         # the device's timeline too
-        if e.device_type != DeviceType.CUDA or getattr(
-                e, "is_user_annotation", False):
+        if getattr(e, "is_user_annotation", False):
             continue
         t0, t1 = e.time_range.start, e.time_range.end   # microseconds
         spans.append((t0, t1))
@@ -922,6 +959,21 @@ def profile_call(fn, label: str, top: int = 15):
           f"traced span, {1 - busy / 1e3 / fwd:.3f} of the untraced call)")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         print(f"  {us / 1e3:9.3f} ms x {n:4d}  {name[:110]}")
+    # each launcher's range holds only its own passes (one stream): the
+    # device time of the kernels inside it
+    starts, by_kernel = [t0 for t0, _ in spans], {}
+    for r0, r1, name in ranges:
+        i, us = bisect.bisect_left(starts, r0), 0.0
+        while i < len(spans) and spans[i][0] < r1:
+            us += min(spans[i][1], r1) - spans[i][0]
+            i += 1
+        n, total = by_kernel.get(name, (0, 0.0))
+        by_kernel[name] = (n + 1, total + us)
+    if by_kernel:
+        print("  by kernel of the port, the device time of every pass of its "
+              "launches (share of busy):")
+        for name, (n, us) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1]):
+            print(f"  {us / 1e3:9.3f} ms x {n:4d}  {name} ({us / busy:.3f})")
 
 
 # ---------------------------------------------------------------------------
@@ -938,6 +990,7 @@ class BwdCase(NamedTuple):
     plain: Callable
     flops: float
     nbytes: int
+    dims: tuple = ()     # K6: (rows M, C, heads, window tokens n)
 
 
 def bwd_cases(lb, windows, dtype, B):
@@ -988,7 +1041,8 @@ def bwd_cases(lb, windows, dtype, B):
             + (" lam" if with_lam else ""),
             lambda a=args: lb.attn_block_bwd(*a),
             lambda a=args: lb.attn_block_bwd_plain(*a),
-            attn_flops(B * res * res, C, n), nbytes(x, *args[2:13])))
+            attn_flops(B * res * res, C, n), nbytes(x, *args[2:13]),
+            (B * res * res, C, h, n)))
     for res, C, h, shift in ((128, 28, 1, 4), (8, 448, 16, 0)):
         LB = L * B
         x, g = rnd(LB, res, res, C).to(dtype), rnd(LB, res, res, C).to(dtype)
@@ -999,7 +1053,8 @@ def bwd_cases(lb, windows, dtype, B):
             "lewin_attn_bwd", f"intra bwd res{res} C{C} h{h} shift{shift} L{L}",
             lambda a=args: lb.attn_block_bwd(*a),
             lambda a=args: lb.attn_block_bwd_plain(*a),
-            attn_flops(LB * res * res, C, n), nbytes(x, *args[2:13])))
+            attn_flops(LB * res * res, C, n), nbytes(x, *args[2:13]),
+            (LB * res * res, C, h, n)))
         args = [x, g, *aw, rnd(h, L * n, L * n, scale=0.05), mask, L, 8]
         cases.append(BwdCase(
             "freq_inter_bwd", f"freq_inter_bwd res{res} C{C} h{h} shift{shift} L{L}",
@@ -1193,9 +1248,75 @@ def k7_table(lb, card: str):
                 torch.cuda.empty_cache()
 
 
+def k6_yardstick(dims, dtype):
+    """``torch.matmul`` over the shapes of K6's eleven products in
+    ``dtype``, on operands made once: the qkv recompute, ``gw Wp^T``,
+    ``out^T gw``, ``xw^T dqkv`` and ``dqkv Wqkv^T`` over the M rows, and
+    per window and head the logits, ``p v``, ``dog v^T``, ``p^T dog``,
+    ``dl k`` and ``dl^T q`` (batched over the windows and heads)."""
+    M, C, h, n = dims
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen,
+                                     device="cuda").to(dtype)
+    x, w3, wp, q = rnd(M, C), rnd(C, 3 * C), rnd(C, C), rnd(M // n * h, n, C // h)
+    p = rnd(M // n * h, n, n)
+
+    def run():
+        qkv = torch.matmul(x, w3)              # qkv recompute
+        torch.matmul(x, wp.t())                # dout = gw Wp^T
+        torch.matmul(x.t(), x)                 # dWp = out^T gw
+        torch.matmul(x.t(), qkv)               # dWqkv = xw^T dqkv
+        torch.matmul(qkv, w3.t())              # dxw = dqkv Wqkv^T
+        torch.matmul(q, q.transpose(-1, -2))   # logits
+        torch.matmul(p, q)                     # og = p v
+        torch.matmul(q, q.transpose(-1, -2))   # dp = dog v^T
+        torch.matmul(p.transpose(-1, -2), q)   # dv = p^T dog
+        torch.matmul(p, q)                     # dq = dl k
+        torch.matmul(p.transpose(-1, -2), q)   # dk = dl^T q
+    return run
+
+
+def k6_table(lb, windows, card: str):
+    """Phase 8c: K6 at the shapes of ``bwd_cases`` (the decoder block at res
+    128, C = 56, and res 8, C = 896; the encoder's intra attention at res
+    128, C = 28, 3 bands, and res 8, C = 448), bf16 / fp32 x B = 4 / 32:
+    against its twin (every output, equal bits on a second launch), its
+    time beside the plain version's, the bound, and the yardstick of
+    :func:`k6_yardstick` (K6 / yardstick is the ratio two calls compare)."""
+    print(f"K6 table: kernel ms, plain ms, yardstick ms (torch.matmul over "
+          f"its eleven products), bound ({card}):", flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        name_dt = str(dtype)[6:]
+        for B in K7_BATCHES:
+            for case in bwd_cases(lb, windows, dtype, B):
+                if case.kernel != "lewin_attn_bwd":
+                    continue
+                label = f"{case.label} {name_dt} B{B}"
+                got = case.run()
+                torch.cuda.synchronize()
+                compare_all(label, got, case.plain(), BWD_TOL[dtype])
+                again = case.run()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)
+                           if a is not None):
+                    raise Failed(f"{label}: two launches give different bits")
+                del got, again
+                ms = time_ms(case.run, iters=5, warmup=1)
+                pms = time_ms(case.plain, iters=2, warmup=1)
+                yms = time_ms(k6_yardstick(case.dims, dtype), iters=5, warmup=1)
+                t_bytes = case.nbytes / PEAK_BYTES * 1e3
+                t_flops = case.flops / PEAK_FLOPS[dtype] * 1e3
+                bound, by = max(t_bytes, t_flops), (
+                    "bytes" if t_bytes >= t_flops else "operations")
+                print(f"  K6 {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                      f"yardstick {yms:.4f} ms, kernel / yardstick "
+                      f"{ms / yms:.3f}, bound {bound:.4f} ms by {by}",
+                      flush=True)
+            torch.cuda.empty_cache()
+
+
 def check_bwd_kernels(lb, windows, stats, card: str):
     """Phase 8: K6-K8 against their twins (bf16 and fp32 at B=4, bf16 at
-    B=32), the Functions, then K7's table. The kernels line takes each
+    B=32), the Functions, then K7's table and K6's. The kernels line takes each
     kernel's first (res-128) case in bf16 at B=4."""
     for dtype, B in ((torch.bfloat16, TRAIN_BATCH), (torch.float32, TRAIN_BATCH),
                      (torch.bfloat16, BATCH)):
@@ -1230,6 +1351,7 @@ def check_bwd_kernels(lb, windows, stats, card: str):
         if B == TRAIN_BATCH:
             function_checks(lb, windows, dtype)
     k7_table(lb, card)
+    k6_table(lb, windows, card)
 
 
 # ---------------------------------------------------------------------------
@@ -1601,9 +1723,10 @@ def check_window_attention(wa, windows, stats, card: str):
                               iters=3, warmup=1)
                 lms = library_attention_ms(c, True)
                 bound, by = attn_bound(c, dtype, True)
+                ratio = "" if lms is None else f", kernel / library {ms / lms:.3f}"
                 print(f"    backward time: kernel {ms:.4f} ms, plain {pms:.4f} "
                       f"ms, scaled_dot_product_attention backward "
-                      f"{'-' if lms is None else f'{lms:.4f}'} ms, bound "
+                      f"{'-' if lms is None else f'{lms:.4f}'} ms{ratio}, bound "
                       f"{bound:.4f} ms by {by}; equal bits on a second launch",
                       flush=True)
                 st = stats["window_attn_bwd"]
@@ -1830,18 +1953,21 @@ def injection_forward(config, airnet, uformer_lewin, airnet_profile, card,
 
 
 def profile_step(config, airnet, train_state, steps_lib, synthetic, card,
-                 fields):
-    """Phase 12d: one traced joint step (full: forward, backward, Adam, EMA,
-    enqueue) of ``fields`` in bf16 at the CLI's batch by the default route:
-    device time by kernel name, busy and idle share."""
+                 fields, name="per-scale set", batch=TRAIN_BATCH):
+    """Phase 12d (the per-scale set at the CLI's batch) and 9d (the flagship
+    at B=32): one traced joint step (full: forward, backward, Adam, EMA,
+    enqueue) of ``fields`` in bf16 by the default route: device time by
+    kernel name and by kernel of the port, busy and idle share."""
     cfg, bundle, state = fresh_state(config, airnet, train_state, "bfloat16",
-                                     "default", TRAIN_BATCH, fields)
-    data = train_batch(cfg, synthetic, steps_lib, TRAIN_BATCH)
+                                     "default", batch, fields)
+    data = train_batch(cfg, synthetic, steps_lib, batch)
     step = steps_lib.make_train_step(cfg, bundle, joint=True, upto="full")
     step(state, data)
     profile_call(lambda: step(state, data),
-                 f"per-scale set joint step (bf16 default route, "
-                 f"B={TRAIN_BATCH}; {card}): step")
+                 f"{name} joint step (bf16 default route, B={batch}; {card}): "
+                 f"step")
+    state = bundle = data = step = None
+    torch.cuda.empty_cache()
 
 
 def per_scale_train_counts(joint: bool) -> dict:
@@ -2491,6 +2617,8 @@ def main(argv=None) -> int:
             step_against_plain(config, airnet, train_state, steps_lib,
                                synthetic)
             step_times(config, airnet, train_state, steps_lib, synthetic, card)
+            profile_step(config, airnet, train_state, steps_lib, synthetic,
+                         card, None, "flagship", BATCH)
         if 10 in phases:
             marks.append((10, time.perf_counter()))
             check_window_attention(wa, windows, stats, card)

@@ -50,6 +50,7 @@ struct AttnBwdArgs {
   int nW;              // group g is window g % nW of image g / nW
   int imgs_per_bias;
   float scale;         // d^-0.5
+  int ldo, ld3;        // PADDED: row strides of out and dqkv (>= C, 3C)
 };
 
 constexpr int ABNT = 256;
@@ -61,7 +62,8 @@ inline size_t attn_bwd_smem_bytes(int n, int d, bool lam) {
                           2 * (ABNT / 32) * (size_t)n + 2 * d + ABNT / 32);
 }
 
-template <typename T>
+// PADDED (K6): out and dqkv rows of ldo / ld3 elements; else (K8) C / 3C
+template <typename T, bool PADDED>
 __global__ void __launch_bounds__(ABNT) attn_bwd_kernel(const AttnBwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sm = reinterpret_cast<float*>(smem_raw);
@@ -114,8 +116,15 @@ __global__ void __launch_bounds__(ABNT) attn_bwd_kernel(const AttnBwdArgs a) {
   const float* mask = a.mask ? a.mask + (long long)wi * a.n0 * a.n0 : nullptr;
   float* P = a.P + (g * a.h + hh) * (long long)n * n;
   float* DL = a.DL + (g * a.h + hh) * (long long)n * n;
-  T* out = static_cast<T*>(a.out) + g * (long long)n * a.C + hh * d;
-  T* dq_out = static_cast<T*>(a.dqkv) + g * (long long)n * 3 * a.C + hh * d;
+  T* out;
+  T* dq_out;
+  if constexpr (PADDED) {
+    out = static_cast<T*>(a.out) + g * (long long)n * a.ldo + hh * d;
+    dq_out = static_cast<T*>(a.dqkv) + g * (long long)n * a.ld3 + hh * d;
+  } else {
+    out = static_cast<T*>(a.out) + g * (long long)n * a.C + hh * d;
+    dq_out = static_cast<T*>(a.dqkv) + g * (long long)n * 3 * a.C + hh * d;
+  }
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* p = prow + warp * n;
@@ -173,8 +182,13 @@ __global__ void __launch_bounds__(ABNT) attn_bwd_kernel(const AttnBwdArgs a) {
         o = (1.f + lam) * og - (lam / n) * vsum[c];
         clam += dor[i * ld + c] * (og - vsum[c] / n);
       }
-      out[(long long)i * a.C + c] = from_f<T>(o);
-      dq_out[(long long)i * 3 * a.C + c] = from_f<T>(dq * a.scale);
+      if constexpr (PADDED) {
+        out[(long long)i * a.ldo + c] = from_f<T>(o);
+        dq_out[(long long)i * a.ld3 + c] = from_f<T>(dq * a.scale);
+      } else {
+        out[(long long)i * a.C + c] = from_f<T>(o);
+        dq_out[(long long)i * 3 * a.C + c] = from_f<T>(dq * a.scale);
+      }
     }
     __syncwarp();
   }
@@ -215,8 +229,13 @@ __global__ void __launch_bounds__(ABNT) attn_bwd_kernel(const AttnBwdArgs a) {
       if (c >= d) continue;
       float dv = av[u];
       if (a.lam) dv += (-lam / n) * dosum[c];
-      dk_out[(long long)j * 3 * a.C + c] = from_f<T>(ak[u] * a.scale);
-      dv_out[(long long)j * 3 * a.C + c] = from_f<T>(dv);
+      if constexpr (PADDED) {
+        dk_out[(long long)j * a.ld3 + c] = from_f<T>(ak[u] * a.scale);
+        dv_out[(long long)j * a.ld3 + c] = from_f<T>(dv);
+      } else {
+        dk_out[(long long)j * 3 * a.C + c] = from_f<T>(ak[u] * a.scale);
+        dv_out[(long long)j * 3 * a.C + c] = from_f<T>(dv);
+      }
     }
   }
 }
@@ -356,11 +375,11 @@ inline cudaError_t attn_bwd_run(const AttnBwdProblem& p, void* ws_base,
   at.scale = 1.f / sqrtf((float)d);
   const size_t smem = attn_bwd_smem_bytes(n, d, p.lam != nullptr);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;  // group too large
-  err = cudaFuncSetAttribute(attn_bwd_kernel<T>,
+  err = cudaFuncSetAttribute(attn_bwd_kernel<T, false>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  attn_bwd_kernel<T><<<dim3((unsigned)G, (unsigned)h), ABNT, smem, st>>>(at);
+  attn_bwd_kernel<T, false><<<dim3((unsigned)G, (unsigned)h), ABNT, smem, st>>>(at);
 
   // dWp = out^T gw; dWqkv = xw^T dqkv; dbqkv = sum dqkv
   weight_grad<T>(b.out, C, 0, b.gw, ld, 0, M, C, C, b.part, p.dwp, st);

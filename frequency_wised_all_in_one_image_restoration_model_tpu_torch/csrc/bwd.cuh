@@ -330,24 +330,42 @@ inline void weight_grad(const void* A, long long lda, int a_f32, const void* B,
   launch_reduce(part, out, 1, S, (long long)Mw * N, st);
 }
 
-// part[z, n] = sum of X[m, n] over the rows of chunk z
+// part[z, n] = sum of X[m, n] over the rows of chunk z: a block takes 32
+// columns of a chunk, its eight warps eight row lanes (a warp reads 32
+// adjacent columns of a row, and many rows are in flight), the lanes' sums
+// added in lane order
+constexpr int CS_NT = 256;
+
 template <typename T>
-__global__ void colsum_kernel(const void* X, int x_f32, long long ld,
-                              long long M, int N, long long rc, float* part) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+__global__ void __launch_bounds__(CS_NT) colsum_kernel(const void* X, int x_f32,
+                                                       long long ld, long long M,
+                                                       int N, long long rc,
+                                                       float* part) {
+  __shared__ float red[CS_NT / 32][32];
+  const int c = threadIdx.x & 31, lr = threadIdx.x >> 5;
+  const int n = blockIdx.x * 32 + c;
   const long long lo = (long long)blockIdx.y * rc;
-  long long hi = lo + rc;
-  if (hi > M) hi = M;
+  const long long hi = lo + rc < M ? lo + rc : M;
   float acc = 0.f;
-  if (x_f32) {
-    const float* x = static_cast<const float*>(X);
-    for (long long m = lo; m < hi; ++m) acc += x[m * ld + n];
-  } else {
-    const T* x = static_cast<const T*>(X);
-    for (long long m = lo; m < hi; ++m) acc += to_f(x[m * ld + n]);
+  if (n < N) {
+    if (x_f32) {
+      const float* x = static_cast<const float*>(X);
+#pragma unroll 4
+      for (long long m = lo + lr; m < hi; m += CS_NT / 32) acc += x[m * ld + n];
+    } else {
+      const T* x = static_cast<const T*>(X);
+#pragma unroll 4
+      for (long long m = lo + lr; m < hi; m += CS_NT / 32) acc += to_f(x[m * ld + n]);
+    }
   }
-  part[(long long)blockIdx.y * N + n] = acc;
+  red[lr][c] = acc;
+  __syncthreads();
+  if (lr == 0 && n < N) {
+    float v = 0.f;
+#pragma unroll
+    for (int l = 0; l < CS_NT / 32; ++l) v += red[l][c];
+    part[(long long)blockIdx.y * N + n] = v;
+  }
 }
 
 // out[n] = sum_m X[m, n]
@@ -355,8 +373,8 @@ template <typename T>
 inline void column_sums(const void* X, int x_f32, long long ld, long long M,
                         int N, float* part, float* out, cudaStream_t st) {
   const long long rc = chunk_rows(M), S = chunk_count(M);
-  const dim3 grid((unsigned)((N + 127) / 128), (unsigned)S);
-  colsum_kernel<T><<<grid, 128, 0, st>>>(X, x_f32, ld, M, N, rc, part);
+  const dim3 grid((unsigned)((N + 31) / 32), (unsigned)S);
+  colsum_kernel<T><<<grid, CS_NT, 0, st>>>(X, x_f32, ld, M, N, rc, part);
   launch_reduce(part, out, 1, S, N, st);
 }
 
@@ -434,6 +452,91 @@ __global__ void __launch_bounds__(LNB_NT) ln_bwd_kernel(
   }
 }
 
+// The same for C <= 64 (the res-128 stages): eight lanes a row, so a warp
+// takes four rows at once, each lane holding channels lane, lane + 8, ... of
+// x and dxn in registers (one read each); the rows of a warp's four groups
+// are walked in step so that the group shuffles see every lane. Partials
+// per group of eight lanes, added in group order.
+constexpr int LNS_LANES = 8, LNS_CPL = 8, LNS_GROUPS = LNB_NT / LNS_LANES;
+
+template <typename T>
+__global__ void __launch_bounds__(LNB_NT) ln_bwd_small_kernel(
+    const T* x, const T* gin, const float* dxw, const float* lns, RowMap map,
+    long long M, int C, float eps, int res, long long rpb, T* dx, float* part) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* acc = reinterpret_cast<float*>(smem_raw);  // [groups][2C]
+  const int grp = threadIdx.x / LNS_LANES, sub = threadIdx.x % LNS_LANES;
+  float* mine = acc + (long long)grp * 2 * C;
+  float sa[LNS_CPL], sb[LNS_CPL];
+#pragma unroll
+  for (int i = 0; i < LNS_CPL; ++i) sa[i] = sb[i] = 0.f;
+  const long long lo = (long long)blockIdx.x * rpb;
+  const long long hi = lo + rpb < M ? lo + rpb : M;
+  auto gsum = [](float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    return v + __shfl_xor_sync(0xffffffffu, v, 4);
+  };
+  for (long long base = lo; base < hi; base += LNS_GROUPS) {
+    const long long r = base + grp;
+    const bool ok = r < hi;
+    const long long pc = ok ? map_row(map, r) : 0;
+    float xv[LNS_CPL], dv[LNS_CPL], lv[LNS_CPL];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < LNS_CPL; ++i) {
+      const int c = sub + i * LNS_LANES;
+      const bool in = ok && c < C;
+      xv[i] = in ? to_f(x[pc * C + c]) : 0.f;
+      dv[i] = in ? dxw[r * C + c] : 0.f;
+      lv[i] = in ? lns[c] : 0.f;
+      s += xv[i];
+    }
+    const float mu = gsum(s) / C;
+    float var = 0.f;
+#pragma unroll
+    for (int i = 0; i < LNS_CPL; ++i) {
+      const float d = sub + i * LNS_LANES < C ? xv[i] - mu : 0.f;
+      var += d * d;
+    }
+    const float rs = rsqrtf(gsum(var) / C + eps);
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < LNS_CPL; ++i) {
+      const float xh = (xv[i] - mu) * rs, dh = dv[i] * lv[i];
+      m1 += dh;
+      m2 += dh * xh;
+      sa[i] += dv[i] * xh;  // zero where the row or channel is absent
+      sb[i] += dv[i];
+    }
+    m1 = gsum(m1) / C;
+    m2 = gsum(m2) / C;
+#pragma unroll
+    for (int i = 0; i < LNS_CPL; ++i) {
+      const int c = sub + i * LNS_LANES;
+      if (!ok || c >= C) continue;
+      const float xh = (xv[i] - mu) * rs;
+      float v = rs * (dv[i] * lv[i] - m1 - xh * m2);
+      if (res) v += to_f(gin[pc * C + c]);
+      dx[pc * C + c] = from_f<T>(v);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < LNS_CPL; ++i) {
+    const int c = sub + i * LNS_LANES;
+    if (c < C) {
+      mine[c] = sa[i];
+      mine[C + c] = sb[i];
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < 2 * C; c += LNB_NT) {
+    float v = 0.f;
+    for (int g = 0; g < LNS_GROUPS; ++g) v += acc[(long long)g * 2 * C + c];
+    part[(long long)blockIdx.x * 2 * C + c] = v;
+  }
+}
+
 // dx and dln [2, C] = (sum dxn xhat, sum dxn)
 template <typename T>
 inline cudaError_t launch_ln_bwd(const void* x, const void* gin,
@@ -441,12 +544,15 @@ inline cudaError_t launch_ln_bwd(const void* x, const void* gin,
                                  long long M, int C, float eps, int res,
                                  void* dx, float* part, float* dln,
                                  cudaStream_t st) {
-  const size_t smem = sizeof(float) * (LNB_NT / 32) * 2 * (size_t)C;
+  const bool small = C <= LNS_LANES * LNS_CPL;
+  const auto kernel = small ? ln_bwd_small_kernel<T> : ln_bwd_kernel<T>;
+  const size_t smem =
+      sizeof(float) * (small ? LNS_GROUPS : LNB_NT / 32) * 2 * (size_t)C;
   cudaError_t err = cudaFuncSetAttribute(
-      ln_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long rpb = ln_bwd_rows(M), blocks = ln_bwd_blocks(M);
-  ln_bwd_kernel<T><<<(unsigned)blocks, LNB_NT, smem, st>>>(
+  kernel<<<(unsigned)blocks, LNB_NT, smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(gin), dxw, lns, map, M, C,
       eps, res, rpb, static_cast<T*>(dx), part);
   launch_reduce(part, dln, 1, blocks, 2LL * C, st);

@@ -7,27 +7,38 @@
 // d], it recomputes the probabilities and returns
 //   dv = p^T g,  dp = g v^T,  dl = p * (dp - rowsum(dp * p)),
 //   dq = dl k * scale,  dk = dl^T q * scale,  dbias = sum over windows of dl,
-// every product in fp32 on operands taken to fp32 (as the Pallas body
-// does), dq / dk / dv rounded to the inputs' type, dbias fp32 [h, n, nk].
+// dq / dk / dv rounded to the inputs' type, dbias fp32 [h, n, nk].
 //
 // The TPU kernel accumulates dbias across its sequential grid into one
 // revisited block. Blocks of a CUDA grid run in no order, so here the sum
-// over windows is split into chunks of consecutive windows: each block of
-// pass 2 owns one chunk and one head, adds its windows' dl in window order
-// into its own slice of a workspace, and pass 3 sums the slices in chunk
-// order. No float atomics: a second launch gives equal bits.
+// over windows is split into chunks of consecutive windows: each block owns
+// one chunk and one head, adds its windows' dl in window order into its own
+// partial, and a reduce pass sums the partials in chunk order. No float
+// atomics: a second launch gives equal bits.
 //
-// What bounds it on the H100: five products of n nk d multiply-adds per
-// window and head, on the CUDA cores in fp32; the inputs are read about
-// twice. What the design does about it: the probabilities and dl never
-// leave the SM. Pass 1, one block per (window, head) and one warp per query
-// row, recomputes a row of p, dp and dl and writes dq and the row's
-// statistics (max, sum, rowsum(dp * p)); pass 2, one block per (chunk,
-// head) and one warp per key, recomputes a column of p and dl from those
-// statistics and writes dk, dv and the chunk's dbias column (the workspace
-// slice is key-major, so a warp's lanes write adjacent words).
+// What bounds it on the H100: the bytes (q, k, v, g read, dq, dk, dv
+// written once) at the main path's shapes; five products of n nk d
+// multiply-adds per window and head.
+//
+// bf16 at the main path's window shapes (n, nk) = (64, 64), (64, 192) with
+// d <= 64 and (192, 192) with d <= 32 (d a multiple of 4): one launch of the
+// tensor-core core of attention_core_bwd.cuh (the five products on mma.sync,
+// p and dl kept in shared memory as bf16, dbias as fp32 chunk partials in a
+// fixed order), then the chunk reduce. The products round p and dl to bf16,
+// as a TPU's default-precision fp32 product does; the Pallas body keeps them
+// in fp32 (the plain twin does too).
+//
+// fp32 (full precision, no TF32) and every other shape: the CUDA cores,
+// every product in fp32 on operands taken to fp32 (as the Pallas body
+// does), the probabilities and dl never leaving the SM. Pass 1, one block
+// per (window, head) and one warp per query row, recomputes a row of p, dp
+// and dl and writes dq and the row's statistics (max, sum, rowsum(dp * p));
+// pass 2, one block per (chunk, head) and one warp per key, recomputes a
+// column of p and dl from those statistics and writes dk, dv and the
+// chunk's dbias column (the workspace slice is key-major, so a warp's lanes
+// write adjacent words); pass 3 sums the chunks.
 
-#include "gemm.cuh"
+#include "attention_core_bwd.cuh"
 
 using namespace fairm;
 
@@ -230,7 +241,7 @@ __global__ void __launch_bounds__(BNT) cols_kernel(const BwdArgs a) {
 }
 
 // dbias[hh, i, j] = sum over chunks, in chunk order, of part[c, hh, j, i]
-__global__ void reduce_kernel(const BwdArgs a) {
+__global__ void reduce_cols_kernel(const BwdArgs a) {
   const long long per_head = (long long)a.n * a.nk;
   const long long total = per_head * a.h;
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
@@ -273,7 +284,7 @@ cudaError_t run(BwdArgs a, cudaStream_t st) {
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long total = (long long)a.h * a.n * a.nk;
   const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
-  reduce_kernel<<<blocks, 256, 0, st>>>(a);
+  reduce_cols_kernel<<<blocks, 256, 0, st>>>(a);
   return cudaSuccess;
 }
 
@@ -313,13 +324,45 @@ extern "C" int fairm_window_attn_bwd(const void* q, const void* k, const void* v
   chunking(W, h, &a.per, &a.chunks);
   if ((long long)sizeof(float) * ws_floats(W, h, n, nk, a.chunks) > ws_bytes)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (is_bf16 && core_covers(n, nk, d, false)) {
+    // the tensor-core core; its chunk partials fit the workspace's, because
+    // it cuts at most as many chunks
+    CoreBwdArgs c{};
+    c.q = static_cast<const bf16_t*>(q);
+    c.k = static_cast<const bf16_t*>(k);
+    c.v = static_cast<const bf16_t*>(v);
+    c.g = g;
+    c.dq = static_cast<bf16_t*>(dq);
+    c.dk = static_cast<bf16_t*>(dk);
+    c.dv = static_cast<bf16_t*>(dv);
+    c.vq = CoreView{(long long)h * n * d, n * d, d};
+    c.vkv = CoreView{(long long)h * nk * d, nk * d, d};
+    c.vg = c.vdq = c.vq;
+    c.vdkv = c.vkv;
+    c.bias = a.bias;
+    c.mask = a.mask;
+    c.part = static_cast<float*>(ws);
+    c.W = W;
+    c.h = h;
+    c.d = d;
+    c.nW = nW;
+    c.groups = 1;
+    c.scale = scale;
+    cudaError_t err = core_dispatch<false>(n, nk, d, [&](auto shape) {
+      using S = decltype(shape);
+      cudaError_t e = core_chunking<S>(c, a.chunks);
+      return e == cudaSuccess ? core_launch<S>(c, a.dbias, st) : e;
+    });
+    if (err == cudaSuccess) err = cudaGetLastError();
+    return (int)err;
+  }
   float* f = static_cast<float*>(ws);
   const long long rows = (long long)W * h * n;
   a.rmax = f;
   a.rsum = f + rows;
   a.rdot = f + 2 * rows;
   a.part = f + 3 * rows;
-  cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = is_bf16 ? run<bf16_t>(a, st) : run<float>(a, st);
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;

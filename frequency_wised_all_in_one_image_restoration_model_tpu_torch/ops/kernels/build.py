@@ -61,10 +61,10 @@ SIGNATURES = {
     # out, stamps, scratch_elems, LB, H, W, C, h, win, shift, L, Hd, bf16, eps,
     # stream
     "fairm_freq_merged": [_P] * 27 + [_Q] + [_I] * 10 + [_F, _P],
-    # x, g, lns, lnb, wqkv, bqkv, wp, bias, mask, lam, ws, dx, dln, dwqkv,
-    # dbqkv, dwp, dbp, dbias, dlam, ws_bytes, B, H, W, C, h, win, groups, res,
-    # bf16, eps, stream
-    "fairm_lewin_attn_bwd": [_P] * 19 + [_Q] + [_I] * 9 + [_F, _P],
+    # x, g, lns, lnb, wqkv, bqkv, wp, wqkvn, wpn, bias, mask, lam, ws, dx,
+    # dln, dwqkv, dbqkv, dwp, dbp, dbias, dlam, ws_bytes, B, H, W, C, h, win,
+    # groups, res, bf16, eps, stream
+    "fairm_lewin_attn_bwd": [_P] * 21 + [_Q] + [_I] * 9 + [_F, _P],
     # x, g, lns, lnb, w1t, w1n, b1, wd, bd, w2n, ws, dx, dln, dw1, db1, dwd,
     # dbd, dw2, db2, ws_bytes, B, H, W, C, Hd, bf16, eps, stream
     "fairm_lewin_ffn_bwd": [_P] * 19 + [_Q] + [_I] * 6 + [_F, _P],
@@ -85,8 +85,8 @@ SIGNATURES = {
 }
 # the backward kernels' workspace sizes in bytes (they return a long long)
 WORKSPACE_SIGNATURES = {
-    # B, H, W, C, h, win, bf16
-    "fairm_lewin_attn_bwd_ws": [_I] * 7,
+    # B, H, W, C, h, win, groups, bf16
+    "fairm_lewin_attn_bwd_ws": [_I] * 8,
     # B, H, W, C, Hd, bf16
     "fairm_lewin_ffn_bwd_ws": [_I] * 6,
     # LB, H, W, C, h, win, L, bf16

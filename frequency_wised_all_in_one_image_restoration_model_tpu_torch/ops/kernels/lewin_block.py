@@ -1165,6 +1165,14 @@ def _attn_bwd_operands(x, wq3, bq3, wk3, bk3, wv3, bv3, wp3):
     return wqkv, bqkv.contiguous(), _nk(wp3.reshape(C, C).t(), x.dtype)
 
 
+def _attn_bwd_nt_operands(wqkv, wp3):
+    """K6's B operands of ``dqkv Wqkv^T`` and ``gw Wp^T``: ``Wqkv [C, 3C]``
+    and ``Wp [C, C]`` as they are, rows zero-padded to kpad, from the
+    forward's ``wqkv [3C, kpad(C)]`` and the per-head ``wp3``."""
+    C = wp3.shape[-1]
+    return _nk(wqkv[:, :C].t(), wqkv.dtype), _nk(wp3.reshape(C, C), wqkv.dtype)
+
+
 def attn_bwd_kernel(x_img, g, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3, wp3,
                     bias, mask, lam, win: int, eps: float, res: bool,
                     bias_groups: int):
@@ -1183,6 +1191,7 @@ def attn_bwd_kernel(x_img, g, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3, wp3,
     with torch.no_grad():
         wqkv, bqkv, wp = _attn_bwd_operands(x_img, wq3, bq3, wk3, bk3, wv3,
                                             bv3, wp3)
+        wqkvn, wpn = _attn_bwd_nt_operands(wqkv, wp3)
         bias = _f32(bias, (bias_groups, h, n, n) if bias_groups > 1
                     else (h, n, n))
         mask = _f32(mask, (nW, n, n))
@@ -1195,11 +1204,15 @@ def attn_bwd_kernel(x_img, g, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3, wp3,
     dwp, dbp, dbias = f32(C, C), f32(C), torch.empty_like(bias)
     dlam = None if lam is None else f32(B, h)
     lib = load()
-    nbytes = lib.fairm_lewin_attn_bwd_ws(B, H, W, C, h, win, _DTYPES[dt])
+    nbytes = lib.fairm_lewin_attn_bwd_ws(B, H, W, C, h, win, bias_groups,
+                                         _DTYPES[dt])
+    if nbytes < 0:
+        raise RuntimeError("fairm_lewin_attn_bwd_ws: the kernel refused "
+                           f"{tuple(x_img.shape)}, h={h}, win={win}")
     ws = _workspace(nbytes, x_img)
     _run(lib.fairm_lewin_attn_bwd, _ptr(x_img), _ptr(g), _ptr(lns), _ptr(lnb),
-         _ptr(wqkv), _ptr(bqkv), _ptr(wp), _ptr(bias), _ptr(mask), _ptr(lam),
-         _ptr(ws), _ptr(dx), _ptr(dln), _ptr(dwqkv), _ptr(dbqkv), _ptr(dwp),
+         _ptr(wqkv), _ptr(bqkv), _ptr(wp), _ptr(wqkvn), _ptr(wpn), _ptr(bias),
+         _ptr(mask), _ptr(lam), _ptr(ws), _ptr(dx), _ptr(dln), _ptr(dwqkv), _ptr(dbqkv), _ptr(dwp),
          _ptr(dbp), _ptr(dbias), _ptr(dlam), nbytes, B, H, W, C, h, win,
          bias_groups, int(res), _DTYPES[dt], float(eps), _stream(x_img))
     LAUNCHES["lewin_attn_bwd"] += 1

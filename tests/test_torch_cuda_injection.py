@@ -97,6 +97,34 @@ def test_window_attention_bwd_kernel(card, dtype, shape, masked):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("windows", [997, 1])
+@pytest.mark.parametrize("shape", SHAPES[:3])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_window_attention_bwd_chunk_edges(card, dtype, shape, windows):
+    """K10's sums over windows at the edges of its chunking, one head: 997
+    windows (a prime: the last chunk of windows is short whatever the
+    chunk size, masked), and one window (one chunk, unmasked); in bf16 the
+    tensor-core core, in fp32 the CUDA cores; two launches give equal
+    bits."""
+    n, nk, d = shape
+    q, k, v = (_rnd(card, windows, 1, m, d, dtype=dtype) for m in (n, nk, nk))
+    bias = _rnd(card, 1, n, nk, scale=0.5)
+    mask = None
+    if windows > 1:
+        mask = (torch.rand(1, n, nk, generator=card, device="cuda") < 0.3
+                ).float() * -100.0
+    g = _rnd(card, *q.shape, dtype=dtype)
+    args = (q, k, v, bias, mask, g, d ** -0.5, 1)
+    wa.reset_launches()
+    got = wa.window_attention_bwd(*args)
+    assert wa.LAUNCHES["window_attn_bwd"] == 1
+    for a, b in zip(got, wa.window_attention_bwd_plain(*args)):
+        _check(a, b, BWD_TOL[dtype])
+    again = wa.window_attention_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_window_attention_function(card, dtype):
     """The Function (K9 forward, K10 backward) against autograd of the

@@ -349,6 +349,60 @@ def test_backward_kernels_at_widths_off_the_vector_paths(card, monkeypatch,
     _check_all(lb.ffn_block_bwd(*args), lb.ffn_block_bwd_plain(*args), dtype)
 
 
+# K6 at the edges of the tensor-core core (bf16; fp32 takes the CUDA-core
+# core and the FMA products): (label, images, res, C, heads, bias groups,
+# shift mask, lam). 61 images of 16 windows: 976 windows, cut into chunks
+# whose last is short; one 8x8 image: one window, one chunk, one head.
+CORE_CASES = [
+    ("decoder d56 shift lam", 2, 16, 56, 1, 1, True, True),
+    ("intra d28 three bias groups shift", 6, 16, 28, 1, 3, True, False),
+    ("d32 two heads", 2, 16, 64, 2, 1, False, False),
+    ("short last chunk lam", 61, 32, 28, 1, 1, True, True),
+    ("one window one head", 1, 8, 56, 1, 1, False, False),
+]
+BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CORE_CASES, ids=[c[0] for c in CORE_CASES])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attn_block_bwd_core_edges(card, dtype, case):
+    """K6 against its twin, every output within BWD_TOL (the sums over rows
+    or windows on max(1, 1% of the largest of them)); two launches give
+    equal bits."""
+    _, images, res, c, h, groups, shifted, with_lam = case
+    d = c // h
+    x = _t(card, images, res, res, c, scale=0.5, dtype=dtype)
+    w = [_t(card, h, c, d, scale=c ** -0.5) if i % 2 == 0 else
+         _t(card, h, d, scale=0.1) for i in range(6)]
+    bias = _t(card, *((groups,) if groups > 1 else ()), h, N, N, scale=0.05)
+    mask = (torch.from_numpy(windows.shift_attn_mask(res, res, WIN, 4)).cuda()
+            if shifted else None)
+    lam = _t(card, images, h, scale=0.3) if with_lam else None
+    args = ([x, _grad(card, x), 1.0 + _t(card, c, scale=0.1),
+             _t(card, c, scale=0.1)] + w
+            + [_t(card, h, d, c, scale=c ** -0.5), _t(card, c, scale=0.1), bias,
+               mask, lam, WIN, 1e-6, groups == 1, groups])
+    lb.reset_launches()
+    got = lb.attn_block_bwd(*args)
+    assert lb.LAUNCHES["lewin_attn_bwd"] == 1
+    want = lb.attn_block_bwd_plain(*args)
+    assert len(got) == len(want)
+    floor = max([1.0] + [1e-2 * b.float().abs().max().item()
+                         for b in want[1:] if b is not None])
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None or b is None:
+            assert a is None and b is None
+            continue
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.isfinite(a.float()).all()
+        err = (a.float() - b.float()).abs().max().item() / max(
+            floor if i else 1.0, b.float().abs().max().item())
+        assert err <= BWD_TOL[dtype], (i, err)
+    again = lb.attn_block_bwd(*args)
+    assert all(torch.equal(p, q) for p, q in zip(got, again) if p is not None)
+
+
 def _leaves(args):
     return [a.requires_grad_() if torch.is_tensor(a) and a.is_floating_point()
             else a for a in args]

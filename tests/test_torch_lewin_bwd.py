@@ -334,3 +334,35 @@ def test_block_freq_merged_function_equals_the_chain(rng, shift):
     assert torch.equal(merged, chain)
     for p, q in zip(_grads(merged, ins, g), _grads(chain, ins, g)):
         assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,h", [(5, 1), (28, 1), (56, 2)])
+def test_attn_bwd_nt_operands(c, h, dtype):
+    """K6's B operands of ``dqkv Wqkv^T`` and ``gw Wp^T``
+    (``_attn_bwd_nt_operands``): with them the two products give the
+    gradients that autograd gives through the forward's operands, and
+    their pad columns are zero."""
+    rng = np.random.default_rng(c)
+    d = c // h
+    w3 = [torch.from_numpy(_a(rng, h, c, d)) for _ in range(3)]
+    b3 = torch.zeros(h, d)
+    wp3 = torch.from_numpy(_a(rng, h, d, c))
+    x = torch.zeros(1, WIN, WIN, c, dtype=dtype)
+    wqkv, _, wp = lb._attn_bwd_operands(x, w3[0], b3, w3[1], b3, w3[2], b3,
+                                        wp3)
+    wqkvn, wpn = lb._attn_bwd_nt_operands(wqkv, wp3)
+    assert wqkvn.shape == (c, lb.kpad(3 * c)) and wpn.shape == (c, lb.kpad(c))
+    assert wqkvn.dtype == dtype and wpn.dtype == dtype
+    assert not wqkvn[:, 3 * c:].any() and not wpn[:, c:].any()
+    f64 = lambda t: t.to(torch.float64)
+    xw = torch.from_numpy(_a(rng, 7, c)).to(torch.float64).requires_grad_()
+    dqkv = f64(torch.from_numpy(_a(rng, 7, 3 * c)))
+    qkv = xw @ f64(wqkv[:, :c]).t()             # the forward's qkv product
+    (dxw,) = torch.autograd.grad(qkv, xw, dqkv)
+    torch.testing.assert_close(dqkv @ f64(wqkvn[:, :3 * c]).t(), dxw)
+    att = torch.from_numpy(_a(rng, 7, c)).to(torch.float64).requires_grad_()
+    gw = f64(torch.from_numpy(_a(rng, 7, c)))
+    out = att @ f64(wp[:, :c]).t()              # the forward's proj product
+    (dout,) = torch.autograd.grad(out, att, gw)
+    torch.testing.assert_close(gw @ f64(wpn[:, :c]).t(), dout)

@@ -1,12 +1,16 @@
-"""Where one launch of a backward block kernel (K6, K7, K8) spends its device
+"""Where one launch of a backward kernel (K6, K7, K8, K10) spends its device
 time: every ``__global__`` pass of the launch by name, from ``torch.profiler``,
 at the flagship's res-128 shapes and the training batch; with ``--k7``, K7
 at the shapes of ``chip_smoke.py``'s K7 table (res 128, C = 56 and res 16,
-C = 896).
+C = 896); with ``--k6``, K6 at the shapes of its table (the decoder block
+at res 128 and 8, the encoder's intra attention at res 128 and 8); with
+``--k10``, the window-attention backward K10 at ``chip_smoke.py`` phase
+10's res-128 cases.
 
 Run on a machine with an NVIDIA GPU, from the root of the checkout:
 
-    python3 tools/bwd_kernel_profile.py [--dtype bfloat16] [--batch 4] [--k7]
+    python3 tools/bwd_kernel_profile.py [--dtype bfloat16] [--batch 4]
+        [--k7 | --k6 | --k10]
 
 Prints the card's name and power limit, then per kernel the passes in order
 of device time. Imports the PyTorch port only.
@@ -24,12 +28,28 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 
+def k10_case(wa, c):
+    """A phase-10 case of ``chip_smoke.py`` as a launch of K10."""
+    from chip_smoke import BwdCase
+    g = torch.randn(c.q.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(4)).to(c.q.dtype)
+    args = (c.q, c.k, c.v, c.bias, c.mask, g, c.scale, c.nW)
+    return BwdCase("window_attn_bwd", f"{c.label} bwd",
+                   lambda: wa.window_attention_bwd_kernel(*args),
+                   lambda: wa.window_attention_bwd_plain(*args), 0.0, 0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--k7", action="store_true",
-                    help="K7 at the shapes of chip_smoke.py's K7 table")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--k7", action="store_true",
+                       help="K7 at the shapes of chip_smoke.py's K7 table")
+    which.add_argument("--k6", action="store_true",
+                       help="K6 at the shapes of chip_smoke.py's K6 table")
+    which.add_argument("--k10", action="store_true",
+                       help="K10 at chip_smoke.py phase 10's res-128 cases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -41,7 +61,7 @@ def main(argv=None) -> int:
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops import (
         windows)
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops.kernels import (
-        lewin_block as lb)
+        lewin_block as lb, window_attention as wa)
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -49,6 +69,12 @@ def main(argv=None) -> int:
     dtype = getattr(torch, args.dtype)
     if args.k7:
         cases = [c for c, _ in chip_smoke.k7_cases(lb, dtype, args.batch)]
+    elif args.k6:
+        cases = [c for c in chip_smoke.bwd_cases(lb, windows, dtype, args.batch)
+                 if c.kernel == "lewin_attn_bwd"]
+    elif args.k10:
+        cases = [k10_case(wa, c) for c in chip_smoke.window_cases(
+            windows, dtype, args.batch) if "res128" in c.label]
     else:
         cases = [c for c in chip_smoke.bwd_cases(lb, windows, dtype, args.batch)
                  if "res128" in c.label]
