@@ -18,7 +18,10 @@ Phases, each fatal on failure:
    each kernel's time (operands prepared once, as the model holds them)
    beside the plain version's, the chain's, and its bound on this card;
    for K4 / K5 at res 128 and 16, where one launch spends its time (the
-   device clock at each of its grid barriers);
+   device clock at each of its grid barriers); then K2's table: bf16 at
+   B = 4 and 32 at every flagship stage K2 serves, against its twin, its
+   time beside the plain version's, the bound, a ``torch.matmul`` yardstick
+   of fc1 and fc2, and the device memory one launch takes beyond its output;
 4. full forward: the flagship eval forward (Uformer encoder with L=3 FFT
    bands and frequency-wise MSA, Uformer decoder with all_DC, 128x128
    patches, full width, random weights from a fixed seed) by the chain of
@@ -46,7 +49,9 @@ Phases, each fatal on failure:
    its twin, beside a yardstick of ``torch.matmul`` over its five
    products' shapes; then K6's table, the same at the shapes of K6's
    cases (decoder res 128 / 8, encoder intra res 128 / 8) beside
-   ``torch.matmul`` over its eleven products' shapes;
+   ``torch.matmul`` over its eleven products' shapes; then K8's table, the
+   same at the encoder's inter attention (res 128 shifted and not, res 8),
+   with the bytes of workspace K8 asks for;
 9. training, the main path of the training slice: the entry point
    ``<port>.train.main`` on the synthetic loader at full width, B=4,
    bfloat16 (two phase-A steps, two joint steps, the end-of-epoch eval, the
@@ -226,10 +231,10 @@ def split_blocks(B: int, stages=SPLIT_STAGE_BLOCKS) -> int:
     K12 -> K13, held apart from the model's own route table."""
     return sum(n for res, n in stages if B * res * res <= SPLIT_MAX_TOKENS)
 # the default route in bf16: blocks of one forward that run merged, by the
-# tiles in its batch. The decoder's shifted blocks number 2 at res 128, 2 at
-# res 64 and 8 at res 32, and a stage runs them merged from 32768 tokens
-# (tiles x res^2) up. In float32 every block takes the chain
-DEFAULT_MERGED_BLOCKS = {4: 2, 6: 2, 12: 4, 16: 4, 32: 12}
+# tiles in its batch. The decoder's shifted blocks at res 32 (8) run merged
+# from 32768 tokens (tiles x res^2) up; those at res 128 and 64 take the
+# chain. In float32 every block takes the chain
+DEFAULT_MERGED_BLOCKS = {4: 0, 6: 0, 12: 0, 16: 0, 32: 8}
 
 
 def default_counts(dtype: str, B: int) -> dict:
@@ -247,9 +252,8 @@ def train_step_counts(joint: bool) -> dict:
     """Launches of one training step at B=4 in bf16 on the default route.
     The encoder's 10 frequency blocks take the chain: forward by the key and
     by the query encoder (K1 intra, K3, K2 each), backward K6, K8, K7. The
-    joint step adds the decoder's 44 blocks, 2 of them merged at this batch
-    (the shifted blocks at res 128): forward K1 / K2 or K4, backward K6 and
-    K7 for every block."""
+    joint step adds the decoder's 44 blocks, none merged at this batch:
+    forward K1 / K2, backward K6 and K7 for every block."""
     c = {**ZERO, "lewin_attn": 20, "freq_inter": 20, "lewin_ffn": 20,
          "lewin_attn_bwd": 10, "freq_inter_bwd": 10, "lewin_ffn_bwd": 10}
     if joint:
@@ -613,6 +617,99 @@ def check_kernels(lb, windows, default_merged, min_tokens, stats, card: str):
         print(f"  {msa:6s} res {res:3d} shift {shift} {name_dt} B={B}: merged "
               f"{ms:.4f}, chain {cms:.4f}, merged/chain {ms / cms:.3f}"
               + ("  [default: merged]" if default else ""), flush=True)
+
+
+# K2's table: (res, C, band copies) of every flagship stage whose blocks K2
+# serves: the decoder's (C = 56 * 2^s on the way down, twice that on the
+# way up, C = 896 at res 8 and 16) and the encoder's (C = 28 * 2^s, its
+# three FFT bands folded into the batch). The C = 896 stages go to K13 on
+# batches of at most SPLIT_MAX_TOKENS tokens, so they stand in the table
+# only above that
+K2_STAGES = ((128, 56, 1), (64, 112, 1), (32, 224, 1), (16, 448, 1),
+             (8, 896, 1), (16, 896, 1), (32, 448, 1), (64, 224, 1),
+             (128, 112, 1), (128, 28, 3), (64, 56, 3), (32, 112, 3),
+             (16, 224, 3), (8, 448, 3))
+
+
+def k2_cases(lb, B):
+    """K2 in bf16 at :data:`K2_STAGES` on ``B`` tiles: a BwdCase each (its
+    ``run`` the launch with prepared operands, ``plain`` the twin; ``dims``
+    (rows, C)), with a yardstick: ``torch.matmul`` over K2's two products,
+    fc1 [M, C] x [C, 4C] and fc2 [M, 4C] x [4C, C], on operands made once.
+    Operations: the products and the 9 taps; bytes: x read, the output
+    written, the weights read."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dt = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    out = []
+    for res, C, bands in K2_STAGES:
+        images, Hd = bands * B, 4 * C
+        M = images * res * res
+        if C == 896 and M <= SPLIT_MAX_TOKENS:
+            continue
+        x = rnd(images, res, res, C).to(dt)
+        ln2 = [1 + rnd(C, scale=0.1), rnd(C, scale=0.1)]
+        fw = [rnd(C, Hd, scale=C ** -0.5), rnd(Hd, scale=0.1),
+              rnd(3, 3, Hd, scale=1 / 3), rnd(Hd, scale=0.1),
+              rnd(Hd, C, scale=Hd ** -0.5), rnd(C, scale=0.1)]
+        dps = (torch.rand(images, generator=gen, device="cuda") < 0.9).float() / 0.9
+        fop = lb.ffn_operands(*fw, dt)
+        args = [x, *ln2, *fw, 1e-6, dps]
+        xm, hm = rnd(M, C).to(dt), rnd(M, Hd).to(dt)
+        w1, w2 = fw[0].to(dt), fw[4].to(dt)
+
+        def yardstick(xm=xm, hm=hm, w1=w1, w2=w2):
+            torch.matmul(xm, w1)
+            torch.matmul(hm, w2)
+        out.append((BwdCase(
+            "lewin_ffn",
+            f"block_ffn res{res} C{C} images{images}"
+            + (" (encoder)" if bands > 1 else ""),
+            lambda x=x, ln2=ln2, fop=fop, dps=dps: lb.ffn_kernel(
+                x, *ln2, fop, 1e-6, dps),
+            lambda a=args: lb.block_ffn_plain(*a),
+            2.0 * M * Hd * (2 * C + 9),
+            2 * x.numel() * x.element_size()
+            + 4 * sum(t.numel() for t in (*ln2, *fw, dps)),
+            (M, C)), yardstick))
+    return out
+
+
+def k2_table(lb, card: str):
+    """Phase 3b: K2 in bf16 at every flagship stage it serves, B = 4 and 32:
+    against its twin, its time beside the plain version's, the bound and
+    the yardstick of :func:`k2_cases` (K2 / yardstick is the ratio two calls
+    compare), and the device memory one launch takes beyond its output
+    (the launcher's scratch: the hidden tensors where it keeps them)."""
+    print(f"K2 table (bf16): kernel ms, plain ms, yardstick ms (torch.matmul "
+          f"over fc1 and fc2), bound, scratch ({card}):", flush=True)
+    for B in (SMALL_BATCH, BATCH):
+        for case, yardstick in k2_cases(lb, B):
+            label = f"{case.label} bf16"
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = case.run()
+            torch.cuda.synchronize()
+            scratch = (torch.cuda.max_memory_allocated() - base
+                       - got.numel() * got.element_size())
+            compare(label, got, case.plain(), KERNEL_TOL[torch.bfloat16])
+            del got
+            ms = time_ms(case.run)
+            pms = time_ms(case.plain, iters=3, warmup=1)
+            yms = time_ms(yardstick)
+            t_bytes = case.nbytes / PEAK_BYTES * 1e3
+            t_flops = case.flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+            bound, by = max(t_bytes, t_flops), (
+                "bytes" if t_bytes >= t_flops else "operations")
+            print(f"  K2 {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"yardstick {yms:.4f} ms, kernel / yardstick {ms / yms:.3f}, "
+                  f"bound {bound:.4f} ms by {by}, scratch "
+                  f"{scratch / 2 ** 20:.2f} MiB", flush=True)
+        torch.cuda.empty_cache()
 
 
 def flagship_config(config, eval_dtype: str, **overrides):
@@ -1314,9 +1411,88 @@ def k6_table(lb, windows, card: str):
             torch.cuda.empty_cache()
 
 
+# K8's table: (res, C, heads, shift) of the encoder's inter attention, L = 3
+# bands of 8 x 8 windows grouped into 192 tokens; at res 8 one window covers
+# the image
+K8_SHAPES = ((128, 28, 1, 0), (128, 28, 1, 4), (8, 448, 16, 0))
+
+
+def k8_cases(lb, windows, dtype, B):
+    """K8 at :data:`K8_SHAPES` on ``B`` images of 3 bands: each a BwdCase
+    whose ``dims`` (rows, C, heads, 192 tokens) give :func:`k6_yardstick`
+    the shapes of K8's eleven products (those of K6 at 192 tokens a
+    window). Operations and bytes are counted as in :func:`bwd_cases`."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    L, n = 3, 64
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    out = []
+    for res, C, h, shift in K8_SHAPES:
+        LB, d, M = L * B, C // h, L * B * res * res
+        x, g = rnd(LB, res, res, C).to(dtype), rnd(LB, res, res, C).to(dtype)
+        aw = [rnd(h, C, d, scale=C ** -0.5) if i % 2 == 0 else
+              rnd(h, d, scale=0.1) for i in range(6)]
+        aw += [rnd(h, d, C, scale=C ** -0.5), rnd(C, scale=0.1)]
+        mask = (torch.from_numpy(windows.shift_attn_mask(res, res, 8, shift))
+                .cuda() if shift else None)
+        args = [x, g, *aw, rnd(h, L * n, L * n, scale=0.05), mask, L, 8]
+        weights = [w for w in args[2:11] if w is not None]
+        out.append(BwdCase(
+            "freq_inter_bwd",
+            f"freq_inter_bwd res{res} C{C} h{h} shift{shift} L{L} B{B}",
+            lambda a=args: lb.freq_inter_bwd(*a),
+            lambda a=args: lb.freq_inter_bwd_plain(*a),
+            2.0 * M * C * (11 * C + 6 * L * n),
+            3 * x.numel() * x.element_size() + 8 * sum(w.numel() for w in weights),
+            (M, C, h, L * n)))
+    return out
+
+
+def k8_table(lb, windows, card: str):
+    """Phase 8d: K8 at :data:`K8_SHAPES`, bf16 / fp32 x B = 4 / 32: against
+    its twin (every output, equal bits on a second launch), its time beside
+    the plain version's, the bound and the yardstick of
+    :func:`k6_yardstick` (K8 / yardstick is the ratio two calls compare),
+    and the bytes of workspace the kernel asks for."""
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops.kernels import (
+        build)
+
+    print(f"K8 table: kernel ms, plain ms, yardstick ms (torch.matmul over "
+          f"its eleven products), bound, workspace ({card}):", flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        name_dt = str(dtype)[6:]
+        for B in K7_BATCHES:
+            for case, (res, C, h, _) in zip(k8_cases(lb, windows, dtype, B),
+                                            K8_SHAPES):
+                label = f"{case.label} {name_dt}"
+                got = case.run()
+                torch.cuda.synchronize()
+                compare_all(label, got, case.plain(), BWD_TOL[dtype])
+                again = case.run()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise Failed(f"{label}: two launches give different bits")
+                del got, again
+                ms = time_ms(case.run, iters=5, warmup=1)
+                pms = time_ms(case.plain, iters=2, warmup=1)
+                yms = time_ms(k6_yardstick(case.dims, dtype), iters=5, warmup=1)
+                ws = build.load().fairm_freq_inter_bwd_ws(
+                    3 * B, res, res, C, h, 8, 3, int(dtype == torch.bfloat16))
+                t_bytes = case.nbytes / PEAK_BYTES * 1e3
+                t_flops = case.flops / PEAK_FLOPS[dtype] * 1e3
+                bound, by = max(t_bytes, t_flops), (
+                    "bytes" if t_bytes >= t_flops else "operations")
+                print(f"  K8 {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                      f"yardstick {yms:.4f} ms, kernel / yardstick "
+                      f"{ms / yms:.3f}, bound {bound:.4f} ms by {by}, "
+                      f"workspace {ws / 2 ** 20:.2f} MiB", flush=True)
+                torch.cuda.empty_cache()
+
+
 def check_bwd_kernels(lb, windows, stats, card: str):
     """Phase 8: K6-K8 against their twins (bf16 and fp32 at B=4, bf16 at
-    B=32), the Functions, then K7's table and K6's. The kernels line takes each
+    B=32), the Functions, then the tables of K7, K6 and K8. The kernels line takes each
     kernel's first (res-128) case in bf16 at B=4."""
     for dtype, B in ((torch.bfloat16, TRAIN_BATCH), (torch.float32, TRAIN_BATCH),
                      (torch.bfloat16, BATCH)):
@@ -1352,6 +1528,7 @@ def check_bwd_kernels(lb, windows, stats, card: str):
             function_checks(lb, windows, dtype)
     k7_table(lb, card)
     k6_table(lb, windows, card)
+    k8_table(lb, windows, card)
 
 
 # ---------------------------------------------------------------------------
@@ -1835,15 +2012,14 @@ INJECTION_CONFIGS = {
 def injection_counts(name: str, dtype: str, B: int) -> dict:
     """Launches of one eval forward of ``B`` tiles on the default route,
     held apart from the model. The decoder's 22 down-path and bottleneck_0
-    blocks stay fused (the shifted ones at res 128 / 64 / 32, 1 + 1 + 4,
-    merged in bf16 from 32768 tokens per stage); its 22 bottleneck_1 and up-path
+    blocks stay fused (the shifted ones at res 32, 4, merged in bf16 from
+    32768 tokens per stage); its 22 bottleneck_1 and up-path
     blocks are unfused: K9 once each, and K11 for deform_conv; where the
     attention probabilities are modulated (all_3_bands, lamb) the core is
     the plain one, as in JAX. attention_kv makes the encoder's last block
     of each stage unfused (need_kv): K9 for intra and inter. bottleneck_0's
     two blocks (C = 896, res 8) run split up to SPLIT_MAX_TOKENS."""
-    merged = sum(blocks for res, blocks in ((128, 1), (64, 1), (32, 4))
-                 if dtype == "bfloat16" and B * res * res >= 32768)
+    merged = 4 if dtype == "bfloat16" and B * 32 * 32 >= 32768 else 0
     c = dict(ZERO)
     if name == "all_3_bands_DC":       # every decoder block unfused
         fused_dec, enc_fused, k9 = 0, 10, 0
@@ -1976,16 +2152,14 @@ def per_scale_train_counts(joint: bool) -> dict:
     query encoder: 5 fused frequency blocks (K1 intra, K3, K2), 5 need_kv
     blocks (K9 for intra and inter); the query encoder's backward K6, K8,
     K7 and K10 twice per need_kv block. The joint step adds the decoder: 22
-    fused blocks (1 merged at this batch, the shifted one at res 128),
-    forward K1 / K2 or K4, backward K6 and K7; 22 unfused blocks, K9, K11,
-    K10 and K14 each."""
+    fused blocks (none merged at this batch), forward K1 / K2, backward K6
+    and K7; 22 unfused blocks, K9, K11, K10 and K14 each."""
     c = {**ZERO, "lewin_attn": 10, "freq_inter": 10, "lewin_ffn": 10,
          "lewin_attn_bwd": 5, "freq_inter_bwd": 5, "lewin_ffn_bwd": 5,
          "window_attn": 20, "window_attn_bwd": 10}
     if joint:
-        c["lewin_attn"] += 21
-        c["lewin_ffn"] += 21
-        c["lewin_merged"] += 1
+        c["lewin_attn"] += 22
+        c["lewin_ffn"] += 22
         c["lewin_attn_bwd"] += 22
         c["lewin_ffn_bwd"] += 22
         c["window_attn"] += 22
@@ -2591,6 +2765,7 @@ def main(argv=None) -> int:
             marks.append((3, time.perf_counter()))
             check_kernels(lb, windows, uformer_lewin.DEFAULT_MERGED,
                           uformer_lewin.MERGED_MIN_TOKENS, stats, card)
+            k2_table(lb, card)
         if 4 in phases:
             marks.append((4, time.perf_counter()))
             full_forward(bundles, airnet, lb, uformer_lewin, frequency)

@@ -19,27 +19,40 @@
 // with p, dog, dl, dq, dk, dv, out rounded to the compute type before each
 // product, as the Pallas bodies round them.
 //
-// The attention core runs on the CUDA cores in fp32 for both compute types
-// (bf16 operands are exact in fp32, so the result is that of a bf16 product
-// with fp32 accumulation). One block per (group, head): a row pass with one
-// warp per query row (softmax, dp, dl, og, dq), which also writes p and dl of
-// the group to scratch, then a column pass with one thread per (key, 8
-// channels) for dk and dv. The sums over windows (dbias, dlam) are fixed-order
-// reductions of per-window partials (bwd.cuh).
+// attn_bwd_run is the whole backward for both kernels, on one plan:
+//  - the row gathers (prep), and the qkv recompute on gemm.cuh's GEMM;
+//  - the four other products over the rows on bwd_gemm.cuh: in bf16 its
+//    cp.async / ldmatrix / mma.sync NT and TN GEMMs (the weight gradients
+//    as fp32 chunk partials reduced in a fixed order), in fp32 its
+//    register-tiled FMA GEMM;
+//  - in bf16, where attention_core_bwd.cuh takes the group (n = 64, and
+//    K8's 192-token band groups with the mask's 64 x 64 tile repeated), the
+//    per-group part on that tensor-core core: p and dl never leave the SM,
+//    dbias and dlam are chunk and window partials summed in a fixed order;
+//  - fp32 (full precision, no TF32) and other shapes: attn_bwd_kernel below
+//    on the CUDA cores, one block per (group, head): a row pass with one
+//    warp per query row (softmax, dp, dl, og, dq), which also writes p and
+//    dl of the group to scratch, then a column pass with one thread per
+//    (key, 8 channels) for dk and dv; dbias and dlam are fixed-order
+//    reductions of per-group partials (bwd.cuh).
+// out and dqkv are stored with rows of a multiple of 8 elements (16 bytes)
+// for the GEMMs; dqkv's pad columns are zeroed, because dqkv Wqkv^T sums
+// over them. No float atomics: a second launch gives equal bits.
 
 #pragma once
 
 #include <math.h>
 
-#include "bwd.cuh"
+#include "attention_core_bwd.cuh"
+#include "bwd_gemm.cuh"
 
 namespace fairm {
 
 struct AttnBwdArgs {
   const void* qkv;     // [G * n, 3C] compute type: q | k | v, q unscaled
   const float* dout;   // [G * n, C]: the gradient of the attention rows
-  void* out;           // [G * n, C] compute type: the attention rows again
-  void* dqkv;          // [G * n, 3C] compute type
+  void* out;           // [G * n, ldo] compute type: the attention rows again
+  void* dqkv;          // [G * n, ld3] compute type
   float* P;            // [G, h, n, n]
   float* DL;           // [G, h, n, n]: the gradient of the logits
   float* dlam_part;    // [G, h], or null without lam
@@ -50,7 +63,7 @@ struct AttnBwdArgs {
   int nW;              // group g is window g % nW of image g / nW
   int imgs_per_bias;
   float scale;         // d^-0.5
-  int ldo, ld3;        // PADDED: row strides of out and dqkv (>= C, 3C)
+  int ldo, ld3;        // row strides of out and dqkv (>= C, 3C)
 };
 
 constexpr int ABNT = 256;
@@ -62,8 +75,7 @@ inline size_t attn_bwd_smem_bytes(int n, int d, bool lam) {
                           2 * (ABNT / 32) * (size_t)n + 2 * d + ABNT / 32);
 }
 
-// PADDED (K6): out and dqkv rows of ldo / ld3 elements; else (K8) C / 3C
-template <typename T, bool PADDED>
+template <typename T>
 __global__ void __launch_bounds__(ABNT) attn_bwd_kernel(const AttnBwdArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sm = reinterpret_cast<float*>(smem_raw);
@@ -116,15 +128,8 @@ __global__ void __launch_bounds__(ABNT) attn_bwd_kernel(const AttnBwdArgs a) {
   const float* mask = a.mask ? a.mask + (long long)wi * a.n0 * a.n0 : nullptr;
   float* P = a.P + (g * a.h + hh) * (long long)n * n;
   float* DL = a.DL + (g * a.h + hh) * (long long)n * n;
-  T* out;
-  T* dq_out;
-  if constexpr (PADDED) {
-    out = static_cast<T*>(a.out) + g * (long long)n * a.ldo + hh * d;
-    dq_out = static_cast<T*>(a.dqkv) + g * (long long)n * a.ld3 + hh * d;
-  } else {
-    out = static_cast<T*>(a.out) + g * (long long)n * a.C + hh * d;
-    dq_out = static_cast<T*>(a.dqkv) + g * (long long)n * 3 * a.C + hh * d;
-  }
+  T* out = static_cast<T*>(a.out) + g * (long long)n * a.ldo + hh * d;
+  T* dq_out = static_cast<T*>(a.dqkv) + g * (long long)n * a.ld3 + hh * d;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* p = prow + warp * n;
@@ -182,13 +187,8 @@ __global__ void __launch_bounds__(ABNT) attn_bwd_kernel(const AttnBwdArgs a) {
         o = (1.f + lam) * og - (lam / n) * vsum[c];
         clam += dor[i * ld + c] * (og - vsum[c] / n);
       }
-      if constexpr (PADDED) {
-        out[(long long)i * a.ldo + c] = from_f<T>(o);
-        dq_out[(long long)i * a.ld3 + c] = from_f<T>(dq * a.scale);
-      } else {
-        out[(long long)i * a.C + c] = from_f<T>(o);
-        dq_out[(long long)i * 3 * a.C + c] = from_f<T>(dq * a.scale);
-      }
+      out[(long long)i * a.ldo + c] = from_f<T>(o);
+      dq_out[(long long)i * a.ld3 + c] = from_f<T>(dq * a.scale);
     }
     __syncwarp();
   }
@@ -229,13 +229,8 @@ __global__ void __launch_bounds__(ABNT) attn_bwd_kernel(const AttnBwdArgs a) {
       if (c >= d) continue;
       float dv = av[u];
       if (a.lam) dv += (-lam / n) * dosum[c];
-      if constexpr (PADDED) {
-        dk_out[(long long)j * a.ld3 + c] = from_f<T>(ak[u] * a.scale);
-        dv_out[(long long)j * a.ld3 + c] = from_f<T>(dv);
-      } else {
-        dk_out[(long long)j * 3 * a.C + c] = from_f<T>(ak[u] * a.scale);
-        dv_out[(long long)j * 3 * a.C + c] = from_f<T>(dv);
-      }
+      dk_out[(long long)j * a.ld3 + c] = from_f<T>(ak[u] * a.scale);
+      dv_out[(long long)j * a.ld3 + c] = from_f<T>(dv);
     }
   }
 }
@@ -258,8 +253,10 @@ struct AttnBwdProblem {
   const void* wqkv;     // [3C, kpad(C)], q unscaled
   const float* bqkv;    // [3C]
   const void* wp;       // [C, kpad(C)]: wp[j, c] = Wp[c, j]
-  const float* bias;
-  const float* mask;
+  const void* wqkvn;    // [C, kpad(3C)]: Wqkv as it is (dqkv Wqkv^T)
+  const void* wpn;      // [C, kpad(C)]: Wp as it is (gw Wp^T)
+  const float* bias;    // [bias groups, h, n, n]
+  const float* mask;    // [nW, n0, n0] (n0 = win^2), or null
   const float* lam;
   void* dx;             // [images, H, W, C]
   float* dln;           // [2, C]: dlns, dlnb (with LayerNorm)
@@ -276,33 +273,93 @@ struct AttnBwdProblem {
   float eps;
 };
 
+inline int round8(int x) { return (x + 7) / 8 * 8; }
+inline long long max_ll(long long a, long long b) { return a > b ? a : b; }
+
+// X[m, c0 .. ld) = 0 for the M rows: dqkv's pad columns, which dqkv Wqkv^T
+// sums over (a 2-D memset of a few bytes a row is far slower)
+template <typename T>
+__global__ void zero_pad_kernel(T* X, long long ld, int c0, long long M) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int w = (int)(ld - c0);
+  if (idx >= M * w) return;
+  const long long m = idx / w;
+  X[m * ld + c0 + (idx - m * w)] = from_f<T>(0.f);
+}
+
 template <typename T>
 struct AttnBwdBuffers {
   T *xw, *qkv, *gw, *out, *dqkv;
   float *dout, *dxw, *P, *DL, *dlam_part, *part;
 };
 
-inline long long max_ll(long long a, long long b) { return a > b ? a : b; }
+// the problem's sizes, and the core's arguments where it runs
+struct AttnBwdPlan {
+  AttnBwdProblem p;
+  long long M, G;
+  int C, h, d, n0, n, nW, ld, ldo, ld3;
+  RowMap map;
+  bool core;
+  CoreBwdArgs c;
+};
 
 template <typename T>
-inline AttnBwdBuffers<T> attn_bwd_buffers(Workspace& ws, const AttnBwdProblem& p) {
-  const long long M = (long long)p.images * p.H * p.W;
-  const int C = p.C, n = p.L * p.win * p.win;
-  const long long G = M / n;
-  AttnBwdBuffers<T> b;
-  b.xw = ws.take<T>(M * kpad(C));
-  b.qkv = ws.take<T>(M * 3 * C);
-  b.gw = ws.take<T>(M * kpad(C));
-  b.out = ws.take<T>(M * C);
-  b.dqkv = ws.take<T>(M * 3 * C);
-  b.dout = ws.take<float>(M * C);
-  b.dxw = ws.take<float>(M * C);
-  b.P = ws.take<float>(G * p.h * n * n);
-  b.DL = ws.take<float>(G * p.h * n * n);
-  b.dlam_part = ws.take<float>(G * p.h);
-  // the chunk partials of the largest reduction
-  long long part = chunk_count(M) * (long long)C * 3 * C;
-  part = max_ll(part, ln_bwd_blocks(M) * 2LL * C);
+inline cudaError_t attn_bwd_plan(AttnBwdPlan& k, const AttnBwdProblem& p) {
+  k.p = p;
+  k.C = p.C;
+  k.h = p.h;
+  k.d = p.C / p.h;
+  k.n0 = p.win * p.win;
+  k.n = p.L * k.n0;
+  k.nW = (p.H / p.win) * (p.W / p.win);
+  k.M = (long long)p.images * p.H * p.W;
+  k.G = k.M / k.n;
+  k.ld = kpad(p.C);
+  k.ldo = round8(p.C);
+  k.ld3 = round8(3 * p.C);
+  // K8: group (b, window) holds the window's L band copies, image l * B + b
+  k.map = p.L > 1 ? RowMap{2, p.H, p.W, p.win, p.images / p.L, p.L, 0}
+                  : RowMap{1, p.H, p.W, p.win, p.images, 1, 0};
+  // the core repeats a mask tile of 64 x 64 only; lam only at n = 64
+  k.core = std::is_same<T, bf16_t>::value &&
+           core_covers(k.n, k.n, k.d, true) &&
+           (k.n == k.n0 || (k.n0 == 64 && !p.lam));
+  k.c = CoreBwdArgs{};
+  if (!k.core) return cudaSuccess;
+  k.c.W = k.G;
+  k.c.h = k.h;
+  k.c.d = k.d;
+  k.c.nW = k.nW;
+  k.c.groups = p.bias_groups;
+  k.c.mtile = k.n != k.n0;
+  k.c.scale = 1.f / sqrtf((float)k.d);
+  return core_dispatch<true>(k.n, k.n, k.d, [&](auto shape) {
+    return core_chunking<decltype(shape)>(k.c, k.G / p.bias_groups);
+  });
+}
+
+template <typename T>
+inline AttnBwdBuffers<T> attn_bwd_buffers(Workspace& ws, const AttnBwdPlan& k) {
+  const long long M = k.M;
+  AttnBwdBuffers<T> b{};
+  b.xw = ws.take<T>(M * k.ld);
+  b.qkv = ws.take<T>(M * 3 * k.C);
+  b.gw = ws.take<T>(M * k.ld);
+  b.out = ws.take<T>(M * k.ldo);
+  b.dqkv = ws.take<T>(M * k.ld3);
+  b.dout = ws.take<float>(M * k.C);
+  b.dxw = ws.take<float>(M * k.C);
+  if (!k.core) {
+    b.P = ws.take<float>(k.G * k.h * k.n * k.n);
+    b.DL = ws.take<float>(k.G * k.h * k.n * k.n);
+  }
+  b.dlam_part = ws.take<float>(k.G * k.h);
+  // the largest of the weight gradients' chunk partials, the column sums',
+  // the LayerNorm backward's and the core's dbias partials
+  long long part = chunk_count(M) * (long long)k.C * 3 * k.C;
+  part = max_ll(part, ln_bwd_blocks(M) * 2LL * k.C);
+  if (k.core)
+    part = max_ll(part, (long long)k.c.groups * k.c.chunks * k.h * k.n * k.n);
   b.part = ws.take<float>(part);
   return b;
 }
@@ -310,21 +367,17 @@ inline AttnBwdBuffers<T> attn_bwd_buffers(Workspace& ws, const AttnBwdProblem& p
 template <typename T>
 inline cudaError_t attn_bwd_run(const AttnBwdProblem& p, void* ws_base,
                                 long long ws_bytes, cudaStream_t st) {
+  AttnBwdPlan k;
+  cudaError_t err = attn_bwd_plan<T>(k, p);
+  if (err != cudaSuccess) return err;
   Workspace ws{static_cast<unsigned char*>(ws_base), 0};
-  const AttnBwdBuffers<T> b = attn_bwd_buffers<T>(ws, p);
+  const AttnBwdBuffers<T> b = attn_bwd_buffers<T>(ws, k);
   if ((long long)ws.off > ws_bytes) return cudaErrorInvalidValue;
-
-  const int C = p.C, h = p.h, d = C / h, n0 = p.win * p.win, n = p.L * n0;
-  const int nW = (p.H / p.win) * (p.W / p.win);
-  const int B = p.images / p.L;  // images per band copy (K8), else all
-  const long long M = (long long)p.images * p.H * p.W;
-  const long long G = M / n;
-  const RowMap map = p.L > 1 ? RowMap{2, p.H, p.W, p.win, B, p.L, 0}
-                             : RowMap{1, p.H, p.W, p.win, p.images, 1, 0};
-  const int ld = kpad(C);
+  const long long M = k.M, G = k.G;
+  const int C = k.C, h = k.h, n = k.n, ld = k.ld;
 
   // recompute: xw = gather([LN] x), qkv = xw Wqkv + bqkv
-  launch_prep<T>(p.x, C, map, M, p.lns, p.lnb, p.eps, b.xw, st);
+  launch_prep<T>(p.x, C, k.map, M, p.lns, p.lnb, p.eps, b.xw, st);
   GemmArgs g1{};
   g1.A = b.xw;
   g1.Wt = p.wqkv;
@@ -335,91 +388,106 @@ inline cudaError_t attn_bwd_run(const AttnBwdProblem& p, void* ws_base,
   g1.cmap = identity_map();
   g1.M = M;
   g1.N = 3 * C;
-  cudaError_t err = launch_gemm<T>(g1, st);
-  if (err != cudaSuccess) return err;
+  if ((err = launch_gemm<T>(g1, st)) != cudaSuccess) return err;
 
   // gw = gather(g); dbp = sum gw; dout = gw Wp^T
-  launch_prep<T>(p.g, C, map, M, nullptr, nullptr, 0.f, b.gw, st);
+  launch_prep<T>(p.g, C, k.map, M, nullptr, nullptr, 0.f, b.gw, st);
   column_sums<T>(b.gw, 0, ld, M, C, b.part, p.dbp, st);
-  BGemmArgs g2{};
-  g2.A = b.gw;
-  g2.sam = ld;
-  g2.sak = 1;
-  g2.B = p.wp;
-  g2.sbk = ld;
-  g2.sbn = 1;
-  g2.C = b.dout;
-  g2.M = M;
-  g2.N = C;
-  g2.K = C;
-  launch_bgemm<T>(g2, st);
-
-  AttnBwdArgs at{};
-  at.qkv = b.qkv;
-  at.dout = b.dout;
-  at.out = b.out;
-  at.dqkv = b.dqkv;
-  at.P = b.P;
-  at.DL = b.DL;
-  at.dlam_part = p.lam ? b.dlam_part : nullptr;
-  at.bias = p.bias;
-  at.mask = p.mask;
-  at.lam = p.lam;
-  at.n = n;
-  at.n0 = n0;
-  at.d = d;
-  at.C = C;
-  at.h = h;
-  at.nW = nW;
-  at.imgs_per_bias = (p.L > 1 ? B : p.images) / p.bias_groups;
-  at.scale = 1.f / sqrtf((float)d);
-  const size_t smem = attn_bwd_smem_bytes(n, d, p.lam != nullptr);
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;  // group too large
-  err = cudaFuncSetAttribute(attn_bwd_kernel<T, false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  err = gemm_nt<T>(b.gw, ld, p.wpn, ld, b.dout, C, M, C, ld, nullptr, nullptr, 0, st);
   if (err != cudaSuccess) return err;
-  attn_bwd_kernel<T, false><<<dim3((unsigned)G, (unsigned)h), ABNT, smem, st>>>(at);
 
-  // dWp = out^T gw; dWqkv = xw^T dqkv; dbqkv = sum dqkv
-  weight_grad<T>(b.out, C, 0, b.gw, ld, 0, M, C, C, b.part, p.dwp, st);
-  weight_grad<T>(b.xw, ld, 0, b.dqkv, 3 * C, 0, M, C, 3 * C, b.part, p.dwqkv, st);
-  column_sums<T>(b.dqkv, 0, 3 * C, M, 3 * C, b.part, p.dbqkv, st);
-
-  // dxw = dqkv Wqkv^T
-  BGemmArgs g3{};
-  g3.A = b.dqkv;
-  g3.sam = 3 * C;
-  g3.sak = 1;
-  g3.B = p.wqkv;
-  g3.sbk = ld;
-  g3.sbn = 1;
-  g3.C = b.dxw;
-  g3.M = M;
-  g3.N = C;
-  g3.K = 3 * C;
-  launch_bgemm<T>(g3, st);
-
-  if (p.lns) {
-    err = launch_ln_bwd<T>(p.x, p.g, b.dxw, p.lns, map, M, C, p.eps, p.res,
-                           p.dx, b.part, p.dln, st);
+  // the per-group part: out, dqkv, dbias and the dlam partials
+  if (k.ld3 > 3 * C) {
+    const long long pads = M * (k.ld3 - 3 * C);
+    zero_pad_kernel<T><<<(unsigned)((pads + 255) / 256), 256, 0, st>>>(
+        b.dqkv, k.ld3, 3 * C, M);
+  }
+  if (k.core) {
+    CoreBwdArgs c = k.c;
+    const bf16_t* qkv = reinterpret_cast<const bf16_t*>(b.qkv);
+    bf16_t* dqkv = reinterpret_cast<bf16_t*>(b.dqkv);
+    c.q = qkv;
+    c.k = qkv + C;
+    c.v = qkv + 2 * C;
+    c.g = b.dout;
+    c.dq = dqkv;
+    c.dk = dqkv + C;
+    c.dv = dqkv + 2 * C;
+    c.out = reinterpret_cast<bf16_t*>(b.out);
+    c.vq = c.vkv = CoreView{(long long)n * 3 * C, k.d, 3 * C};
+    c.vg = CoreView{(long long)n * C, k.d, C};
+    c.vdq = c.vdkv = CoreView{(long long)n * k.ld3, k.d, k.ld3};
+    c.vout = CoreView{(long long)n * k.ldo, k.d, k.ldo};
+    c.bias = p.bias;
+    c.mask = p.mask;
+    c.lam = p.lam;
+    c.part = b.part;
+    c.dlam_part = b.dlam_part;
+    err = core_dispatch<true>(n, n, k.d, [&](auto shape) {
+      return core_launch<decltype(shape)>(c, p.dbias, st);
+    });
     if (err != cudaSuccess) return err;
   } else {
-    scatter_rows_kernel<T><<<(unsigned)((M * C + 255) / 256), 256, 0, st>>>(
-        b.dxw, map, M, C, static_cast<T*>(p.dx));
+    AttnBwdArgs at{};
+    at.qkv = b.qkv;
+    at.dout = b.dout;
+    at.out = b.out;
+    at.dqkv = b.dqkv;
+    at.P = b.P;
+    at.DL = b.DL;
+    at.dlam_part = p.lam ? b.dlam_part : nullptr;
+    at.bias = p.bias;
+    at.mask = p.mask;
+    at.lam = p.lam;
+    at.n = n;
+    at.n0 = k.n0;
+    at.d = k.d;
+    at.C = C;
+    at.ldo = k.ldo;
+    at.ld3 = k.ld3;
+    at.h = h;
+    at.nW = k.nW;
+    at.imgs_per_bias = p.images / p.L / p.bias_groups;
+    at.scale = 1.f / sqrtf((float)k.d);
+    const size_t smem = attn_bwd_smem_bytes(n, k.d, p.lam != nullptr);
+    if (smem > 227 * 1024) return cudaErrorInvalidValue;  // group too large
+    err = cudaFuncSetAttribute(attn_bwd_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    attn_bwd_kernel<T><<<dim3((unsigned)G, (unsigned)h), ABNT, smem, st>>>(at);
+    // the sums over groups, in group order
+    launch_reduce(b.DL, p.dbias, p.bias_groups, G / p.bias_groups,
+                  (long long)h * n * n, st);
   }
+  if (p.lam) launch_reduce(b.dlam_part, p.dlam, p.images, k.nW, h, st);
 
-  // the sums over windows, in window order
-  launch_reduce(b.DL, p.dbias, p.bias_groups, G / p.bias_groups,
-                (long long)h * n * n, st);
-  if (p.lam) launch_reduce(b.dlam_part, p.dlam, p.images, nW, h, st);
+  // dWp = out^T gw; dWqkv = xw^T dqkv; dbqkv = sum dqkv; dxw = dqkv Wqkv^T
+  err = weight_grad_tn<T>(b.out, k.ldo, b.gw, ld, M, C, C, b.part, p.dwp, st);
+  if (err != cudaSuccess) return err;
+  err = weight_grad_tn<T>(b.xw, ld, b.dqkv, k.ld3, M, C, 3 * C, b.part, p.dwqkv, st);
+  if (err != cudaSuccess) return err;
+  column_sums<T>(b.dqkv, 0, k.ld3, M, 3 * C, b.part, p.dbqkv, st);
+  err = gemm_nt<T>(b.dqkv, k.ld3, p.wqkvn, kpad(3 * C), b.dxw, C, M, C, k.ld3,
+                   nullptr, nullptr, 0, st);
+  if (err != cudaSuccess) return err;
+
+  // dx = scatter(LN backward of dxw) [+ g]; K8: dy = scatter(dxw)
+  if (p.lns)
+    return launch_ln_bwd<T>(p.x, p.g, b.dxw, p.lns, k.map, M, C, p.eps, p.res,
+                            p.dx, b.part, p.dln, st);
+  scatter_rows_kernel<T><<<(unsigned)((M * C + 255) / 256), 256, 0, st>>>(
+      b.dxw, k.map, M, C, static_cast<T*>(p.dx));
   return cudaSuccess;
 }
 
+// bytes of workspace attn_bwd_run needs (-1 if the shape is refused)
 template <typename T>
 inline long long attn_bwd_ws_bytes(const AttnBwdProblem& p) {
+  AttnBwdPlan k;
+  if (attn_bwd_plan<T>(k, p) != cudaSuccess) return -1;
   Workspace ws{nullptr, 0};
-  attn_bwd_buffers<T>(ws, p);
+  attn_bwd_buffers<T>(ws, k);
   return (long long)ws.off + 256;
 }
 

@@ -1,17 +1,22 @@
 // The tensor-core core of the window-attention backward in bf16, shared by
-// K10 (window_attn_bwd.cu) and K6 (lewin_attn_bwd.cu).
+// K10 (window_attn_bwd.cu), K6 (lewin_attn_bwd.cu) and K8 (freq_inter_bwd.cu).
 //
 // Replaces, on the card, the per-window part of the Pallas kernels
-// window_attention.py::_bwd_kernel (K10) and lewin_block_bwd.py::
-// _attn_bwd_kernel (K6) (frequency_wised_all_in_one_image_restoration_model_
-// tpu/ops/pallas/): for every window w and head hh, with q [n, d] and k, v
-// [nk, d] of the window, g the gradient of its output,
+// window_attention.py::_bwd_kernel (K10), lewin_block_bwd.py::
+// _attn_bwd_kernel (K6) and lewin_block_bwd.py::_freq_inter_bwd_kernel (K8)
+// (frequency_wised_all_in_one_image_restoration_model_tpu/ops/pallas/): for
+// every window w and head hh, with q [n, d] and k, v [nk, d] of the window
+// (K8: a group of the L = 3 band copies of a window, n = nk = 192), g the
+// gradient of its output,
 //   p  = softmax(scale q k^T + bias + mask)   (per-row max, fp32)
 //   dp = g v^T,  dl = p (dp - rowsum(dp p)),  dv = p^T g,
 //   dq = scale dl k,  dk = scale dl^T q,  dbias = sum over windows of dl
-// and, for K6's block (BLK), og = p v and the all_DC terms:
+// and, for the blocks of K6 and K8 (BLK), og = p v and the all_DC terms
+// (K6 at n = 64 only; K8's encoder has no lam):
 //   out = (1 + lam) og - lam / n sum v,  g = dog = (1 + lam) dout,
 //   dlam += sum dout (og - sum v / n),  dv += -lam / n sum dout.
+// The mask is [nW, n, nk], or (mtile, K8) [nW, 64, 64] tiled over the
+// logits: logit (i, j) of window w takes mask[w % nW][i % 64][j % 64].
 // Rounding points: p and dl are rounded to bf16 before the products that
 // take them (K6's twin rounds them there; K10's twin keeps them in fp32,
 // which a bf16 product of them replaces by one bf16 rounding), dl and the
@@ -41,7 +46,8 @@
 //    elements every time, in window order; one partial per chunk is
 //    written, and a reduce pass adds the chunks in chunk order (equal bits
 //    on a second launch);
-//  - n = 192 (the encoder's need_kv windows, d <= 32 only): the 192 x 192
+//  - n = 192 (the encoder's need_kv windows of K10 and K8's band groups,
+//    d <= 32 only): the 192 x 192
 //    fp32 dbias sum does not fit beside the rest, so the window loop holds
 //    three 64-row query blocks; each block's 64 x 192 slice of the chunk's
 //    partial is loaded into the tile (cp.async, overlapping the previous
@@ -62,14 +68,6 @@ __device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
 // row r of window w, head hh of an operand: base + w * w + hh * h + r * r
 struct CoreView {
   long long w;
@@ -80,19 +78,21 @@ struct CoreBwdArgs {
   const bf16_t* q;
   const bf16_t* k;
   const bf16_t* v;
-  const void* g;       // bf16 (K10), or K6's fp32 dout
+  const void* g;       // bf16 (K10), or the fp32 dout of K6 / K8
   bf16_t* dq;
   bf16_t* dk;
   bf16_t* dv;
-  bf16_t* out;         // K6: the attention rows, rounded
+  bf16_t* out;         // K6 / K8: the attention rows, rounded
   CoreView vq, vkv, vg, vdq, vdkv, vout;
   const float* bias;   // [groups, h, n, nk]
-  const float* mask;   // [nW, n, nk], window w taking mask[w % nW], or null
+  const float* mask;   // [nW, n, nk] (mtile: [nW, 64, 64]), window w taking
+                       // mask[w % nW], or null
   const float* lam;    // K6: [W / nW, h], or null
   float* part;         // [groups, chunks, h, n, nk]: dbias chunk partials
   float* dlam_part;    // K6 with lam: [W, h]
   long long W;         // windows, groups x windows per group
   int h, d, nW, groups, per, chunks;
+  int mtile;           // 1: the mask's 64 x 64 tile repeats over the logits
   float scale;
 };
 
@@ -184,15 +184,15 @@ __global__ void __launch_bounds__(CORE_NT) core_bwd_kernel(const CoreBwdArgs a) 
       }
     }
   };
-  // K6 (n = 64): g = (1 + lam) dout rounded, from the window's fp32 dout
-  // (through registers), and with lam the column sums of dout (from a copy
-  // in the p / dl tiles, which are free between the column pass and the
-  // next row pass)
+  // BLK: g = (1 + lam) dout rounded, from fp32 dout rows qb * 64 .. + 63 of
+  // the window (through registers), and with lam (n = 64 only) the column
+  // sums of dout (from a copy in the p / dl tiles, which are free between
+  // the column pass and the next row pass)
   float* scratch = reinterpret_cast<float*>(smem + S::OP);  // [64][DP] fp32
-  auto store_dout = [&](long long w) {
+  auto store_dout = [&](long long w, int qb) {
     const float lam = a.lam ? a.lam[(w / a.nW) * a.h + hh] : 0.f;
     const float* gw = static_cast<const float*>(a.g) + w * a.vg.w +
-                      (long long)hh * a.vg.h;
+                      (long long)hh * a.vg.h + (long long)qb * 64 * a.vg.r;
     for (int e = tid; e < 64 * d4; e += CORE_NT) {
       const int i = e / d4, c = (e - i * d4) * 4;
       const float4 t = *reinterpret_cast<const float4*>(gw + (long long)i * a.vg.r + c);
@@ -228,7 +228,7 @@ __global__ void __launch_bounds__(CORE_NT) core_bwd_kernel(const CoreBwdArgs a) 
   load_kv(win(t0));
   load_qg(win(t0), 0);
   cp_async_commit();
-  if constexpr (S::BLK) store_dout(win(t0));
+  if constexpr (S::BLK) store_dout(win(t0), 0);
 
   // nk = 64: the bias (fixed for the CTA) and the mask of the thread's
   // logits held in registers, the mask fetched as a window starts (its
@@ -251,7 +251,9 @@ __global__ void __launch_bounds__(CORE_NT) core_bwd_kernel(const CoreBwdArgs a) 
   if (REGS) fetch_bm(bias, bz);
   for (long long t = t0; t < t1; ++t) {
     const long long w = win(t);
-    const float* mask = a.mask ? a.mask + (w % a.nW) * (long long)N * NK : nullptr;
+    const float* mask =
+        a.mask ? a.mask + (w % a.nW) * (a.mtile ? 64LL * 64 : (long long)N * NK)
+               : nullptr;
     const float lam = S::BLK && a.lam ? a.lam[(w / a.nW) * a.h + hh] : 0.f;
     if (REGS && mask && w % a.nW != mres) {
       fetch_bm(mask, mz);
@@ -310,9 +312,11 @@ __global__ void __launch_bounds__(CORE_NT) core_bwd_kernel(const CoreBwdArgs a) 
                    : __ldg(reinterpret_cast<const float2*>(bias + o));
           float v0 = s[nt][2 * hf] * scale + b.x, v1 = s[nt][2 * hf + 1] * scale + b.y;
           if (mask) {
+            const long long om =
+                a.mtile ? (((ig + hf * 8) & 63) * 64 + ((nt * 8 + t4 * 2) & 63)) : o;
             const float2 m =
                 REGS ? make_float2(mz[REGS ? nt : 0][2 * hf], mz[REGS ? nt : 0][2 * hf + 1])
-                     : __ldg(reinterpret_cast<const float2*>(mask + o));
+                     : __ldg(reinterpret_cast<const float2*>(mask + om));
             v0 += m.x;
             v1 += m.y;
           }
@@ -384,7 +388,7 @@ __global__ void __launch_bounds__(CORE_NT) core_bwd_kernel(const CoreBwdArgs a) 
           if (c >= d) continue;
 #pragma unroll
           for (int hf = 0; hf < 2; ++hf) {
-            const int i = il + hf * 8;
+            const int i = ig + hf * 8;
             float o0 = og[ct][2 * hf], o1 = og[ct][2 * hf + 1];
             if (a.lam) {
               const float2 dd =
@@ -605,7 +609,7 @@ __global__ void __launch_bounds__(CORE_NT) core_bwd_kernel(const CoreBwdArgs a) 
       }
       cp_async_commit();
       if constexpr (S::BLK) {
-        if (tn < t1) store_dout(win(tn));
+        if (tn < t1) store_dout(win(tn), qn);
       }
     }
   }
@@ -619,12 +623,13 @@ __global__ void __launch_bounds__(CORE_NT) core_bwd_kernel(const CoreBwdArgs a) 
   }
 }
 
-// 1 if the core takes (n, nk, d) (bf16; K6's block: n = nk = 64)
+// 1 if the core takes (n, nk, d) (bf16; the blocks of K6 and K8: n = nk =
+// 64 or 192, lam only at 64)
 inline bool core_covers(int n, int nk, int d, bool blk) {
   if (d % 4 || d < 4 || d > 64) return false;
   if (n == 64 && nk == 64) return true;
-  if (blk) return false;
-  return (n == 64 && nk == 192) || (n == 192 && nk == 192 && d <= 32);
+  if (n == 192 && nk == 192 && d <= 32) return true;
+  return !blk && n == 64 && nk == 192;
 }
 
 // f(CoreShape<...>{}) for the instance of (n, nk, d); core_covers first
@@ -633,11 +638,11 @@ inline cudaError_t core_dispatch(int n, int nk, int d, F&& f) {
   const bool p32 = d <= 32;
   if (n == 64 && nk == 64)
     return p32 ? f(CoreShape<64, 64, 32, BLK>{}) : f(CoreShape<64, 64, 64, BLK>{});
+  if (n == 192 && nk == 192 && p32) return f(CoreShape<192, 192, 32, BLK>{});
   if constexpr (!BLK) {
     if (n == 64 && nk == 192)
       return p32 ? f(CoreShape<64, 192, 32, false>{})
                  : f(CoreShape<64, 192, 64, false>{});
-    if (n == 192 && nk == 192 && p32) return f(CoreShape<192, 192, 32, false>{});
   }
   return cudaErrorInvalidValue;
 }
@@ -684,6 +689,7 @@ inline cudaError_t core_chunking(CoreBwdArgs& a, long long cap) {
 // sum of the chunk partials in chunk order
 template <class S>
 inline cudaError_t core_launch(const CoreBwdArgs& a, float* dbias, cudaStream_t st) {
+  if (S::BLK && S::QB > 1 && a.lam) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(core_bwd_kernel<S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)S::BYTES);

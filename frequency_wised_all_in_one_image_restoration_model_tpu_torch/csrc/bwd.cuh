@@ -1,7 +1,7 @@
 // Shared pieces of the backward kernels (K6-K8, K14): a workspace
-// carver, a strided GEMM with fp32 output, the fixed-order reductions that
-// take the place of the TPU's sequential accumulation, and the LayerNorm
-// backward pass.
+// carver, the fixed-order reductions that take the place of the TPU's
+// sequential accumulation, column sums and the LayerNorm backward pass (the
+// products run on bwd_gemm.cuh).
 //
 // The Pallas backward bodies accumulate every weight gradient into a
 // VMEM-resident block across a sequential grid. Thread blocks on the card run
@@ -9,19 +9,8 @@
 // here: the rows are cut into chunks, every chunk writes its partial sum to
 // scratch, and reduce_kernel adds the partials in ascending order. No float
 // atomics: two runs give equal bits.
-//
-// bgemm: C[z][m, n] = epilogue(sum_k A(m, k) B(k, n)) over k in chunk z, with
-// A and B addressed by element strides, so that A^T B (the weight gradients,
-// k = rows), A W^T and A W all go through one kernel. Operands are stored in
-// the compute type T, or in fp32 and rounded to T on load (the Pallas bodies
-// cast to the compute dtype before each product); products accumulate in
-// fp32 and the output is fp32. fp32 runs on the CUDA cores in full precision
-// (no TF32); bf16 runs on the tensor cores (wmma m16n16k16, operands staged
-// in shared memory as bf16, which they already are in value).
 
 #pragma once
-
-#include <mma.h>
 
 #include "gemm.cuh"
 
@@ -72,220 +61,6 @@ __host__ __device__ inline long long chunk_count(long long M) {
   return (M + rc - 1) / rc;
 }
 
-// ---------------------------------------------------------------------------
-// bgemm
-// ---------------------------------------------------------------------------
-
-struct BGemmArgs {
-  const void* A;
-  const void* B;
-  float* C;             // [chunks, M, N]
-  long long sam, sak;   // A(m, k) = A[m * sam + k * sak]
-  long long sbk, sbn;   // B(k, n) = B[k * sbk + n * sbn]
-  int a_f32, b_f32;     // stored in fp32 (rounded to T on load), else in T
-  long long M;
-  int N;
-  long long K;
-  long long kc;         // k per chunk (blockIdx.z); K for one chunk
-  const float* bias;    // + bias[n], or null
-  const float* aux;     // x gelu'(aux[m, n]), aux in C's layout, or null
-};
-
-constexpr int BG_BM = 64, BG_BN = 64, BG_BK = 16, BG_NT = 256;
-
-template <typename T>
-__device__ __forceinline__ float bg_load(const void* p, long long idx, int is_f32) {
-  if (is_f32) return rt<T>(static_cast<const float*>(p)[idx]);
-  return to_f(static_cast<const T*>(p)[idx]);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(BG_NT) bgemm_kernel(const BGemmArgs a) {
-  __shared__ float As[BG_BK][BG_BM + 1];
-  __shared__ float Bs[BG_BK][BG_BN + 1];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long m0 = (long long)blockIdx.x * BG_BM;
-  const int n0 = blockIdx.y * BG_BN;
-  const long long k_lo = (long long)blockIdx.z * a.kc;
-  long long k_hi = k_lo + a.kc;
-  if (k_hi > a.K) k_hi = a.K;
-
-  // thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (long long k0 = k_lo; k0 < k_hi; k0 += BG_BK) {
-    // neighbouring threads walk the operand's contiguous axis
-    for (int e = tid; e < BG_BM * BG_BK; e += BG_NT) {
-      int m, k;
-      if (a.sak == 1) {
-        m = e / BG_BK;
-        k = e % BG_BK;
-      } else {
-        k = e / BG_BM;
-        m = e % BG_BM;
-      }
-      const long long gm = m0 + m, gk = k0 + k;
-      As[k][m] = (gm < a.M && gk < k_hi)
-                     ? bg_load<T>(a.A, gm * a.sam + gk * a.sak, a.a_f32)
-                     : 0.f;
-    }
-    for (int e = tid; e < BG_BN * BG_BK; e += BG_NT) {
-      int nn, k;
-      if (a.sbk == 1) {
-        nn = e / BG_BK;
-        k = e % BG_BK;
-      } else {
-        k = e / BG_BN;
-        nn = e % BG_BN;
-      }
-      const long long gn = n0 + nn, gk = k0 + k;
-      Bs[k][nn] = (gn < a.N && gk < k_hi)
-                      ? bg_load<T>(a.B, gk * a.sbk + gn * a.sbn, a.b_f32)
-                      : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BG_BK; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* C = a.C + (long long)blockIdx.z * a.M * a.N;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long gm = m0 + ty + 16 * i;
-    if (gm >= a.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn >= a.N) continue;
-      float v = acc[i][j];
-      if (a.bias) v += a.bias[gn];
-      if (a.aux) v *= gelu_tanh_grad(a.aux[gm * a.N + gn]);
-      C[gm * a.N + gn] = v;
-    }
-  }
-}
-
-// The bf16 form of bgemm_kernel: the same tiles of 64 x 64 and the same
-// strided loads, 32 of k per step; 8 warps in 4 x 2, each 16 x 32 of C as two
-// wmma accumulators; C goes through shared memory to the same epilogue.
-constexpr int BW_BK = 32, BW_LDA = BW_BK + 8, BW_LDB = BG_BN + 8,
-              BW_LDC = BG_BN + 4;
-
-static __global__ void __launch_bounds__(BG_NT) bgemm_wmma_kernel(const BGemmArgs a) {
-  namespace wmma = nvcuda::wmma;
-  __shared__ __align__(32) bf16_t As[BG_BM * BW_LDA];  // [m][k]
-  __shared__ __align__(32) bf16_t Bs[BW_BK * BW_LDB];  // [k][n]
-  __shared__ __align__(32) float Cs[BG_BM * BW_LDC];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const long long m0 = (long long)blockIdx.x * BG_BM;
-  const int n0 = blockIdx.y * BG_BN;
-  const long long k_lo = (long long)blockIdx.z * a.kc;
-  long long k_hi = k_lo + a.kc;
-  if (k_hi > a.K) k_hi = a.K;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-
-  for (long long k0 = k_lo; k0 < k_hi; k0 += BW_BK) {
-    for (int e = tid; e < BG_BM * BW_BK; e += BG_NT) {
-      int m, k;
-      if (a.sak == 1) {
-        m = e / BW_BK;
-        k = e % BW_BK;
-      } else {
-        k = e / BG_BM;
-        m = e % BG_BM;
-      }
-      const long long gm = m0 + m, gk = k0 + k;
-      As[m * BW_LDA + k] = from_f<bf16_t>(
-          (gm < a.M && gk < k_hi)
-              ? bg_load<bf16_t>(a.A, gm * a.sam + gk * a.sak, a.a_f32)
-              : 0.f);
-    }
-    for (int e = tid; e < BG_BN * BW_BK; e += BG_NT) {
-      int nn, k;
-      if (a.sbk == 1) {
-        nn = e / BW_BK;
-        k = e % BW_BK;
-      } else {
-        k = e / BG_BN;
-        nn = e % BG_BN;
-      }
-      const long long gn = n0 + nn, gk = k0 + k;
-      Bs[k * BW_LDB + nn] = from_f<bf16_t>(
-          (gn < a.N && gk < k_hi)
-              ? bg_load<bf16_t>(a.B, gk * a.sbk + gn * a.sbn, a.b_f32)
-              : 0.f);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BW_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16_t, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, As + wm * 16 * BW_LDA + kk, BW_LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16_t, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, Bs + kk * BW_LDB + wn * 32 + j * 16, BW_LDB);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(Cs + wm * 16 * BW_LDC + wn * 32 + j * 16, acc[j],
-                            BW_LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  float* C = a.C + (long long)blockIdx.z * a.M * a.N;
-  for (int e = tid; e < BG_BM * BG_BN; e += BG_NT) {
-    const int m = e / BG_BN, nn = e % BG_BN;
-    const long long gm = m0 + m;
-    const int gn = n0 + nn;
-    if (gm >= a.M || gn >= a.N) continue;
-    float v = Cs[m * BW_LDC + nn];
-    if (a.bias) v += a.bias[gn];
-    if (a.aux) v *= gelu_tanh_grad(a.aux[gm * a.N + gn]);
-    C[gm * a.N + gn] = v;
-  }
-}
-
-// the grid's z is the chunk of k; the kernel by the compute type
-template <typename T>
-inline void launch_bgemm_chunks(const BGemmArgs& a, long long chunks,
-                                cudaStream_t st) {
-  const dim3 grid((unsigned)((a.M + BG_BM - 1) / BG_BM),
-                  (unsigned)((a.N + BG_BN - 1) / BG_BN), (unsigned)chunks);
-  if constexpr (std::is_same<T, bf16_t>::value)
-    bgemm_wmma_kernel<<<grid, BG_NT, 0, st>>>(a);
-  else
-    bgemm_kernel<T><<<grid, BG_NT, 0, st>>>(a);
-}
-
-// one chunk: C [M, N] = A B over all of K
-template <typename T>
-inline void launch_bgemm(BGemmArgs a, cudaStream_t st) {
-  a.kc = a.K;
-  launch_bgemm_chunks<T>(a, 1, st);
-}
-
 // out[b, n] = sum_s in[b, s, n], s ascending
 static __global__ void reduce_kernel(const float* in, float* out, long long S,
                                      long long N, long long total) {
@@ -303,31 +78,6 @@ inline void launch_reduce(const float* in, float* out, long long batches,
   const long long total = batches * N;
   reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(in, out, S, N,
                                                                   total);
-}
-
-// dW [Mw, N] = A^T B, a sum over ``rows``: A(i, r) = A[r * lda + i],
-// B(r, j) = B[r * ldb + j]; chunk partials in ``part``, then the reduction
-template <typename T>
-inline void weight_grad(const void* A, long long lda, int a_f32, const void* B,
-                        long long ldb, int b_f32, long long rows, int Mw, int N,
-                        float* part, float* out, cudaStream_t st) {
-  BGemmArgs a{};
-  a.A = A;
-  a.B = B;
-  a.C = part;
-  a.sam = 1;
-  a.sak = lda;
-  a.sbk = ldb;
-  a.sbn = 1;
-  a.a_f32 = a_f32;
-  a.b_f32 = b_f32;
-  a.M = Mw;
-  a.N = N;
-  a.K = rows;
-  a.kc = chunk_rows(rows);
-  const long long S = chunk_count(rows);
-  launch_bgemm_chunks<T>(a, S, st);
-  launch_reduce(part, out, 1, S, (long long)Mw * N, st);
 }
 
 // part[z, n] = sum of X[m, n] over the rows of chunk z: a block takes 32

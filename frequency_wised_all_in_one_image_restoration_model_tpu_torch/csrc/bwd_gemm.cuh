@@ -1,7 +1,7 @@
 // Products of the block backward kernels on Hopper: a pipelined GEMM with
 // fp32 output for both operand layouts a backward needs, in both compute
-// types. K7 runs all five of its products through it; K6 and K8 still use
-// bwd.cuh's bgemm.
+// types. K6, K7 and K8 run every product but the qkv recompute through it,
+// K14 its weight gradient.
 //
 //   NT:  C[m, n] = sum_k A[m, k] B[n, k]       (A x W^T: A and W k-contiguous)
 //   TN:  C[z][m, n] = sum_{k in chunk z} A[k, m] B[k, n]

@@ -420,6 +420,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(bytes));
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile(

@@ -73,15 +73,15 @@ IMPLS = ("default", "kernel", "merged", "split", "plain")
 # MERGED_MIN_TOKENS tokens (images x res^2); every other block, and a
 # smaller batch, takes the chain. From the per-block A/B on an H100 at
 # B = 4, 16 and 32 (``chip_smoke.py`` phase 3; PERF.md section 6, "merged
-# against chain"): in bf16 the merged kernel is ahead (0.85-0.94 of the
-# chain's time) where it absorbs the two roll passes of a shifted block at
-# the byte-bound stages, from 32768 tokens up (res 32 at B=32, res 64 at
-# B=16, res 128 at B=4); at 16384 tokens it ties or loses (1.00-1.07), below
-# that it loses, and so it does at every other block. In float32 at the eval
-# entry point's batch it is within 5% of the chain or behind at every stage,
-# so float32 keeps the chain.
-DEFAULT_MERGED = frozenset(
-    ("origin", res, True, torch.bfloat16) for res in (128, 64, 32))
+# against chain"): in bf16 the merged kernel is ahead only where it absorbs
+# the two roll passes of a shifted block; with K2 fused (its hidden rows on
+# the SM, where K4 takes them through device memory) the chain has caught
+# up at res 128 and 64 (merged / chain 1.01-1.07 at B = 4, 16, 32) and
+# stays behind at res 32 from 32768 tokens (0.99 at B=32); below 32768
+# tokens it loses, and so it does at every other block. In float32 at the
+# eval entry point's batch it is within 5% of the chain or behind at every
+# stage, so float32 keeps the chain.
+DEFAULT_MERGED = frozenset({("origin", 32, True, torch.bfloat16)})
 MERGED_MIN_TOKENS = 32768
 
 # The origin-MSA blocks ``impl='default'`` runs as K12 -> K13: (width C,

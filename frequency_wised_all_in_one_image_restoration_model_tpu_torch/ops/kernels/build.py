@@ -46,6 +46,8 @@ SIGNATURES = {
     # x, lns, lnb, w1t, b1, wd, bd, w2t, b2, dps, xn, hid1, hid2, out,
     # B, H, W, C, Hd, bf16, eps, stream
     "fairm_lewin_ffn": [_P] * 14 + [_I] * 6 + [_F, _P],
+    # C, bf16: 1 if fairm_lewin_ffn runs fused (no xn / hid1 / hid2)
+    "fairm_lewin_ffn_fused": [_I] * 2,
     # x, lns, lnb, wqkv, bqkv, wp, bp, bias, mask, lam, dps, xo, qkv, parts,
     # out, B, H, W, C, h, win, res, kb, bf16, eps, stream
     "fairm_lewin_attn_split": [_P] * 15 + [_I] * 9 + [_F, _P],
@@ -68,9 +70,9 @@ SIGNATURES = {
     # x, g, lns, lnb, w1t, w1n, b1, wd, bd, w2n, ws, dx, dln, dw1, db1, dwd,
     # dbd, dw2, db2, ws_bytes, B, H, W, C, Hd, bf16, eps, stream
     "fairm_lewin_ffn_bwd": [_P] * 19 + [_Q] + [_I] * 6 + [_F, _P],
-    # y, g, wqkv, bqkv, wp, bias, mask, ws, dy, dwqkv, dbqkv, dwp, dbp, dbias,
-    # ws_bytes, LB, H, W, C, h, win, L, bf16, stream
-    "fairm_freq_inter_bwd": [_P] * 14 + [_Q] + [_I] * 8 + [_P],
+    # y, g, wqkv, bqkv, wp, wqkvn, wpn, bias, mask, ws, dy, dwqkv, dbqkv, dwp,
+    # dbp, dbias, ws_bytes, LB, H, W, C, h, win, L, bf16, stream
+    "fairm_freq_inter_bwd": [_P] * 16 + [_Q] + [_I] * 8 + [_P],
     # q, k, v, bias, mask, out, W, h, n, nk, d, nW, scale, bf16, stream
     "fairm_window_attn": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
     # q, k, v, bias, mask, g, ws, dq, dk, dv, dbias, ws_bytes, W, h, n, nk,

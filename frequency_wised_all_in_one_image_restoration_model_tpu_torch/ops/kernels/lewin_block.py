@@ -517,11 +517,16 @@ def ffn_kernel(x_img, lns, lnb, op: FfnOperands, eps: float, dps):
     dps = _f32(dps, (B,))
     dt = x_img.dtype
     M = B * H * W
-    xn = torch.empty((M, kpad(C)), dtype=dt, device=x_img.device)
-    hid1 = torch.empty((M, Hd), dtype=dt, device=x_img.device)
-    hid2 = torch.empty((M, kpad(Hd)), dtype=dt, device=x_img.device)
+    lib = load()
+    xn = hid1 = hid2 = None
+    if not lib.fairm_lewin_ffn_fused(C, _DTYPES[dt]):
+        # the four passes' LN2 rows and hidden tensors (the fused kernel
+        # keeps its hidden rows on the SM)
+        xn = torch.empty((M, kpad(C)), dtype=dt, device=x_img.device)
+        hid1 = torch.empty((M, Hd), dtype=dt, device=x_img.device)
+        hid2 = torch.empty((M, kpad(Hd)), dtype=dt, device=x_img.device)
     out = torch.empty_like(x_img)
-    _run(load().fairm_lewin_ffn, _ptr(x_img), _ptr(lns), _ptr(lnb),
+    _run(lib.fairm_lewin_ffn, _ptr(x_img), _ptr(lns), _ptr(lnb),
          _ptr(op.w1), _ptr(op.b1), _ptr(op.wd), _ptr(op.bd), _ptr(op.w2),
          _ptr(op.b2), _ptr(dps), _ptr(xn), _ptr(hid1), _ptr(hid2), _ptr(out),
          B, H, W, C, Hd, _DTYPES[dt], float(eps), _stream(x_img))
@@ -1166,9 +1171,10 @@ def _attn_bwd_operands(x, wq3, bq3, wk3, bk3, wv3, bv3, wp3):
 
 
 def _attn_bwd_nt_operands(wqkv, wp3):
-    """K6's B operands of ``dqkv Wqkv^T`` and ``gw Wp^T``: ``Wqkv [C, 3C]``
-    and ``Wp [C, C]`` as they are, rows zero-padded to kpad, from the
-    forward's ``wqkv [3C, kpad(C)]`` and the per-head ``wp3``."""
+    """The B operands of ``dqkv Wqkv^T`` and ``gw Wp^T`` in K6 and K8:
+    ``Wqkv [C, 3C]`` and ``Wp [C, C]`` as they are, rows zero-padded to
+    kpad, from the forward's ``wqkv [3C, kpad(C)]`` and the per-head
+    ``wp3``."""
     C = wp3.shape[-1]
     return _nk(wqkv[:, :C].t(), wqkv.dtype), _nk(wp3.reshape(C, C), wqkv.dtype)
 
@@ -1236,6 +1242,7 @@ def freq_inter_bwd_kernel(y_img, g, wq3, bq3, wk3, bk3, wv3, bv3, wp3, biasB,
     with torch.no_grad():
         wqkv, bqkv, wp = _attn_bwd_operands(y_img, wq3, bq3, wk3, bk3, wv3,
                                             bv3, wp3)
+        wqkvn, wpn = _attn_bwd_nt_operands(wqkv, wp3)
         bias = _f32(biasB, (h, L * n, L * n))
         mask = _f32(mask, (nW, n, n))
     dev, dt = y_img.device, y_img.dtype
@@ -1245,11 +1252,15 @@ def freq_inter_bwd_kernel(y_img, g, wq3, bq3, wk3, bk3, wv3, bv3, wp3, biasB,
     dbias = torch.empty_like(bias)
     lib = load()
     nbytes = lib.fairm_freq_inter_bwd_ws(LB, H, W, C, h, win, L, _DTYPES[dt])
+    if nbytes < 0:
+        raise RuntimeError("fairm_freq_inter_bwd_ws: the kernel refused "
+                           f"{tuple(y_img.shape)}, h={h}, win={win}, L={L}")
     ws = _workspace(nbytes, y_img)
     _run(lib.fairm_freq_inter_bwd, _ptr(y_img), _ptr(g), _ptr(wqkv),
-         _ptr(bqkv), _ptr(wp), _ptr(bias), _ptr(mask), _ptr(ws), _ptr(dy),
-         _ptr(dwqkv), _ptr(dbqkv), _ptr(dwp), _ptr(dbp), _ptr(dbias), nbytes,
-         LB, H, W, C, h, win, L, _DTYPES[dt], _stream(y_img))
+         _ptr(bqkv), _ptr(wp), _ptr(wqkvn), _ptr(wpn), _ptr(bias), _ptr(mask),
+         _ptr(ws), _ptr(dy), _ptr(dwqkv), _ptr(dbqkv), _ptr(dwp), _ptr(dbp),
+         _ptr(dbias), nbytes, LB, H, W, C, h, win, L, _DTYPES[dt],
+         _stream(y_img))
     LAUNCHES["freq_inter_bwd"] += 1
     return (dy, *_split_qkv_grads(dwqkv, dbqkv, h),
             dwp.reshape(h, C // h, C), dbp, dbias)

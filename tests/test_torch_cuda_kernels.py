@@ -11,7 +11,7 @@ Small shapes with every option on (SW-MSA shift, all_DC ``lam``, DropPath
 ``dps``, L=3 bands); ``chip_smoke.py`` checks the flagship shapes. The
 backward kernels K6-K8 are held against their plain twins output by output,
 and the autograd Functions against ``torch.autograd.grad`` of the forward
-twins.
+twins; K8 and the fused K2 also at the edges of their tiles and chunks.
 """
 
 import numpy as np
@@ -23,7 +23,7 @@ from frequency_wised_all_in_one_image_restoration_model_tpu_torch.models import 
 from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops import (
     windows)
 from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops.kernels import (
-    lewin_block as lb)
+    build, lewin_block as lb)
 
 B, RES, C, H, L, WIN = 2, 16, 16, 2, 3, 8
 N = WIN * WIN
@@ -164,12 +164,25 @@ def _ln(rng):
     return [1.0 + _t(rng, C, scale=0.1), _t(rng, C, scale=0.1)]
 
 
+def _check_chain(got, chain, dtype):
+    """K4 / K5 against the chain of kernels they equal: bit for bit where
+    the chain's K2 runs the passes K4 / K5 share (fp32, and bf16 at widths
+    K2 does not fuse); where K2 runs fused (bf16, C a multiple of 4,
+    kpad(C) <= 224) it
+    keeps the hidden rows in fp32 until fc2, JAX's rounding points, where
+    K4 / K5 round them to bf16 after fc1, so the two agree within TOL."""
+    if dtype == torch.bfloat16 and build.load().fairm_lewin_ffn_fused(C, 1):
+        _check(got, chain, dtype)
+    else:
+        assert torch.equal(got, chain)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shift", [0, 4])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_block_merged_kernel(card, dtype, shift):
     """K4 in one launch: against its twin, and equal to the chain of K1 and
-    K2 around torch.roll."""
+    K2 around torch.roll (:func:`_check_chain`)."""
     args = (_attn(card, B, dtype)
             + [_mask() if shift else None, _t(card, B, H, scale=0.3)]
             + _ln(card) + _ffn_w(card)
@@ -179,7 +192,7 @@ def test_block_merged_kernel(card, dtype, shift):
     assert lb.LAUNCHES["lewin_merged"] == 1 and sum(lb.LAUNCHES.values()) == 1
     _check(got, lb.block_merged_plain(*args), dtype)
     chain = lb.merged_chain(lb.block_attention, lb.block_ffn, *args)
-    assert torch.equal(got, chain)
+    _check_chain(got, chain, dtype)
 
 
 @pytest.mark.cuda
@@ -187,7 +200,7 @@ def test_block_merged_kernel(card, dtype, shift):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_block_freq_merged_kernel(card, dtype, shift):
     """K5 in one launch: against its twin, and equal to the chain of K1,
-    K3 and K2 around torch.roll."""
+    K3 and K2 around torch.roll (:func:`_check_chain`)."""
     a = _attn(card, L * B, dtype, groups=L)
     b = _attn(card, L * B, dtype)
     args = (a + b[3:11] + [_t(card, H, L * N, L * N, scale=0.05),
@@ -200,7 +213,7 @@ def test_block_freq_merged_kernel(card, dtype, shift):
     _check(got, lb.block_freq_merged_plain(*args), dtype)
     chain = lb.freq_merged_chain(lb.freq_intra, lb.freq_inter, lb.block_ffn,
                                  *args)
-    assert torch.equal(got, chain)
+    _check_chain(got, chain, dtype)
 
 
 @pytest.mark.cuda
@@ -234,7 +247,7 @@ def test_merged_kernels_at_widths_off_the_vector_paths(card, monkeypatch,
                                                        dtype, width):
     """Widths that are no multiple of 4 take the element-wise forms of the
     prep pass, the GEMM epilogue and (C=5, bf16) the depthwise conv: K4 and
-    K5 still match their twins and equal the chains."""
+    K5 still match their twins and equal the chains (:func:`_check_chain`)."""
     monkeypatch.setitem(globals(), "C", width)
     monkeypatch.setitem(globals(), "H", 1)
     args = (_attn(card, B, dtype) + [_mask(), _t(card, B, 1, scale=0.3)]
@@ -242,8 +255,8 @@ def test_merged_kernels_at_widths_off_the_vector_paths(card, monkeypatch,
             + [WIN, 4, 1e-6, _dps(card, B), _dps(card, B)])
     got = lb.block_merged(*args)
     _check(got, lb.block_merged_plain(*args), dtype)
-    assert torch.equal(got, lb.merged_chain(lb.block_attention, lb.block_ffn,
-                                            *args))
+    _check_chain(got, lb.merged_chain(lb.block_attention, lb.block_ffn,
+                                      *args), dtype)
     a = _attn(card, L * B, dtype, groups=L)
     b = _attn(card, L * B, dtype)
     args = (a + b[3:11] + [_t(card, 1, L * N, L * N, scale=0.05), _mask()]
@@ -251,8 +264,8 @@ def test_merged_kernels_at_widths_off_the_vector_paths(card, monkeypatch,
             + [L, WIN, 4, 1e-6, _dps(card, L * B), _dps(card, L * B)])
     got = lb.block_freq_merged(*args)
     _check(got, lb.block_freq_merged_plain(*args), dtype)
-    assert torch.equal(got, lb.freq_merged_chain(
-        lb.freq_intra, lb.freq_inter, lb.block_ffn, *args))
+    _check_chain(got, lb.freq_merged_chain(
+        lb.freq_intra, lb.freq_inter, lb.block_ffn, *args), dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -442,3 +455,97 @@ def test_functions_match_autograd_of_the_forward_twins(card, shift):
                 1, 1, 1, 1)
     want = torch.autograd.grad(lb.block_freq_merged_plain(*args), diff, g)
     _check_all(got, want, dtype)
+
+
+# K8 at the edges of the tensor-core core's 192-token block instance (bf16;
+# fp32 takes the CUDA-core core and the FMA products): (label, images per
+# band, res, C, heads, shift mask). 17 images of 9 windows: 153 band
+# groups, cut into chunks whose last is short; res 8 with 16 heads: one
+# window an image, the encoder's deepest stage.
+INTER_CASES = [
+    ("tiled mask", 2, 16, 28, 1, True),
+    ("no mask", 2, 16, 28, 1, False),
+    ("short last chunk tiled mask", 17, 24, 28, 1, True),
+    ("h16 one window an image", 2, 8, 448, 16, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INTER_CASES, ids=[c[0] for c in INTER_CASES])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_freq_inter_bwd_core_edges(card, dtype, case):
+    """K8 against its twin, every output within BWD_TOL (the sums over rows
+    or groups on max(1, 1% of the largest of them)); two launches give equal
+    bits."""
+    _, images, res, c, h, shifted = case
+    d = c // h
+    x = _t(card, L * images, res, res, c, scale=0.5, dtype=dtype)
+    w = [_t(card, h, c, d, scale=c ** -0.5) if i % 2 == 0 else
+         _t(card, h, d, scale=0.1) for i in range(6)]
+    mask = (torch.from_numpy(windows.shift_attn_mask(res, res, WIN, 4)).cuda()
+            if shifted else None)
+    args = ([x, _grad(card, x)] + w
+            + [_t(card, h, d, c, scale=c ** -0.5), _t(card, c, scale=0.1),
+               _t(card, h, L * N, L * N, scale=0.05), mask, L, WIN])
+    lb.reset_launches()
+    got = lb.freq_inter_bwd(*args)
+    assert lb.LAUNCHES["freq_inter_bwd"] == 1
+    want = lb.freq_inter_bwd_plain(*args)
+    assert len(got) == len(want)
+    floor = max([1.0] + [1e-2 * b.float().abs().max().item() for b in want[1:]])
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.isfinite(a.float()).all()
+        err = (a.float() - b.float()).abs().max().item() / max(
+            floor if i else 1.0, b.float().abs().max().item())
+        assert err <= BWD_TOL[dtype], (i, err)
+    again = lb.freq_inter_bwd(*args)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+
+
+# the fused K2 (bf16, C <= 224): (label, images, H, W, C, DropPath). Hidden
+# blocks of 32 a step: C = 28 -> 4 (the last half empty), 56 -> 7, 112 -> 14,
+# 224 -> 28, every count of the flagship's fused stages.
+FFN_CASES = [
+    ("halos between images C56", 3, 16, 16, 56, True),
+    ("W off the tile C28", 2, 16, 20, 28, True),
+    ("H and W off the tile C112", 2, 12, 20, 112, False),
+    ("one 8x8 image C224", 1, 8, 8, 224, True),
+    ("8x8 images C224", 3, 8, 8, 224, False),
+    ("C28 one tile wide", 3, 16, 8, 28, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FFN_CASES, ids=[c[0] for c in FFN_CASES])
+def test_block_ffn_fused_edges(card, case):
+    """The fused K2 against its twin within TOL: image edges, tiles past the
+    image's right and bottom edges, halos that must not reach into the next
+    image of the batch, every hidden-block count of the flagship's fused
+    stages, with and without DropPath; it launches once, takes no hidden
+    tensor in device memory, and a second launch gives equal bits."""
+    _, images, hh, ww, c, with_dps = case
+    hd = 4 * c
+    dt = torch.bfloat16
+    x = _t(card, images, hh, ww, c, scale=0.5, dtype=dt)
+    # images of the batch far apart, so a halo from a neighbour would show
+    x = x + torch.arange(images, device="cuda", dtype=dt)[:, None, None, None] * 4
+    w = [1.0 + _t(card, c, scale=0.1), _t(card, c, scale=0.1),
+         _t(card, c, hd, scale=c ** -0.5), _t(card, hd, scale=0.1),
+         _t(card, 3, 3, hd, scale=1 / 3), _t(card, hd, scale=0.1),
+         _t(card, hd, c, scale=hd ** -0.5), _t(card, c, scale=0.1)]
+    dps = _dps(card, images) if with_dps else None
+    op = lb.ffn_operands(*w[2:], dt)
+    assert build.load().fairm_lewin_ffn_fused(c, 1) == 1
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lb.reset_launches()
+    got = lb.ffn_kernel(x, w[0], w[1], op, 1e-6, dps)
+    torch.cuda.synchronize()
+    assert lb.LAUNCHES["lewin_ffn"] == 1
+    scratch = (torch.cuda.max_memory_allocated() - base
+               - got.numel() * got.element_size())
+    assert scratch < images * hh * ww * hd * 2, scratch
+    _check(got, lb.block_ffn_plain(x, *w, 1e-6, dps), dt)
+    assert torch.equal(got, lb.ffn_kernel(x, w[0], w[1], op, 1e-6, dps))

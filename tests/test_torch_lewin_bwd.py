@@ -337,9 +337,10 @@ def test_block_freq_merged_function_equals_the_chain(rng, shift):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c,h", [(5, 1), (28, 1), (56, 2)])
+@pytest.mark.parametrize("c,h", [(5, 1), (28, 1), (56, 2), (448, 16)])
 def test_attn_bwd_nt_operands(c, h, dtype):
-    """K6's B operands of ``dqkv Wqkv^T`` and ``gw Wp^T``
+    """The B operands of ``dqkv Wqkv^T`` and ``gw Wp^T`` that K6 and K8
+    take (K8 also at the encoder's deepest stage, C = 448, 16 heads)
     (``_attn_bwd_nt_operands``): with them the two products give the
     gradients that autograd gives through the forward's operands, and
     their pad columns are zero."""

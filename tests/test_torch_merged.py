@@ -225,25 +225,26 @@ def test_lewin_block_routes_agree_on_the_cpu(msa_type, impl):
 
 
 @pytest.mark.parametrize("msa_type,res,shift,dtype,batch,want", [
-    ("origin", 128, 4, torch.bfloat16, 32, "merged"),
+    ("origin", 128, 4, torch.bfloat16, 32, "kernel"),   # the chain caught up
     ("origin", 32, 4, torch.bfloat16, 32, "merged"),
-    ("origin", 128, 0, torch.bfloat16, 32, "kernel"),   # no roll to absorb
+    ("origin", 32, 0, torch.bfloat16, 32, "kernel"),    # no roll to absorb
     ("origin", 16, 4, torch.bfloat16, 32, "kernel"),
     ("origin", 8, 4, torch.bfloat16, 32, "kernel"),  # res == win: never shifted
     ("freq", 64, 4, torch.bfloat16, 32, "kernel"),
-    ("origin", 128, 4, torch.float32, 32, "kernel"),
+    ("origin", 32, 4, torch.float32, 32, "kernel"),
     # the batch: merged from 32768 tokens (images x res^2) up
-    ("origin", 128, 4, torch.bfloat16, 2, "merged"),
+    ("origin", 128, 4, torch.bfloat16, 2, "kernel"),
     ("origin", 128, 4, torch.bfloat16, 1, "kernel"),
-    ("origin", 64, 4, torch.bfloat16, 8, "merged"),
-    ("origin", 64, 4, torch.bfloat16, 7, "kernel"),
+    ("origin", 64, 4, torch.bfloat16, 8, "kernel"),
+    ("origin", 32, 4, torch.bfloat16, 33, "merged"),
+    ("origin", 32, 4, torch.bfloat16, 31, "kernel"),
     ("origin", 32, 4, torch.bfloat16, 16, "kernel"),
     ("origin", 16, 4, torch.bfloat16, 128, "kernel"),   # not in the table
 ])
 def test_default_route_follows_the_measured_table(msa_type, res, shift, dtype,
                                                   batch, want):
     """impl='default' takes the merged kernel exactly for the blocks in
-    DEFAULT_MERGED (shifted origin blocks at the byte-bound stages in bf16)
+    DEFAULT_MERGED (the shifted origin blocks at res 32 in bf16)
     on a batch of at least MERGED_MIN_TOKENS tokens; a fixed impl is its own
     route whatever the block and the batch."""
     kw = dict(msa_type=msa_type, L=L, all_bands_dc=msa_type == "origin",

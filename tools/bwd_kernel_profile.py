@@ -1,16 +1,19 @@
-"""Where one launch of a backward kernel (K6, K7, K8, K10) spends its device
-time: every ``__global__`` pass of the launch by name, from ``torch.profiler``,
-at the flagship's res-128 shapes and the training batch; with ``--k7``, K7
-at the shapes of ``chip_smoke.py``'s K7 table (res 128, C = 56 and res 16,
-C = 896); with ``--k6``, K6 at the shapes of its table (the decoder block
-at res 128 and 8, the encoder's intra attention at res 128 and 8); with
-``--k10``, the window-attention backward K10 at ``chip_smoke.py`` phase
-10's res-128 cases.
+"""Where one launch of a backward kernel (K6, K7, K8, K10) or of K2 spends its
+device time: every ``__global__`` pass of the launch by name, from
+``torch.profiler``, at the flagship's res-128 shapes and the training batch;
+with ``--k7``, K7 at the shapes of ``chip_smoke.py``'s K7 table (res 128,
+C = 56 and res 16, C = 896); with ``--k6``, K6 at the shapes of its table
+(the decoder block at res 128 and 8, the encoder's intra attention at res
+128 and 8); with ``--k8``, K8 at the shapes of its table (the encoder's
+inter attention at res 128, shifted and not, and res 8); with ``--k10``,
+the window-attention backward K10 at ``chip_smoke.py`` phase 10's res-128
+cases; with ``--k2``, the LeFF forward K2 (bf16) at every stage of its
+table.
 
 Run on a machine with an NVIDIA GPU, from the root of the checkout:
 
     python3 tools/bwd_kernel_profile.py [--dtype bfloat16] [--batch 4]
-        [--k7 | --k6 | --k10]
+        [--k7 | --k6 | --k8 | --k10 | --k2]
 
 Prints the card's name and power limit, then per kernel the passes in order
 of device time. Imports the PyTorch port only.
@@ -48,6 +51,10 @@ def main(argv=None) -> int:
                        help="K7 at the shapes of chip_smoke.py's K7 table")
     which.add_argument("--k6", action="store_true",
                        help="K6 at the shapes of chip_smoke.py's K6 table")
+    which.add_argument("--k8", action="store_true",
+                       help="K8 at the shapes of chip_smoke.py's K8 table")
+    which.add_argument("--k2", action="store_true",
+                       help="K2 (bf16) at the stages of chip_smoke.py's K2 table")
     which.add_argument("--k10", action="store_true",
                        help="K10 at chip_smoke.py phase 10's res-128 cases")
     args = ap.parse_args(argv)
@@ -72,6 +79,10 @@ def main(argv=None) -> int:
     elif args.k6:
         cases = [c for c in chip_smoke.bwd_cases(lb, windows, dtype, args.batch)
                  if c.kernel == "lewin_attn_bwd"]
+    elif args.k8:
+        cases = chip_smoke.k8_cases(lb, windows, dtype, args.batch)
+    elif args.k2:
+        cases = [c for c, _ in chip_smoke.k2_cases(lb, args.batch)]
     elif args.k10:
         cases = [k10_case(wa, c) for c in chip_smoke.window_cases(
             windows, dtype, args.batch) if "res128" in c.label]
