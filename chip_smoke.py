@@ -11,17 +11,22 @@ Phases, each fatal on failure:
 2. build: compiles the fourteen kernels (the ten LeWin-block kernels, seven
    forward and three backward, the window attention forward and backward,
    the DCN and its backward) from ``csrc/`` into ``build/kernels/``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together; counts the HGMMA (wgmma)
+   instructions in the library's SASS and fails on none;
 3. per-kernel check: every kernel's wrapper against its plain PyTorch twin
    on the card at the flagship shapes, in bf16 and fp32 (TF32 off), the
    merged kernels K4 / K5 also against the chain of kernels they equal;
    each kernel's time (operands prepared once, as the model holds them)
    beside the plain version's, the chain's, and its bound on this card;
-   for K4 / K5 at res 128 and 16, where one launch spends its time (the
-   device clock at each of its grid barriers); then K2's table: bf16 at
-   B = 4 and 32 at every flagship stage K2 serves, against its twin, its
-   time beside the plain version's, the bound, a ``torch.matmul`` yardstick
-   of fc1 and fc2, and the device memory one launch takes beyond its output;
+   K4 at every decoder stage, the up path included (the merged-against-
+   chain A/B the route table is set from); for K4 / K5 at res 128, 32 and
+   16, where one launch spends its time (the device clock at each of its
+   grid barriers); then K2's table: bf16 at B = 4 and 32 at every flagship
+   stage K2 serves, against its twin, its time beside the plain version's,
+   the bound, a ``torch.matmul`` yardstick of fc1 and fc2, and the device
+   memory one launch takes beyond its output; K1's table likewise at every
+   stage K1 serves (``K1_STAGES``, yardstick: qkv, logits, P V, proj); K4's
+   at res 32, C = 224 and 448, also against its chain, with its phases;
 4. full forward: the flagship eval forward (Uformer encoder with L=3 FFT
    bands and frequency-wise MSA, Uformer decoder with all_DC, 128x128
    patches, full width, random weights from a fixed seed) by the chain of
@@ -230,11 +235,25 @@ def split_blocks(B: int, stages=SPLIT_STAGE_BLOCKS) -> int:
     """Decoder blocks of a default-route forward of ``B`` tiles that run
     K12 -> K13, held apart from the model's own route table."""
     return sum(n for res, n in stages if B * res * res <= SPLIT_MAX_TOKENS)
-# the default route in bf16: blocks of one forward that run merged, by the
-# tiles in its batch. The decoder's shifted blocks at res 32 (8) run merged
-# from 32768 tokens (tiles x res^2) up; those at res 128 and 64 take the
-# chain. In float32 every block takes the chain
-DEFAULT_MERGED_BLOCKS = {4: 0, 6: 0, 12: 0, 16: 0, 32: 8}
+# the default route in bf16, held apart from the model's own table
+# (DEFAULT_MERGED): (res, C, shifted blocks, least tokens of a batch, path)
+# of the decoder stages whose shifted blocks run merged from that many tokens
+# (tiles x res^2) up; "down" is the way down (fused in every configuration),
+# "up" the up path (fused in the flagship only). In float32 every block
+# takes the chain
+DEFAULT_MERGED_STAGES = ((64, 112, 1, 16384, "down"), (32, 224, 4, 4096, "down"),
+                         (32, 448, 4, 16384, "up"), (64, 224, 1, 16384, "up"),
+                         (128, 112, 1, 65536, "up"))
+
+
+def merged_blocks(B: int, paths=("down", "up")) -> int:
+    """Decoder blocks of a bf16 default-route forward of ``B`` tiles that run
+    merged, of the stages on ``paths``."""
+    return sum(n for res, _, n, tokens, path in DEFAULT_MERGED_STAGES
+               if path in paths and B * res * res >= tokens)
+
+
+DEFAULT_MERGED_BLOCKS = {B: merged_blocks(B) for B in (4, 6, 12, 16, 32)}
 
 
 def default_counts(dtype: str, B: int) -> dict:
@@ -252,8 +271,9 @@ def train_step_counts(joint: bool) -> dict:
     """Launches of one training step at B=4 in bf16 on the default route.
     The encoder's 10 frequency blocks take the chain: forward by the key and
     by the query encoder (K1 intra, K3, K2 each), backward K6, K8, K7. The
-    joint step adds the decoder's 44 blocks, none merged at this batch:
-    forward K1 / K2, backward K6 and K7 for every block."""
+    joint step adds the decoder's 44 blocks: forward K4 for those that run
+    merged at this batch, K1 / K2 for the others, backward K6 and K7 for
+    every block."""
     c = {**ZERO, "lewin_attn": 20, "freq_inter": 20, "lewin_ffn": 20,
          "lewin_attn_bwd": 10, "freq_inter_bwd": 10, "lewin_ffn_bwd": 10}
     if joint:
@@ -312,6 +332,17 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def hgmma_count(build) -> int:
+    """HGMMA (wgmma) instructions in the built library's SASS
+    (``cuobjdump -sass``, beside ``nvcc``)."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(build.build()[0])],
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise Failed(f"cuobjdump failed: {out.stderr[-2000:]}")
+    return sum("HGMMA" in ln for ln in out.stdout.splitlines())
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -379,11 +410,19 @@ def bound_of(case: Case, dtype):
                                    else "operations")
 
 
+# the flagship decoder's stages (res, C, heads): on the way down C = 56 *
+# 2^s at res 128 >> s, then the up path's C = 112 * 2^s
+DECODER_STAGES = ((128, 56, 1), (64, 112, 2), (32, 224, 4), (16, 448, 8),
+                  (8, 896, 16), (16, 896, 16), (32, 448, 8), (64, 224, 4),
+                  (128, 112, 2))
+
+
 def kernel_cases(lb, windows, dtype, B):
     """The kernels at the flagship shapes. Decoder blocks (origin MSA,
-    all_DC ``lam``): C = 56 * 2^s, h = 2^s at res 128 >> s; encoder blocks
-    (L=3 bands folded into the batch): C = 28 * 2^s. K1-K3 at res 128, 32
-    and 8; the merged K4 / K5 at all five stage resolutions, shift 0 and 4.
+    all_DC ``lam``) at :data:`DECODER_STAGES`; encoder blocks (L=3 bands
+    folded into the batch): C = 28 * 2^s. K1-K3 at res 128, 32 and 8 of
+    the way down; the merged K4 at every decoder stage, K5 at all five
+    stage resolutions, shift 0 and 4.
     The operations counted are the products' (qkv, logits, P V, proj, fc1,
     the 9 taps, fc2); LayerNorm, softmax and GELU are left out."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -423,9 +462,9 @@ def kernel_cases(lb, windows, dtype, B):
         return 2.0 * M * 4 * C * (2 * C + 9)
 
     cases = []
-    for s in range(5):
-        res, C, h = 128 >> s, 56 << s, 1 << s
+    for res, C, h in DECODER_STAGES:
         M = B * res * res
+        up = (res, C) not in ((128 >> s, 56 << s) for s in range(5))
         for shift in ((0, 4) if res > 8 else (0,)):
             x = rnd(B, res, res, C).to(dtype)
             ln1, ln2, aw, fw = ln(C), ln(C), attn_weights(C, h), ffn_weights(C)
@@ -434,7 +473,7 @@ def kernel_cases(lb, windows, dtype, B):
             aop = lb.attn_operands(*aw, bias, dtype)
             fop = lb.ffn_operands(*fw, dtype)
             tag = f"res{res} C{C} h{h} shift{shift}"
-            if res in (128, 32, 8):
+            if res in (128, 32, 8) and not up:
                 cases.append(Case(
                     "lewin_attn", f"block_attention {tag} lam",
                     [x, *ln1, *aw, bias, mask, lam, 8, 1e-6, dps1],
@@ -476,7 +515,7 @@ def kernel_cases(lb, windows, dtype, B):
                 mask=mask, lam=lam, dps1=dps1, dps2=dps2, shift=shift:
                 lb.merged_kernel(x, *ln1, aop, mask, lam, *ln2, fop, 8, shift,
                                  1e-6, dps1, dps2, stamps),
-                attn_flops(M, C, n) + ffn_flops(M, C), ("origin", res, shift),
+                attn_flops(M, C, n) + ffn_flops(M, C), ("origin", res, shift, C),
                 functools.partial(lb.merged_chain, lb.block_attention,
                                   lb.block_ffn), chain_timed))
 
@@ -540,7 +579,7 @@ def kernel_cases(lb, windows, dtype, B):
                 lb.freq_merged_kernel(x, *ln1, opA, opB, mask, *ln2, fop, L, 8,
                                       shift, 1e-6, dps1, dps2, stamps),
                 attn_flops(M, C, n) + attn_flops(M, C, L * n) + ffn_flops(M, C),
-                ("freq", res, shift),
+                ("freq", res, shift, C),
                 functools.partial(lb.freq_merged_chain, lb.freq_intra,
                                   lb.freq_inter, lb.block_ffn), chain_timed))
     return cases
@@ -550,8 +589,9 @@ def print_phases(lb, case: Case, label: str):
     """Where one launch of a merged kernel spends its time: the device
     clock at each phase's closing grid barrier (the barrier's wait is in the
     phase it closes)."""
+    x, wq3 = case.args[0], case.args[3]
     names = (lb.FREQ_MERGED_PHASES if case.kernel == "freq_merged"
-             else lb.MERGED_PHASES)
+             else lb.merged_phases(x.shape[-1], wq3.shape[0], 8, x.dtype))
     stamps = torch.zeros(lb.MERGED_STAMPS, dtype=torch.int64, device="cuda")
     case.timed(stamps)
     torch.cuda.synchronize()
@@ -564,13 +604,13 @@ def print_phases(lb, case: Case, label: str):
         flush=True)
 
 
-def check_kernels(lb, windows, default_merged, min_tokens, stats, card: str):
+def check_kernels(lb, windows, default_merged, stats, card: str):
     """Phase 3: each kernel against its plain twin (and K4 / K5 against the
     chain); times with prepared operands. The kernels line takes each
     kernel's first (res-128) case in bf16 at B=32. The merged-against-chain
     table covers both dtypes at the batches the entry points run and marks
-    the blocks that ``default_merged`` and ``min_tokens`` (the model's route
-    table) run merged."""
+    the blocks that ``default_merged`` (the model's route table, each entry
+    from its least batch in tokens) runs merged."""
     ab = {}
     for dtype, B in ((torch.bfloat16, BATCH), (torch.float32, 4)):
         name_dt = str(dtype)[6:]
@@ -597,9 +637,12 @@ def check_kernels(lb, windows, default_merged, min_tokens, stats, card: str):
                 ab[(*case.stage, name_dt, B)] = (ms, cms)
                 line += f", chain of kernels {cms:.4f} ms"
             print(line, flush=True)
-            if case.stage is not None and case.stage[1] in (128, 16):
+            if case.stage is not None and case.stage[1] in (128, 32, 16):
                 print_phases(lb, case, label)
-            if dtype == torch.bfloat16 and st["ms"] is None:
+            # the kernels line: each kernel's first case in bf16, K4's at a
+            # stage the default route runs it
+            if dtype == torch.bfloat16 and (
+                    st["ms"] is None or case.stage == ("origin", 32, 4, 224)):
                 st.update(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by)
             del got, want
     # the other batches the entry points run (the pooled batch of the eval
@@ -611,10 +654,10 @@ def check_kernels(lb, windows, default_merged, min_tokens, stats, card: str):
                 ab[(*case.stage, str(dtype)[6:], B)] = (
                     time_ms(case.timed), time_ms(case.chain_timed))
     print(f"merged against chain, ms per block ({card}):", flush=True)
-    for (msa, res, shift, name_dt, B), (ms, cms) in sorted(ab.items()):
-        key = (msa, res, shift > 0, getattr(torch, name_dt))
-        default = key in default_merged and B * res * res >= min_tokens
-        print(f"  {msa:6s} res {res:3d} shift {shift} {name_dt} B={B}: merged "
+    for (msa, res, shift, C, name_dt, B), (ms, cms) in sorted(ab.items()):
+        key = (msa, res, shift > 0, getattr(torch, name_dt), C)
+        default = key in default_merged and B * res * res >= default_merged[key]
+        print(f"  {msa:6s} res {res:3d} C {C:3d} shift {shift} {name_dt} B={B}: merged "
               f"{ms:.4f}, chain {cms:.4f}, merged/chain {ms / cms:.3f}"
               + ("  [default: merged]" if default else ""), flush=True)
 
@@ -709,6 +752,217 @@ def k2_table(lb, card: str):
                   f"yardstick {yms:.4f} ms, kernel / yardstick {ms / yms:.3f}, "
                   f"bound {bound:.4f} ms by {by}, scratch "
                   f"{scratch / 2 ** 20:.2f} MiB", flush=True)
+        torch.cuda.empty_cache()
+
+
+# K1's table: (res, C, heads, band copies) of every flagship stage whose
+# attention K1 serves: the decoder's (C = 56 * 2^s on the way down, the up
+# path's 112 * 2^s, d = 56), the encoder's intra attention (C = 28 * 2^s,
+# d = 28, its three FFT bands folded into the batch, one bias table a band).
+# The C = 896 stages go to K12 on batches of at most SPLIT_MAX_TOKENS tokens
+K1_STAGES = ((128, 56, 1, 1), (64, 112, 2, 1), (32, 224, 4, 1),
+             (16, 448, 8, 1), (8, 896, 16, 1), (16, 896, 16, 1),
+             (32, 448, 8, 1), (64, 224, 4, 1), (128, 112, 2, 1),
+             (128, 28, 1, 3), (64, 56, 2, 3), (32, 112, 4, 3),
+             (16, 224, 8, 3), (8, 448, 16, 3))
+
+
+def k1_cases(lb, windows, B, dtype=torch.bfloat16):
+    """K1 at :data:`K1_STAGES` on ``B`` tiles: a BwdCase each (``run`` the
+    launch with prepared operands, ``plain`` the twin; ``dims`` (rows, C,
+    heads, bands)), shifted (the SW-MSA mask) where the stage has more than
+    one window, the decoder's with the all_DC ``lam`` and DropPath, with a
+    yardstick: ``torch.matmul`` over K1's four products, qkv [M, C] x
+    [C, 3C], the logits and P V batched over windows and heads, proj
+    [M, C] x [C, C], on operands made once. Operations: the four products;
+    bytes: x read, the output written, the weights and tables read."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    n = 64
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    out = []
+    for res, C, h, bands in K1_STAGES:
+        images, d = bands * B, C // h
+        M = images * res * res
+        if C == 896 and M <= SPLIT_MAX_TOKENS:
+            continue
+        shift = 4 if res > 8 else 0
+        x = rnd(images, res, res, C).to(dtype)
+        ln1 = [1 + rnd(C, scale=0.1), rnd(C, scale=0.1)]
+        aw = [rnd(h, C, d, scale=C ** -0.5) if i % 2 == 0 else
+              rnd(h, d, scale=0.1) for i in range(6)]
+        aw += [rnd(h, d, C, scale=C ** -0.5), rnd(C, scale=0.1)]
+        mask = (torch.from_numpy(windows.shift_attn_mask(res, res, 8, shift))
+                .cuda() if shift else None)
+        if bands == 1:
+            bias = rnd(h, n, n, scale=0.05)
+            lam, dps = rnd(images, h, scale=0.3), (torch.rand(
+                images, generator=gen, device="cuda") < 0.9).float() / 0.9
+            args = [x, *ln1, *aw, bias, mask, lam, 8, 1e-6, dps]
+            plain = lambda a=args: lb.block_attention_plain(*a)
+            run_args = (lam, 8, 1e-6, True, 1, dps)
+            label = f"block_attention res{res} C{C} h{h} shift{shift} lam"
+        else:
+            bias = rnd(bands, h, n, n, scale=0.05)
+            lam = dps = None
+            args = [x, *ln1, *aw, bias, mask, bands, 8, 1e-6]
+            plain = lambda a=args: lb.freq_intra_plain(*a)
+            run_args = (None, 8, 1e-6, False, bands, None)
+            label = f"freq_intra res{res} C{C} h{h} shift{shift} L{bands}"
+        op = lb.attn_operands(*aw, bias, dtype)
+        xm, w3, wp = rnd(M, C).to(dtype), rnd(C, 3 * C).to(dtype), rnd(C, C).to(dtype)
+        qh, ph = rnd(M // n * h, n, d).to(dtype), rnd(M // n * h, n, n).to(dtype)
+
+        def yardstick(xm=xm, w3=w3, wp=wp, qh=qh, ph=ph):
+            torch.matmul(xm, w3)                      # qkv
+            torch.matmul(qh, qh.transpose(-1, -2))    # logits
+            torch.matmul(ph, qh)                      # P V
+            torch.matmul(xm, wp)                      # proj
+        tables = [t for t in (*ln1, bias, mask, lam, dps) if t is not None]
+        out.append((BwdCase(
+            "lewin_attn", f"{label} images{images}",
+            lambda x=x, ln1=ln1, op=op, mask=mask, ra=run_args:
+            lb.attention_kernel(x, *ln1, op, mask, *ra),
+            plain, 2.0 * M * C * (4 * C + 2 * n),
+            2 * x.numel() * x.element_size()
+            + 4 * C * C * x.element_size() + 4 * sum(t.numel() for t in tables),
+            (M, C, h, bands)), yardstick))
+    return out
+
+
+def k1_table(lb, windows, card: str):
+    """Phase 3c: K1 in bf16 at every stage of :data:`K1_STAGES`, B = 4 and
+    32: against its twin, equal bits on a second launch, its time beside
+    the plain version's, the bound and the yardstick of :func:`k1_cases`
+    (K1 / yardstick is the ratio two calls compare), and the device memory
+    one launch takes beyond its output (0 where K1 runs fused)."""
+    print(f"K1 table (bf16): kernel ms, plain ms, yardstick ms (torch.matmul "
+          f"over qkv, logits, P V, proj), bound, scratch ({card}):", flush=True)
+    for B in (SMALL_BATCH, BATCH):
+        for case, yardstick in k1_cases(lb, windows, B):
+            label = f"K1 {case.label} bf16"
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = case.run()
+            torch.cuda.synchronize()
+            scratch = (torch.cuda.max_memory_allocated() - base
+                       - got.numel() * got.element_size())
+            compare(label, got, case.plain(), KERNEL_TOL[torch.bfloat16])
+            if not torch.equal(case.run(), got):
+                raise Failed(f"{label}: two launches give different bits")
+            del got
+            ms = time_ms(case.run)
+            pms = time_ms(case.plain, iters=3, warmup=1)
+            yms = time_ms(yardstick)
+            t_bytes = case.nbytes / PEAK_BYTES * 1e3
+            t_flops = case.flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+            bound, by = max(t_bytes, t_flops), (
+                "bytes" if t_bytes >= t_flops else "operations")
+            print(f"    {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"yardstick {yms:.4f} ms, kernel / yardstick {ms / yms:.3f}, "
+                  f"bound {bound:.4f} ms by {by}, scratch "
+                  f"{scratch / 2 ** 20:.2f} MiB", flush=True)
+        torch.cuda.empty_cache()
+
+
+# K4 at the res-32 stages of the default route: the shifted blocks of the
+# way down, C = 224 (h = 4; the fused attention half), and of the up path,
+# C = 448 (h = 8; the attention phases)
+K4_STAGES = ((32, 224, 4), (32, 448, 8))
+
+
+def k4_cases(lb, windows, B, dtype=torch.bfloat16):
+    """K4 at :data:`K4_STAGES` (shift 4, lam, DropPath) on ``B`` tiles: a
+    :class:`Case` each, with the chain of K1 and K2 it equals, and a
+    yardstick: ``torch.matmul`` over its six products (qkv, logits, P V,
+    proj, fc1, fc2) on operands made once."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    n, out = 64, []
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    for res, C, h in K4_STAGES:
+        d, Hd, M, shift = C // h, 4 * C, B * res * res, 4
+        x = rnd(B, res, res, C).to(dtype)
+        ln1 = [1 + rnd(C, scale=0.1), rnd(C, scale=0.1)]
+        ln2 = [1 + rnd(C, scale=0.1), rnd(C, scale=0.1)]
+        aw = [rnd(h, C, d, scale=C ** -0.5) if i % 2 == 0 else
+              rnd(h, d, scale=0.1) for i in range(6)]
+        aw += [rnd(h, d, C, scale=C ** -0.5), rnd(C, scale=0.1)]
+        fw = [rnd(C, Hd, scale=C ** -0.5), rnd(Hd, scale=0.1),
+              rnd(3, 3, Hd, scale=1 / 3), rnd(Hd, scale=0.1),
+              rnd(Hd, C, scale=Hd ** -0.5), rnd(C, scale=0.1)]
+        bias, lam = rnd(h, n, n, scale=0.05), rnd(B, h, scale=0.3)
+        mask = torch.from_numpy(windows.shift_attn_mask(res, res, 8, shift)).cuda()
+        dps1, dps2 = ((torch.rand(B, generator=gen, device="cuda") < 0.9)
+                      .float() / 0.9 for _ in range(2))
+        aop, fop = lb.attn_operands(*aw, bias, dtype), lb.ffn_operands(*fw, dtype)
+
+        def chain_timed(x=x, ln1=ln1, ln2=ln2, aop=aop, fop=fop, mask=mask,
+                        lam=lam, dps1=dps1, dps2=dps2):
+            u = lb.attention_kernel(lb.roll(x, shift), *ln1, aop, mask, lam,
+                                    8, 1e-6, True, 1, dps1)
+            return lb.ffn_kernel(lb.roll(u, -shift), *ln2, fop, 1e-6, dps2)
+        xm, w3, wp = rnd(M, C).to(dtype), rnd(C, 3 * C).to(dtype), rnd(C, C).to(dtype)
+        w1, w2, hm = rnd(C, Hd).to(dtype), rnd(Hd, C).to(dtype), rnd(M, Hd).to(dtype)
+        qh, ph = rnd(M // n * h, n, d).to(dtype), rnd(M // n * h, n, n).to(dtype)
+
+        def yardstick(xm=xm, w3=w3, wp=wp, w1=w1, w2=w2, hm=hm, qh=qh, ph=ph):
+            torch.matmul(xm, w3)
+            torch.matmul(qh, qh.transpose(-1, -2))
+            torch.matmul(ph, qh)
+            torch.matmul(xm, wp)
+            torch.matmul(xm, w1)
+            torch.matmul(hm, w2)
+        out.append((Case(
+            "lewin_merged", f"block_merged res{res} C{C} h{h} shift{shift} lam "
+            f"B{B}",
+            [x, *ln1, *aw, bias, mask, lam, *ln2, *fw, 8, shift, 1e-6, dps1,
+             dps2],
+            lb.block_merged, lb.block_merged_plain,
+            lambda stamps=None, x=x, ln1=ln1, ln2=ln2, aop=aop, fop=fop,
+            mask=mask, lam=lam, dps1=dps1, dps2=dps2:
+            lb.merged_kernel(x, *ln1, aop, mask, lam, *ln2, fop, 8, shift,
+                             1e-6, dps1, dps2, stamps),
+            2.0 * M * C * (4 * C + 2 * n) + 2.0 * M * Hd * (2 * C + 9),
+            ("origin", res, shift),
+            functools.partial(lb.merged_chain, lb.block_attention,
+                              lb.block_ffn), chain_timed), yardstick))
+    return out
+
+
+def k4_table(lb, windows, card: str):
+    """Phase 3d: K4 in bf16 at :data:`K4_STAGES`, B = 4 and 32: against its
+    twin and its chain, equal bits on a second launch, where one launch
+    spends its time (its phases' clock stamps), its time beside the chain's,
+    the plain version's, the bound and the yardstick of :func:`k4_cases`."""
+    print(f"K4 table (bf16): kernel ms, chain ms, plain ms, yardstick ms "
+          f"(torch.matmul over its six products), bound ({card}):", flush=True)
+    dt = torch.bfloat16
+    for B in (SMALL_BATCH, BATCH):
+        for case, yardstick in k4_cases(lb, windows, B):
+            label = f"K4 {case.label} bf16"
+            got = case.wrapper(*case.args)
+            torch.cuda.synchronize()
+            compare(label, got, case.plain(*case.args), KERNEL_TOL[dt])
+            compare(f"{label} vs chain", got, case.chain(*case.args),
+                    CHAIN_TOL[dt])
+            if not torch.equal(case.timed(), got):
+                raise Failed(f"{label}: prepared operands or a second launch "
+                             "give another result")
+            del got
+            print_phases(lb, case, label)
+            ms, cms = time_ms(case.timed), time_ms(case.chain_timed)
+            pms = time_ms(lambda: case.plain(*case.args), iters=3, warmup=1)
+            yms = time_ms(yardstick)
+            bound, by = bound_of(case, dt)
+            print(f"    {label}: kernel {ms:.4f} ms, chain {cms:.4f} ms, plain "
+                  f"{pms:.4f} ms, yardstick {yms:.4f} ms, kernel / yardstick "
+                  f"{ms / yms:.3f}, bound {bound:.4f} ms by {by}", flush=True)
         torch.cuda.empty_cache()
 
 
@@ -2012,14 +2266,14 @@ INJECTION_CONFIGS = {
 def injection_counts(name: str, dtype: str, B: int) -> dict:
     """Launches of one eval forward of ``B`` tiles on the default route,
     held apart from the model. The decoder's 22 down-path and bottleneck_0
-    blocks stay fused (the shifted ones at res 32, 4, merged in bf16 from
-    32768 tokens per stage); its 22 bottleneck_1 and up-path
+    blocks stay fused (the shifted ones of the "down" stages of
+    DEFAULT_MERGED_STAGES merged in bf16); its 22 bottleneck_1 and up-path
     blocks are unfused: K9 once each, and K11 for deform_conv; where the
     attention probabilities are modulated (all_3_bands, lamb) the core is
     the plain one, as in JAX. attention_kv makes the encoder's last block
     of each stage unfused (need_kv): K9 for intra and inter. bottleneck_0's
     two blocks (C = 896, res 8) run split up to SPLIT_MAX_TOKENS."""
-    merged = 4 if dtype == "bfloat16" and B * 32 * 32 >= 32768 else 0
+    merged = merged_blocks(B, ("down",)) if dtype == "bfloat16" else 0
     c = dict(ZERO)
     if name == "all_3_bands_DC":       # every decoder block unfused
         fused_dec, enc_fused, k9 = 0, 10, 0
@@ -2152,14 +2406,17 @@ def per_scale_train_counts(joint: bool) -> dict:
     query encoder: 5 fused frequency blocks (K1 intra, K3, K2), 5 need_kv
     blocks (K9 for intra and inter); the query encoder's backward K6, K8,
     K7 and K10 twice per need_kv block. The joint step adds the decoder: 22
-    fused blocks (none merged at this batch), forward K1 / K2, backward K6
-    and K7; 22 unfused blocks, K9, K11, K10 and K14 each."""
+    fused blocks (those of the "down" merged stages forward K4, the others
+    K1 / K2; backward K6 and K7 each); 22 unfused blocks, K9, K11, K10 and
+    K14 each."""
     c = {**ZERO, "lewin_attn": 10, "freq_inter": 10, "lewin_ffn": 10,
          "lewin_attn_bwd": 5, "freq_inter_bwd": 5, "lewin_ffn_bwd": 5,
          "window_attn": 20, "window_attn_bwd": 10}
     if joint:
-        c["lewin_attn"] += 22
-        c["lewin_ffn"] += 22
+        k4 = merged_blocks(TRAIN_BATCH, ("down",))
+        c["lewin_attn"] += 22 - k4
+        c["lewin_ffn"] += 22 - k4
+        c["lewin_merged"] += k4
         c["lewin_attn_bwd"] += 22
         c["lewin_ffn_bwd"] += 22
         c["window_attn"] += 22
@@ -2760,12 +3017,18 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     marks = []     # (phase, the time it started)
     try:
+        hgmma = hgmma_count(build)
+        print(f"HGMMA instructions in the built library: {hgmma}", flush=True)
+        if not hgmma:
+            raise Failed("the built library holds no wgmma (HGMMA) instruction")
         bundles = Bundles(config, airnet)
         if 3 in phases:
             marks.append((3, time.perf_counter()))
-            check_kernels(lb, windows, uformer_lewin.DEFAULT_MERGED,
-                          uformer_lewin.MERGED_MIN_TOKENS, stats, card)
+            check_kernels(lb, windows, uformer_lewin.DEFAULT_MERGED, stats,
+                          card)
             k2_table(lb, card)
+            k1_table(lb, windows, card)
+            k4_table(lb, windows, card)
         if 4 in phases:
             marks.append((4, time.perf_counter()))
             full_forward(bundles, airnet, lb, uformer_lewin, frequency)

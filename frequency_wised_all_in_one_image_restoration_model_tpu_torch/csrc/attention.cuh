@@ -139,45 +139,25 @@ constexpr size_t attn_mma_smem_bytes() {
   return sizeof(bf16_t) * 3 * N * (DP + 8) + sizeof(float) * DP;
 }
 
-template <int N, int DP>
-__device__ __forceinline__ void attn_mma_tile(const AttnArgs& a, long long g,
-                                              int hh, unsigned char* smem_raw) {
-  constexpr int LDS = DP + 8;  // 16-byte row offsets spread over the banks
+// The tensor-core core for one (window group, head) whose q / k / v sit in
+// shared memory as bf16 [N][LDS] (LDS = DP + 8 by default; a wider stride
+// when heads sit side by side), the head dims past d zero: four warps
+// (``warp`` 0-3 of them) take 16 query rows at a time; row i of the
+// output goes to out[i * ldo + c] for c < d (rounded to bf16). ``vsum``
+// holds sum_j v[j, c] when ``lam`` is set (the all_DC gain of this head);
+// bias [N, N], mask [n0, n0] (tiled over N / n0) or null.
+template <int N, int DP, int LDS = DP + 8>
+__device__ __forceinline__ void attn_mma_core(const bf16_t* q, const bf16_t* k,
+                                              const bf16_t* v,
+                                              const float* vsum,
+                                              const float* bias,
+                                              const float* mask, int n0,
+                                              int d, const float* lam,
+                                              bf16_t* out, long long ldo,
+                                              int warp) {
   constexpr int NT = N / 8;    // key tiles of 8 tokens
-  bf16_t* q = reinterpret_cast<bf16_t*>(smem_raw);
-  bf16_t* k = q + N * LDS;
-  bf16_t* v = k + N * LDS;
-  float* vsum = reinterpret_cast<float*>(v + N * LDS);
-
-  const int d = a.d;
-  const bf16_t* src = static_cast<const bf16_t*>(a.qkv) + g * N * 3LL * a.C + hh * d;
-  for (int e = threadIdx.x; e < N * DP; e += ANT) {
-    const int i = e / DP, c = e % DP;
-    const bf16_t* row = src + (long long)i * 3 * a.C + c;
-    const bf16_t z = from_f<bf16_t>(0.f);
-    q[i * LDS + c] = c < d ? row[0] : z;
-    k[i * LDS + c] = c < d ? row[a.C] : z;
-    v[i * LDS + c] = c < d ? row[2 * a.C] : z;
-  }
-  __syncthreads();
-
-  const long long b = g / a.nW;
-  const int wi = (int)(g - b * a.nW);
-  float lam = 0.f;
-  if (a.lam) {
-    lam = a.lam[b * a.h + hh];
-    for (int c = threadIdx.x; c < d; c += ANT) {
-      float s = 0.f;
-      for (int j = 0; j < N; ++j) s += to_f(v[j * LDS + c]);
-      vsum[c] = s;
-    }
-    __syncthreads();
-  }
-  const float* bias = a.bias + ((b / a.imgs_per_bias) * a.h + hh) * (long long)N * N;
-  const float* mask = a.mask ? a.mask + (long long)wi * a.n0 * a.n0 : nullptr;
-  bf16_t* out = static_cast<bf16_t*>(a.out) + g * (long long)N * a.ldo + hh * d;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float lm = lam ? *lam : 0.f;
+  const int lane = threadIdx.x & 31;
   const int gq = lane >> 2, t4 = lane & 3;
   for (int r0 = warp * 16; r0 < N; r0 += 16 * (ANT / 32)) {
     uint32_t qf[DP / 16][4];
@@ -211,7 +191,7 @@ __device__ __forceinline__ void attn_mma_tile(const AttnArgs& a, long long g,
       for (int e = 0; e < 4; ++e) {
         const int i = r0 + gq + (e >= 2 ? 8 : 0), j = nt * 8 + t4 * 2 + (e & 1);
         float val = s[nt][e] + bias[i * N + j];
-        if (mask) val += mask[(i % a.n0) * a.n0 + j % a.n0];
+        if (mask) val += mask[(i % n0) * n0 + j % n0];
         s[nt][e] = val;
         mx[e >> 1] = fmaxf(mx[e >> 1], val);
       }
@@ -265,10 +245,56 @@ __device__ __forceinline__ void attn_mma_tile(const AttnArgs& a, long long g,
         const int i = r0 + gq + (e >= 2 ? 8 : 0), c = ct * 8 + t4 * 2 + (e & 1);
         if (c >= d) continue;
         float val = o[ct][e] / sum[e >> 1];
-        if (a.lam) val = (1.f + lam) * val - (lam / N) * vsum[c];
-        out[(long long)i * a.ldo + c] = from_f<bf16_t>(val);
+        if (lam) val = (1.f + lm) * val - (lm / N) * vsum[c];
+        out[(long long)i * ldo + c] = from_f<bf16_t>(val);
       }
   }
+}
+
+// sum_j v[j, c] for c < d over the N rows of a [N][LDS] bf16 tile; the
+// caller synchronises after it
+template <int N, int LDS>
+__device__ __forceinline__ void attn_vsum(const bf16_t* v, int d, float* vsum) {
+  for (int c = threadIdx.x; c < d; c += ANT) {
+    float s = 0.f;
+    for (int j = 0; j < N; ++j) s += to_f(v[j * LDS + c]);
+    vsum[c] = s;
+  }
+}
+
+template <int N, int DP>
+__device__ __forceinline__ void attn_mma_tile(const AttnArgs& a, long long g,
+                                              int hh, unsigned char* smem_raw) {
+  constexpr int LDS = DP + 8;
+  bf16_t* q = reinterpret_cast<bf16_t*>(smem_raw);
+  bf16_t* k = q + N * LDS;
+  bf16_t* v = k + N * LDS;
+  float* vsum = reinterpret_cast<float*>(v + N * LDS);
+
+  const int d = a.d;
+  const bf16_t* src = static_cast<const bf16_t*>(a.qkv) + g * N * 3LL * a.C + hh * d;
+  for (int e = threadIdx.x; e < N * DP; e += ANT) {
+    const int i = e / DP, c = e % DP;
+    const bf16_t* row = src + (long long)i * 3 * a.C + c;
+    const bf16_t z = from_f<bf16_t>(0.f);
+    q[i * LDS + c] = c < d ? row[0] : z;
+    k[i * LDS + c] = c < d ? row[a.C] : z;
+    v[i * LDS + c] = c < d ? row[2 * a.C] : z;
+  }
+  __syncthreads();
+
+  const long long b = g / a.nW;
+  const int wi = (int)(g - b * a.nW);
+  if (a.lam) {
+    attn_vsum<N, LDS>(v, d, vsum);
+    __syncthreads();
+  }
+  const float* bias = a.bias + ((b / a.imgs_per_bias) * a.h + hh) * (long long)N * N;
+  const float* mask = a.mask ? a.mask + (long long)wi * a.n0 * a.n0 : nullptr;
+  bf16_t* out = static_cast<bf16_t*>(a.out) + g * (long long)N * a.ldo + hh * d;
+  attn_mma_core<N, DP>(q, k, v, vsum, bias, mask, a.n0, d,
+                       a.lam ? a.lam + b * a.h + hh : nullptr, out, a.ldo,
+                       threadIdx.x >> 5);
   if (hh == 0) {  // the zero pad of the next GEMM's A operand
     const int pad = a.ldo - a.C;
     for (int e = threadIdx.x; e < N * pad; e += ANT)

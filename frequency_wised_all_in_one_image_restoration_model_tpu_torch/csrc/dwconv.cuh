@@ -37,7 +37,8 @@ __host__ __device__ inline long long dwconv_items(long long rows, int W, int ldo
 // hid [B*H*W, Hd] -> out [B*H*W, ldo] (ldo = kpad(Hd), pad columns zero).
 // One item of work is V channels (one 16-byte access when Hd % V == 0) over
 // a run of up to DW_SEG pixels of one image row: the thread keeps the 9 x V
-// taps in registers and walks the run. Items are numbered channel vector
+// taps and the 3 x 3 window of inputs in registers and walks the run, three
+// loads a pixel, issued a pixel ahead. Items are numbered channel vector
 // first, so neighbouring lanes read neighbouring channels of one pixel and
 // no lane idles whatever Hd is; a thread takes items first, first + stride,
 // ...
@@ -75,7 +76,24 @@ __device__ __forceinline__ void dwconv_gelu_items(const T* in, const float* wd,
       for (int i = 0; i < V; ++i) w[t9][i] = wd[t9 * Hd + c0 + i];
 #pragma unroll
     for (int i = 0; i < V; ++i) b[i] = bd[c0 + i];
+    // the 3 x 3 window slides along the run: three columns of it in
+    // registers, the column after next loaded a pixel ahead; a tap outside
+    // the image adds nothing (the order of the sums is the taps' order)
+    auto column = [&](int xx, Vec<T, V>* col) {
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        const int yy = y + dy - 1;
+        if (xx >= 0 && xx < W && yy >= 0 && yy < H)
+          col[dy] = *reinterpret_cast<const Vec<T, V>*>(
+              in + (row0 + (long long)(dy - 1) * W + xx) * Hd + c0);
+      }
+    };
+    Vec<T, V> win[4][3];  // [column x - 1 + dx][dy]; [3]: the next one
+    column(x0 - 1, win[0]);
+    column(x0, win[1]);
+    column(x0 + 1, win[2]);
     for (int x = x0; x < x1; ++x) {
+      column(x + 2, win[3]);
       float acc[V];
 #pragma unroll
       for (int i = 0; i < V; ++i) acc[i] = 0.f;
@@ -83,20 +101,24 @@ __device__ __forceinline__ void dwconv_gelu_items(const T* in, const float* wd,
       for (int dy = 0; dy < 3; ++dy) {
         const int yy = y + dy - 1;
         if (yy < 0 || yy >= H) continue;
-        const T* r = in + (row0 + (long long)(dy - 1) * W) * Hd + c0;
 #pragma unroll
         for (int dx = 0; dx < 3; ++dx) {
           const int xx = x + dx - 1;
           if (xx < 0 || xx >= W) continue;
-          const Vec<T, V> e = *reinterpret_cast<const Vec<T, V>*>(r + xx * Hd);
 #pragma unroll
           for (int i = 0; i < V; ++i)
-            acc[i] = fmaf(to_f(e.v[i]), w[dy * 3 + dx][i], acc[i]);
+            acc[i] = fmaf(to_f(win[dx][dy].v[i]), w[dy * 3 + dx][i], acc[i]);
         }
       }
 #pragma unroll
       for (int i = 0; i < V; ++i) res.v[i] = from_f<T>(gelu_tanh(acc[i] + b[i]));
       reinterpret_cast<Vec<T, V>*>(out + (row0 + x) * ldo)[cv] = res;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        win[0][dy] = win[1][dy];
+        win[1][dy] = win[2][dy];
+        win[2][dy] = win[3][dy];
+      }
     }
   }
 }
@@ -116,7 +138,7 @@ __device__ __forceinline__ void dwconv_gelu_any(const T* in, const float* wd,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(DW_NT) dwconv_gelu_kernel(
+__global__ void __launch_bounds__(DW_NT, 3) dwconv_gelu_kernel(
     const T* in, const float* wd, const float* bd, T* out, long long rows,
     int H, int W, int Hd, int ldo) {
   dwconv_gelu_any<T>(in, wd, bd, out,

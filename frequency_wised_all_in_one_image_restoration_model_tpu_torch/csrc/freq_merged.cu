@@ -33,7 +33,7 @@ extern "C" int fairm_freq_merged(
     int C, int h, int win, int shift, int L, int Hd, int is_bf16, float eps,
     void* stream) {
   if (L < 1 || LB % L ||
-      scratch_elems < (long long)LB * H * W * merged_scratch_cols(C, Hd, true))
+      scratch_elems < (long long)LB * H * W * merged_scratch_cols(C, Hd, true, false))
     return (int)cudaErrorInvalidValue;
   MergedArgs p{};
   p.x = x;

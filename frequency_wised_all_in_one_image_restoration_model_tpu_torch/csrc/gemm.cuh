@@ -14,10 +14,12 @@
 // aligned, zero pad). Epilogue in fp32: + bias[col], optional tanh-GELU,
 // x dps[image] (DropPath branch scale), + residual in C's layout, rounded to
 // the output type; the C rows are scattered through cmap (the window
-// reverse). bf16: a 3-stage cp.async pipeline into padded shared-memory
-// tiles, ldmatrix fragments and mma.sync m16n8k16 with fp32 accumulation,
-// warps of 64 x 32, the epilogue staged through shared memory so that C is
-// written in whole rows. fp32: shared-memory tiled FMA in full fp32 (no TF32).
+// reverse). bf16, wide products (gemm_wgmma_ok): TMA and wgmma
+// (gemm_wgmma.cuh); other bf16 products: a 3-stage cp.async pipeline into
+// padded shared-memory tiles, ldmatrix fragments and mma.sync m16n8k16 with
+// fp32 accumulation, warps of 64 x 32, the epilogue staged through shared
+// memory so that C is written in whole rows. fp32: shared-memory tiled FMA
+// in full fp32 (no TF32).
 
 #pragma once
 
@@ -680,6 +682,12 @@ static __global__ void __launch_bounds__(FMA_NT) gemm_fma_kernel(const GemmArgs 
   gemm_fma_tile(a, blockIdx.x, blockIdx.y, smem_raw);
 }
 
+}  // namespace fairm
+
+#include "gemm_wgmma.cuh"
+
+namespace fairm {
+
 template <typename T>
 inline cudaError_t launch_gemm(const GemmArgs& a, cudaStream_t st) {
   const int ncols = a.N;
@@ -698,6 +706,7 @@ inline cudaError_t launch_gemm(const GemmArgs& a, cudaStream_t st) {
       kernel<<<grid, bn * 2, smem, st>>>(a);
       return cudaSuccess;
     };
+    if (gemm_wgmma_ok(a)) return launch_gemm_wgmma(a, st);
     if (ncols <= 64) return run(gemm_mma_kernel<64>, 64, mma_smem_bytes<64>());
     return run(gemm_mma_kernel<128>, 128, mma_smem_bytes<128>());
   }

@@ -15,7 +15,10 @@
 // What the design does about it: merged.cuh. The TPU kernel walks each image
 // row tile by row tile and carries the attention output in on-chip scratch;
 // on the card that walk would leave B blocks on 132 SMs, so the phases run
-// grid-wide instead and the cyclic shift rides in the row maps.
+// grid-wide instead and the cyclic shift rides in the row maps. In bf16 the
+// products run on the TMA / wgmma tile, and at kpad(C) <= 224 (``fused``,
+// the caller's attention_path) the attention half is one phase that keeps
+// its rows on the SM (attn_fused.cuh).
 
 #include "merged.cuh"
 
@@ -28,9 +31,10 @@ extern "C" int fairm_lewin_merged(
     const void* ln2b, const void* w1, const void* b1, const void* wd,
     const void* bd, const void* w2, const void* b2, const void* dps2,
     void* scratch, void* out, void* stamps, long long scratch_elems, int B, int H, int W,
-    int C, int h, int win, int shift, int Hd, int is_bf16, float eps,
+    int C, int h, int win, int shift, int Hd, int is_bf16, int fused, float eps,
     void* stream) {
-  if (scratch_elems < (long long)B * H * W * merged_scratch_cols(C, Hd, false))
+  if (scratch_elems <
+      (long long)B * H * W * merged_scratch_cols(C, Hd, false, fused))
     return (int)cudaErrorInvalidValue;
   MergedArgs p{};
   p.x = x;
@@ -62,6 +66,7 @@ extern "C" int fairm_lewin_merged(
   p.shift = shift;
   p.L = 1;
   p.Hd = Hd;
+  p.fused = fused;
   p.eps = eps;
   cudaError_t err = is_bf16
                         ? launch_merged<bf16_t, false>(p, (cudaStream_t)stream)

@@ -19,11 +19,21 @@
 // gather reads the rolled image from the true one, the last projection's
 // scatter writes u back to true pixels. There is no roll pass, and one
 // launch per block.
+//
+// The origin block (K4) in bf16 runs its GEMM phases on gemm_wgmma.cuh's
+// one-warpgroup tile (TMA into a ring of MERGED_WG_STAGES stages, wgmma),
+// its mbarriers in a slot of shared memory that no phase touches. Where the
+// fused attention half applies (fused_attn_dp, kpad(C) <= 224), its four
+// attention phases are one: attn_fused.cuh's window half, LN1 through the
+// projection with the rows on the SM, so the scratch holds no LN1 / qkv /
+// attention rows (LN2's rows go to the second hidden buffer, dead until the
+// conv writes it).
 
 #pragma once
 
 #include <cooperative_groups.h>
 
+#include "attn_fused.cuh"
 #include "attention.cuh"
 #include "dwconv.cuh"
 #include "gemm.cuh"
@@ -34,14 +44,23 @@ namespace cg = cooperative_groups;
 
 constexpr int MNT = 128;  // threads per block, as every phase's unit expects
 // blocks per SM the compiler holds the registers to. The byte-bound phases
-// want warps: bf16 takes 4 (128 registers; shared memory allows no more);
-// the fp32 FMA tile keeps 64 accumulators per thread and spills below 168
-// registers, so fp32 takes 3.
-template <typename T>
+// want warps; the conv's sliding window takes about 170 registers, the
+// fp32 FMA tile keeps 64 accumulators per thread and spills below 168, so
+// both dtypes take 3; with the fused attention half (bf16) shared memory
+// holds two blocks an SM, which may then take all the registers.
+template <typename T, bool FUSED>
 constexpr int merged_min_blocks() {
-  return std::is_same<T, float>::value ? 3 : 4;
+  return FUSED ? 2 : 3;
 }
 constexpr int MERGED_STAMPS = 16;
+// the bf16 origin block's GEMM ring (gemm_wgmma_tile64): two stages; four
+// took 96 KB, halved the blocks an SM and slowed the byte-bound phases more
+// than the products gained (res 32, C = 448, B = 32: 1.86 against 1.26 ms
+// on an H100)
+constexpr int MERGED_WG_STAGES = 2;
+// shared memory ahead of every phase's: 1024-byte alignment for TMA's
+// swizzled boxes, then the slot of the GEMM ring's mbarriers
+constexpr size_t MERGED_SMEM_HEAD = 2048;
 
 struct AttnWeights {
   const void* wqkv;    // [3C, kpad(C)], the d^-0.5 scale in q
@@ -72,13 +91,21 @@ struct MergedArgs {
   long long* stamps;   // null, or MERGED_STAMPS slots: the device clock (ns)
                        // at the kernel's start and after every phase
   int B, H, W, C, h, win, shift, L, Hd;
+  int fused;           // K4: the attention half as one phase (attn_fused.cuh)
   float eps;
+  // K4 in bf16: the GEMM phases' operands, A (box 128 rows) and B (64)
+  CUtensorMap t_rows;  // LN1 / attention rows, or (fused) LN2's rows
+  CUtensorMap t_hid;   // hid2
+  CUtensorMap t_wqkv, t_wp, t_w1, t_w2;
 };
 
 // the scratch buffer: xo [M, kpad(C)], qkv [M, 3C], y1 [M, C] (K5 only),
-// u [M, C], hid1 [M, Hd], hid2 [M, kpad(Hd)]
-__host__ __device__ inline long long merged_scratch_cols(int C, int Hd, bool freq) {
-  return (long long)kpad(C) + 3 * C + (freq ? C : 0) + C + Hd + kpad(Hd);
+// u [M, C], hid1 [M, Hd], hid2 [M, kpad(Hd)]; with the fused attention half
+// u, hid1 and hid2 only
+__host__ __device__ inline long long merged_scratch_cols(int C, int Hd, bool freq,
+                                                         bool fused) {
+  const long long ffn = (long long)C + Hd + kpad(Hd);
+  return fused ? ffn : (long long)kpad(C) + 3 * C + (freq ? C : 0) + ffn;
 }
 
 template <typename T>
@@ -91,13 +118,17 @@ __device__ __forceinline__ void gemm_tile(const GemmArgs& a, long long bx, int b
 }
 
 // C[cmap(r), :] = epilogue(A[r, :] @ Wt^T) over the whole grid, 128 x 64
-// tiles; neighbouring blocks share an A tile
-template <typename T>
+// tiles; neighbouring blocks share an A tile. WG: on the TMA / wgmma tile,
+// A and Wt also as the tensor maps ta, tb.
+template <typename T, bool WG>
 __device__ __forceinline__ void gemm_phase(const void* A, const void* Wt, int K,
                                            const float* bias, const float* dps,
                                            long long hw, const void* res,
                                            void* C, RowMap cmap, long long M,
-                                           int N, int act, unsigned char* smem) {
+                                           int N, int act, unsigned char* smem,
+                                           const CUtensorMap* ta,
+                                           const CUtensorMap* tb,
+                                           WgPipe& pipe) {
   GemmArgs a{};
   a.A = A;
   a.Wt = Wt;
@@ -113,8 +144,13 @@ __device__ __forceinline__ void gemm_phase(const void* A, const void* Wt, int K,
   a.act = act;
   const long long tm = (M + 127) / 128;
   const int tn = (N + 63) / 64;
-  for (long long t = blockIdx.x; t < tm * tn; t += gridDim.x)
-    gemm_tile<T>(a, t / tn, (int)(t % tn), smem);
+  for (long long t = blockIdx.x; t < tm * tn; t += gridDim.x) {
+    if constexpr (WG)
+      gemm_wgmma_tile64<MERGED_WG_STAGES>(a, ta, tb, t / tn, (int)(t % tn),
+                                          smem, pipe);
+    else
+      gemm_tile<T>(a, t / tn, (int)(t % tn), smem);
+  }
 }
 
 template <typename T>
@@ -156,10 +192,25 @@ __device__ __forceinline__ void end_phase(cg::grid_group& grid,
   }
 }
 
-template <typename T, int DP, bool FREQ>
-__global__ void __launch_bounds__(MNT, merged_min_blocks<T>())
-    merged_kernel(const MergedArgs p) {
+// DP: the attention core (attn_phase); FUSED: the attention half as one
+// phase of attn_fused.cuh's window half (K4, bf16)
+template <typename T, int DP, bool FREQ, bool FUSED>
+__global__ void __launch_bounds__(MNT, merged_min_blocks<T, FUSED>())
+    merged_kernel(const __grid_constant__ MergedArgs p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the GEMM ring's mbarriers, then every phase's shared memory (1024-byte
+  // aligned for TMA's swizzled boxes)
+  constexpr bool WG = std::is_same<T, bf16_t>::value && !FREQ;
+  unsigned char* head = align1024(smem_raw);
+  unsigned char* smem = head + 1024;
+  WgPipe pipe{reinterpret_cast<uint64_t*>(head), 0};
+  if constexpr (WG) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < MERGED_WG_STAGES; ++s) mbar_init(&pipe.full[s], 1);
+      mbar_init_fence();
+    }
+    __syncthreads();
+  }
   cg::grid_group grid = cg::this_grid();
   int phase = 0;
   end_phase(grid, p, phase++);
@@ -170,86 +221,118 @@ __global__ void __launch_bounds__(MNT, merged_min_blocks<T>())
   const long long M = p.B * hw;
   const int imgs = p.B / p.L;  // images per band
   T* xo = static_cast<T*>(p.scratch);
-  T* qkv = xo + M * kpad(C);
-  T* y1 = qkv + M * 3 * C;
+  T* qkv = xo + (FUSED ? 0 : M * kpad(C));
+  T* y1 = qkv + (FUSED ? 0 : M * 3 * C);
   T* u = y1 + (FREQ ? M * C : 0);
   T* hid1 = u + M * C;
   T* hid2 = hid1 + M * Hd;
+  T* rows2 = FUSED ? hid2 : xo;  // LN2's rows
 
   const RowMap rolled{1, p.H, p.W, p.win, p.B, 1, p.shift};
 
-  // LN1 + window partition of the rolled image -> xo
-  prep_phase<T>(p.x, C, rolled, M, p.ln1s, p.ln1b, p.eps, xo);
-  end_phase(grid, p, phase++);
-  gemm_phase<T>(xo, p.a1.wqkv, C, p.a1.bqkv, nullptr, hw, nullptr, qkv,
-                identity_map(), M, 3 * C, 0, smem_raw);
-  end_phase(grid, p, phase++);
-
-  AttnArgs at;
-  at.qkv = qkv;
-  at.out = xo;
-  at.bias = p.a1.bias;
-  at.mask = p.mask;
-  at.lam = FREQ ? nullptr : p.lam;
-  at.n = n;
-  at.n0 = n;
-  at.d = C / p.h;
-  at.C = C;
-  at.h = p.h;
-  at.ldo = kpad(C);
-  at.nW = nW;
-  at.imgs_per_bias = FREQ ? imgs : p.B;
-  attn_phase<T, 64, DP>(at, (long long)p.B * nW, smem_raw);
-  end_phase(grid, p, phase++);
-
-  if constexpr (FREQ) {
-    // intra projection -> y1 (rolled layout, rounded to the model dtype, no
-    // residual), regrouped by band -> xo, then the inter attention
-    gemm_phase<T>(xo, p.a1.wp, C, p.a1.bp, nullptr, hw, nullptr, y1,
-                  RowMap{1, p.H, p.W, p.win, p.B, 1, 0}, M, C, 0, smem_raw);
+  if constexpr (FUSED) {
+    // LN1 through the projection, window by window, scattered to the true
+    // pixels, + x -> u
+    FusedAttnArgs fa{};
+    fa.x = static_cast<const bf16_t*>(p.x);
+    fa.lns = p.ln1s;
+    fa.lnb = p.ln1b;
+    fa.eps = p.eps;
+    fa.wqkv = static_cast<const bf16_t*>(p.a1.wqkv);
+    fa.bqkv = p.a1.bqkv;
+    fa.wp = static_cast<const bf16_t*>(p.a1.wp);
+    fa.bp = p.a1.bp;
+    fa.bias = p.a1.bias;
+    fa.mask = p.mask;
+    fa.lam = p.lam;
+    fa.dps = p.dps1;
+    fa.res = static_cast<const bf16_t*>(p.x);
+    fa.out = reinterpret_cast<bf16_t*>(u);
+    fa.map = rolled;
+    fa.C = C;
+    fa.h = p.h;
+    fa.imgs_per_bias = p.B;
+    fused_attn_init<DP>(fa, smem);
+    for (long long g = blockIdx.x; g < (long long)p.B * nW; g += gridDim.x)
+      fused_attn_window<DP>(fa, g, nW, smem);
     end_phase(grid, p, phase++);
-    prep_phase<T>(y1, C, RowMap{2, p.H, p.W, p.win, imgs, p.L, 0}, M, nullptr,
-                  nullptr, 0.f, xo);
-    end_phase(grid, p, phase++);
-    gemm_phase<T>(xo, p.a2.wqkv, C, p.a2.bqkv, nullptr, hw, nullptr, qkv,
-                  identity_map(), M, 3 * C, 0, smem_raw);
-    end_phase(grid, p, phase++);
-    at.bias = p.a2.bias;
-    at.n = p.L * n;
-    at.imgs_per_bias = imgs;  // one shared bias
-    attn_phase<T, 192, DP>(at, (long long)imgs * nW, smem_raw);
-    end_phase(grid, p, phase++);
-    // inter projection, scattered to the true pixels, + x
-    gemm_phase<T>(xo, p.a2.wp, C, p.a2.bp, p.dps1, hw, p.x, u,
-                  RowMap{2, p.H, p.W, p.win, imgs, p.L, p.shift}, M, C, 0,
-                  smem_raw);
   } else {
-    // projection, scattered to the true pixels, + x
-    gemm_phase<T>(xo, p.a1.wp, C, p.a1.bp, p.dps1, hw, p.x, u, rolled, M, C, 0,
-                  smem_raw);
+    // LN1 + window partition of the rolled image -> xo
+    prep_phase<T>(p.x, C, rolled, M, p.ln1s, p.ln1b, p.eps, xo);
+    end_phase(grid, p, phase++);
+    gemm_phase<T, WG>(xo, p.a1.wqkv, C, p.a1.bqkv, nullptr, hw, nullptr, qkv,
+                      identity_map(), M, 3 * C, 0, smem, &p.t_rows, &p.t_wqkv,
+                      pipe);
+    end_phase(grid, p, phase++);
+
+    AttnArgs at;
+    at.qkv = qkv;
+    at.out = xo;
+    at.bias = p.a1.bias;
+    at.mask = p.mask;
+    at.lam = FREQ ? nullptr : p.lam;
+    at.n = n;
+    at.n0 = n;
+    at.d = C / p.h;
+    at.C = C;
+    at.h = p.h;
+    at.ldo = kpad(C);
+    at.nW = nW;
+    at.imgs_per_bias = FREQ ? imgs : p.B;
+    attn_phase<T, 64, DP>(at, (long long)p.B * nW, smem);
+    end_phase(grid, p, phase++);
+
+    if constexpr (FREQ) {
+      // intra projection -> y1 (rolled layout, rounded to the model dtype,
+      // no residual), regrouped by band -> xo, then the inter attention
+      gemm_phase<T, WG>(xo, p.a1.wp, C, p.a1.bp, nullptr, hw, nullptr, y1,
+                        RowMap{1, p.H, p.W, p.win, p.B, 1, 0}, M, C, 0, smem,
+                        nullptr, nullptr, pipe);
+      end_phase(grid, p, phase++);
+      prep_phase<T>(y1, C, RowMap{2, p.H, p.W, p.win, imgs, p.L, 0}, M,
+                    nullptr, nullptr, 0.f, xo);
+      end_phase(grid, p, phase++);
+      gemm_phase<T, WG>(xo, p.a2.wqkv, C, p.a2.bqkv, nullptr, hw, nullptr, qkv,
+                        identity_map(), M, 3 * C, 0, smem, nullptr, nullptr,
+                        pipe);
+      end_phase(grid, p, phase++);
+      at.bias = p.a2.bias;
+      at.n = p.L * n;
+      at.imgs_per_bias = imgs;  // one shared bias
+      attn_phase<T, 192, DP>(at, (long long)imgs * nW, smem);
+      end_phase(grid, p, phase++);
+      // inter projection, scattered to the true pixels, + x
+      gemm_phase<T, WG>(xo, p.a2.wp, C, p.a2.bp, p.dps1, hw, p.x, u,
+                        RowMap{2, p.H, p.W, p.win, imgs, p.L, p.shift}, M, C,
+                        0, smem, nullptr, nullptr, pipe);
+    } else {
+      // projection, scattered to the true pixels, + x
+      gemm_phase<T, WG>(xo, p.a1.wp, C, p.a1.bp, p.dps1, hw, p.x, u, rolled,
+                        M, C, 0, smem, &p.t_rows, &p.t_wp, pipe);
+    }
+    end_phase(grid, p, phase++);
   }
-  end_phase(grid, p, phase++);
 
   // the FFN half on u, true layout
-  prep_phase<T>(u, C, identity_map(), M, p.ln2s, p.ln2b, p.eps, xo);
+  prep_phase<T>(u, C, identity_map(), M, p.ln2s, p.ln2b, p.eps, rows2);
   end_phase(grid, p, phase++);
-  gemm_phase<T>(xo, p.w1, C, p.b1, nullptr, hw, nullptr, hid1, identity_map(),
-                M, Hd, 1, smem_raw);
+  gemm_phase<T, WG>(rows2, p.w1, C, p.b1, nullptr, hw, nullptr, hid1,
+                    identity_map(), M, Hd, 1, smem, &p.t_rows, &p.t_w1, pipe);
   end_phase(grid, p, phase++);
   dwconv_gelu_any<T>(hid1, p.wd, p.bd, hid2,
                      (long long)blockIdx.x * MNT + threadIdx.x,
                      (long long)gridDim.x * MNT, (long long)p.B * p.H, p.H,
                      p.W, Hd, kpad(Hd));
   end_phase(grid, p, phase++);
-  gemm_phase<T>(hid2, p.w2, Hd, p.b2, p.dps2, hw, u, p.out, identity_map(), M,
-                C, 0, smem_raw);
+  gemm_phase<T, WG>(hid2, p.w2, Hd, p.b2, p.dps2, hw, u, p.out, identity_map(),
+                    M, C, 0, smem, &p.t_hid, &p.t_w2, pipe);
   end_phase(grid, p, phase++);
 }
 
-template <typename T, int DP, bool FREQ>
+template <typename T, int DP, bool FREQ, bool FUSED>
 inline cudaError_t launch_merged_as(const MergedArgs& p, size_t smem,
                                     long long units, cudaStream_t st) {
-  auto kernel = merged_kernel<T, DP, FREQ>;
+  auto kernel = merged_kernel<T, DP, FREQ, FUSED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -272,20 +355,48 @@ inline cudaError_t launch_merged_as(const MergedArgs& p, size_t smem,
 
 inline size_t max_sz(size_t a, size_t b) { return a > b ? a : b; }
 
+// K4 in bf16: the tensor maps of its GEMM phases' operands, from the
+// scratch layout of merged_kernel
+inline cudaError_t merged_tensor_maps(MergedArgs& p) {
+  const long long M = (long long)p.B * p.H * p.W;
+  const int C = p.C, Hd = p.Hd, kc = kpad(C), kh = kpad(Hd);
+  const bf16_t* xo = static_cast<const bf16_t*>(p.scratch);
+  const bf16_t* hid2 = xo + M * merged_scratch_cols(C, Hd, false, p.fused) -
+                       M * kh;
+  cudaError_t err;
+  if ((err = tensor_map(&p.t_rows, p.fused ? hid2 : xo, M, kc, kc, WG_BM)) ||
+      (err = tensor_map(&p.t_hid, hid2, M, kh, kh, WG_BM)) ||
+      (err = tensor_map(&p.t_wqkv, p.a1.wqkv, 3 * C, kc, kc, WG64_BN)) ||
+      (err = tensor_map(&p.t_wp, p.a1.wp, C, kc, kc, WG64_BN)) ||
+      (err = tensor_map(&p.t_w1, p.w1, Hd, kc, kc, WG64_BN)) ||
+      (err = tensor_map(&p.t_w2, p.w2, C, kh, kh, WG64_BN)))
+    return err;
+  return cudaSuccess;
+}
+
 // Picks the attention core by what the launch can observe (as launch_attn
 // does for K1 / K3), sizes the shared memory for the largest phase and the
-// grid for the largest phase's units.
+// grid for the largest phase's units. ``p.fused`` is the caller's choice
+// (K4, bf16, where fused_attn_dp applies; anything else fails).
 template <typename T, bool FREQ>
-inline cudaError_t launch_merged(const MergedArgs& p, cudaStream_t st) {
+inline cudaError_t launch_merged(MergedArgs& p, cudaStream_t st) {
   constexpr bool BF = std::is_same<T, bf16_t>::value;
+  constexpr bool WG = BF && !FREQ;
   const int n = p.win * p.win, d = p.C / p.h;
   const long long M = (long long)p.B * p.H * p.W;
   const int nW = (p.H / p.win) * (p.W / p.win);
   int dp = 0;
   if (BF && n == 64 && d <= 64 && (!FREQ || p.L == 3)) dp = d <= 32 ? 32 : 64;
+  if (p.fused) {
+    dp = fused_attn_dp(p.C, p.h, p.win);
+    if (!BF || FREQ || !dp) return cudaErrorInvalidValue;
+  }
 
-  size_t smem = BF ? mma_smem_bytes<64>() : FMA_SMEM;
-  if (dp == 32) {
+  size_t smem = WG ? wg64_smem_bytes<MERGED_WG_STAGES>()
+                   : BF ? mma_smem_bytes<64>() : FMA_SMEM;
+  if (p.fused) {
+    smem = max_sz(smem, fused_attn_layout(p.C, p.h, dp).bytes);
+  } else if (dp == 32) {
     smem = max_sz(smem, attn_mma_smem_bytes<64, 32>());
     if (FREQ) smem = max_sz(smem, attn_mma_smem_bytes<192, 32>());
   } else if (dp == 64) {
@@ -293,6 +404,12 @@ inline cudaError_t launch_merged(const MergedArgs& p, cudaStream_t st) {
     if (FREQ) smem = max_sz(smem, attn_mma_smem_bytes<192, 64>());
   } else {
     smem = max_sz(smem, attn_smem_bytes(FREQ ? p.L * n : n, d));
+  }
+  smem += MERGED_SMEM_HEAD;
+
+  if constexpr (WG) {
+    const cudaError_t err = merged_tensor_maps(p);
+    if (err != cudaSuccess) return err;
   }
 
   const long long tm = (M + 127) / 128;
@@ -305,10 +422,14 @@ inline cudaError_t launch_merged(const MergedArgs& p, cudaStream_t st) {
   if (at > units) units = at;
 
   if constexpr (BF) {
-    if (dp == 32) return launch_merged_as<T, 32, FREQ>(p, smem, units, st);
-    if (dp == 64) return launch_merged_as<T, 64, FREQ>(p, smem, units, st);
+    if constexpr (!FREQ) {
+      if (p.fused && dp == 32) return launch_merged_as<T, 32, FREQ, true>(p, smem, units, st);
+      if (p.fused) return launch_merged_as<T, 64, FREQ, true>(p, smem, units, st);
+    }
+    if (dp == 32) return launch_merged_as<T, 32, FREQ, false>(p, smem, units, st);
+    if (dp == 64) return launch_merged_as<T, 64, FREQ, false>(p, smem, units, st);
   }
-  return launch_merged_as<T, 0, FREQ>(p, smem, units, st);
+  return launch_merged_as<T, 0, FREQ, false>(p, smem, units, st);
 }
 
 }  // namespace fairm

@@ -20,8 +20,8 @@ plain twins on the CPU:
   lewin_block.py:341-372).
 
 The JAX package picks the route per stage from gates measured on the TPU;
-here :data:`DEFAULT_MERGED`, :data:`MERGED_MIN_TOKENS`,
-:data:`DEFAULT_SPLIT` and :data:`SPLIT_MAX_TOKENS` hold what an H100
+here :data:`DEFAULT_MERGED`, :data:`DEFAULT_SPLIT` and
+:data:`SPLIT_MAX_TOKENS` hold what an H100
 measured (``chip_smoke.py`` phases 3 and 13, PERF.md section 6).
 
 With gradients enabled a block goes through the autograd Functions of
@@ -68,21 +68,26 @@ from .uformer_blocks import (Downsample, FrequencyWindowAttention, LeFF,
 
 IMPLS = ("default", "kernel", "merged", "split", "plain")
 
-# The blocks ``impl='default'`` runs as one merged kernel: (msa_type, stage
-# resolution, shifted, compute dtype), on a batch of at least
-# MERGED_MIN_TOKENS tokens (images x res^2); every other block, and a
-# smaller batch, takes the chain. From the per-block A/B on an H100 at
-# B = 4, 16 and 32 (``chip_smoke.py`` phase 3; PERF.md section 6, "merged
-# against chain"): in bf16 the merged kernel is ahead only where it absorbs
-# the two roll passes of a shifted block; with K2 fused (its hidden rows on
-# the SM, where K4 takes them through device memory) the chain has caught
-# up at res 128 and 64 (merged / chain 1.01-1.07 at B = 4, 16, 32) and
-# stays behind at res 32 from 32768 tokens (0.99 at B=32); below 32768
-# tokens it loses, and so it does at every other block. In float32 at the
-# eval entry point's batch it is within 5% of the chain or behind at every
-# stage, so float32 keeps the chain.
-DEFAULT_MERGED = frozenset({("origin", 32, True, torch.bfloat16)})
-MERGED_MIN_TOKENS = 32768
+# The blocks ``impl='default'`` runs as one merged kernel, each from a least
+# batch in tokens (images x res^2): (msa_type, stage resolution, shifted,
+# compute dtype, width C) -> tokens; every other block, and a smaller batch,
+# takes the chain. From the per-block A/B on an H100 at B = 4, 16 and 32
+# (``chip_smoke.py`` phase 3; PERF.md section 6, "merged against chain"):
+# with K4's products on the TMA / wgmma tile and, up to C = 224, its
+# attention half fused on the SM, the merged kernel is ahead for the
+# shifted bf16 decoder blocks at res 32 (C = 224 at every batch, merged /
+# chain 0.74-0.92; C = 448 from B = 16, 0.87-0.97), res 64 (C = 112 and 224,
+# 0.84-0.98) and res 128 at C = 112 (0.95-0.99). It is behind at res 128
+# C = 56 (1.14), for every unshifted block (no roll to absorb: 1.03-1.57)
+# and near even at res 16. In float32 it is behind at every stage
+# (1.01-1.39), so float32 keeps the chain.
+DEFAULT_MERGED = {
+    ("origin", 32, True, torch.bfloat16, 224): 4096,
+    ("origin", 32, True, torch.bfloat16, 448): 16384,
+    ("origin", 64, True, torch.bfloat16, 112): 16384,
+    ("origin", 64, True, torch.bfloat16, 224): 16384,
+    ("origin", 128, True, torch.bfloat16, 112): 65536,
+}
 
 # The origin-MSA blocks ``impl='default'`` runs as K12 -> K13: (width C,
 # compute dtype), on a batch of at most SPLIT_MAX_TOKENS tokens (images x
@@ -203,9 +208,9 @@ class LeWinBlock(nn.Module):
             return "split" if split else "kernel"
         if self.impl != "default":
             return self.impl
-        key = (self.msa_type, self.res, self.shift > 0, dtype)
-        if (key in DEFAULT_MERGED
-                and batch * self.res * self.res >= MERGED_MIN_TOKENS):
+        key = (self.msa_type, self.res, self.shift > 0, dtype, self.dim)
+        tokens = batch * self.res * self.res
+        if key in DEFAULT_MERGED and tokens >= DEFAULT_MERGED[key]:
             return "merged"
         if (split and (self.dim, dtype) in DEFAULT_SPLIT
                 and batch * self.res * self.res <= SPLIT_MAX_TOKENS):

@@ -38,8 +38,8 @@ _F = ctypes.c_float
 # stream are c_void_p, so a 64-bit address is never cut to a 32-bit int
 SIGNATURES = {
     # x, lns, lnb, wqkv, bqkv, wp, bp, bias, mask, lam, dps, xo, qkv, out,
-    # B, H, W, C, h, win, groups, res, bf16, eps, stream
-    "fairm_lewin_attn": [_P] * 14 + [_I] * 9 + [_F, _P],
+    # B, H, W, C, h, win, groups, res, bf16, fused, eps, stream
+    "fairm_lewin_attn": [_P] * 14 + [_I] * 10 + [_F, _P],
     # y, res, wqkv, bqkv, wp, bp, bias, mask, dps, zo, qkv, out,
     # LB, H, W, C, h, win, L, bf16, stream
     "fairm_freq_inter": [_P] * 12 + [_I] * 8 + [_P],
@@ -56,8 +56,8 @@ SIGNATURES = {
     "fairm_lewin_ffn_split": [_P] * 15 + [_I] * 7 + [_F, _P],
     # x, ln1s, ln1b, wqkv, bqkv, wp, bp, bias, mask, lam, dps1, ln2s, ln2b,
     # w1t, b1, wd, bd, w2t, b2, dps2, scratch, out, stamps, scratch_elems,
-    # B, H, W, C, h, win, shift, Hd, bf16, eps, stream
-    "fairm_lewin_merged": [_P] * 23 + [_Q] + [_I] * 9 + [_F, _P],
+    # B, H, W, C, h, win, shift, Hd, bf16, fused, eps, stream
+    "fairm_lewin_merged": [_P] * 23 + [_Q] + [_I] * 10 + [_F, _P],
     # x, ln1s, ln1b, wqkvA, bqkvA, wpA, bpA, biasA, wqkvB, bqkvB, wpB, bpB,
     # biasB, mask, dps1, ln2s, ln2b, w1t, b1, wd, bd, w2t, b2, dps2, scratch,
     # out, stamps, scratch_elems, LB, H, W, C, h, win, shift, L, Hd, bf16, eps,

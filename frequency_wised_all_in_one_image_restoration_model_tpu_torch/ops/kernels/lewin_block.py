@@ -426,11 +426,25 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def attention_path(C: int, heads: int, win: int, dtype) -> str:
+    """How K1 (and the attention half of K4) runs a block of width ``C``:
+    ``'fused'``, one launch with the half's rows on the SM
+    (``csrc/attn_fused.cuh``: bf16, 8 x 8 windows, C a multiple of 4 and of
+    the heads, kpad(C) <= 224, head dims <= 64), else ``'passes'`` (LN1 +
+    gather, the qkv product, the attention core, the projection)."""
+    d = C // heads if heads > 0 and C % heads == 0 else 0
+    if (dtype == torch.bfloat16 and win == 8 and C % 4 == 0
+            and kpad(C) <= 224 and 0 < d <= 64):
+        return "fused"
+    return "passes"
+
+
 def attention_kernel(x_img, lns, lnb, op: AttnOperands, mask, lam, win: int,
                      eps: float, res: bool, bias_groups: int, dps):
     """Launch K1 on ``x_img [B, H, W, C]`` (CUDA) with prepared operands:
     :func:`block_attention` for ``res=True, bias_groups=1``,
-    :func:`freq_intra` for ``res=False, bias_groups=L``."""
+    :func:`freq_intra` for ``res=False, bias_groups=L``; by
+    :func:`attention_path`."""
     from .build import load
 
     B, H, W, C = x_img.shape
@@ -448,9 +462,13 @@ def attention_kernel(x_img, lns, lnb, op: AttnOperands, mask, lam, win: int,
     dps = _f32(dps, (B,))
     lns, lnb = _f32(lns, (C,)), _f32(lnb, (C,))
     dt = x_img.dtype
-    # working buffers: the LN'd windows, then the attention rows; the qkv rows
-    xo = torch.empty((B * H * W, kpad(C)), dtype=dt, device=x_img.device)
-    qkv = torch.empty((B * H * W, 3 * C), dtype=dt, device=x_img.device)
+    fused = attention_path(C, h, win, dt) == "fused"
+    xo = qkv = None
+    if not fused:
+        # the passes' buffers: the LN'd windows, then the attention rows;
+        # the qkv rows
+        xo = torch.empty((B * H * W, kpad(C)), dtype=dt, device=x_img.device)
+        qkv = torch.empty((B * H * W, 3 * C), dtype=dt, device=x_img.device)
     out = torch.empty_like(x_img)
     # every tensor handed over by address is bound to a name until the
     # launch: a temporary freed earlier could be reused by the next one
@@ -458,7 +476,7 @@ def attention_kernel(x_img, lns, lnb, op: AttnOperands, mask, lam, win: int,
          _ptr(op.wqkv), _ptr(op.bqkv), _ptr(op.wp), _ptr(op.bp),
          _ptr(op.bias), _ptr(mask), _ptr(lam), _ptr(dps), _ptr(xo), _ptr(qkv),
          _ptr(out), B, H, W, C, h, win, bias_groups, int(res), _DTYPES[dt],
-         float(eps), _stream(x_img))
+         int(fused), float(eps), _stream(x_img))
     LAUNCHES["lewin_attn"] += 1
     return out
 
@@ -620,13 +638,18 @@ def ffn_split_kernel(x_img, lns, lnb, op: FfnOperands, eps: float, dps,
     return out
 
 
-def _merged_scratch(x_img, Hd: int, freq: bool) -> torch.Tensor:
-    """The merged kernels' working buffer (csrc/merged.cuh): per pixel the
-    LN'd / attention rows, qkv, (the intra output,) u and both hidden rows."""
+def _merged_scratch_cols(C: int, Hd: int, freq: bool, fused: bool) -> int:
+    """Columns per pixel of the merged kernels' working buffer
+    (csrc/merged.cuh): the LN'd / attention rows and qkv (not with the fused
+    attention half), the intra output (K5), u and both hidden rows."""
+    ffn = C + Hd + kpad(Hd)
+    return ffn if fused else kpad(C) + 3 * C + (C if freq else 0) + ffn
+
+
+def _merged_scratch(x_img, Hd: int, freq: bool, fused: bool) -> torch.Tensor:
     B, H, W, C = x_img.shape
-    cols = kpad(C) + 3 * C + (C if freq else 0) + C + Hd + kpad(Hd)
-    return torch.empty(B * H * W * cols, dtype=x_img.dtype,
-                       device=x_img.device)
+    return torch.empty(B * H * W * _merged_scratch_cols(C, Hd, freq, fused),
+                       dtype=x_img.dtype, device=x_img.device)
 
 
 # the merged kernels' phases, in order: slot i + 1 of a ``stamps`` tensor
@@ -638,7 +661,16 @@ FREQ_MERGED_PHASES = (MERGED_PHASES[:3]
                       + ("intra projection", "band regroup",
                          "inter qkv product", "inter attention core",
                          "inter projection + scatter") + MERGED_PHASES[4:])
+# K4 with the fused attention half (attention_path 'fused')
+MERGED_FUSED_PHASES = ("attention half",) + MERGED_PHASES[4:]
 MERGED_STAMPS = 16
+
+
+def merged_phases(C: int, heads: int, win: int, dtype) -> tuple:
+    """K4's phases for a block of width ``C`` (:func:`attention_path`)."""
+    return (MERGED_FUSED_PHASES
+            if attention_path(C, heads, win, dtype) == "fused"
+            else MERGED_PHASES)
 
 
 def _stamps(stamps, x: torch.Tensor) -> None:
@@ -655,7 +687,7 @@ def merged_kernel(x_img, ln1s, ln1b, attn: AttnOperands, mask, lam, ln2s,
     """Launch K4 (:func:`block_merged`) on the TRUE-layout ``x_img
     [B, H, W, C]`` (CUDA) with the operands of both halves: one launch.
     ``stamps``, an int64 tensor of :data:`MERGED_STAMPS`, receives the
-    device clock at the start and after each of :data:`MERGED_PHASES`."""
+    device clock at the start and after each of :func:`merged_phases`."""
     from .build import load
 
     B, H, W, C = x_img.shape
@@ -675,8 +707,9 @@ def merged_kernel(x_img, ln1s, ln1b, attn: AttnOperands, mask, lam, ln2s,
     ln1s, ln1b = _f32(ln1s, (C,)), _f32(ln1b, (C,))
     ln2s, ln2b = _f32(ln2s, (C,)), _f32(ln2b, (C,))
     dt = x_img.dtype
+    fused = attention_path(C, h, win, dt) == "fused"
     # bound to names until the launch returns, the scratch included
-    scratch = _merged_scratch(x_img, Hd, False)
+    scratch = _merged_scratch(x_img, Hd, False, fused)
     out = torch.empty_like(x_img)
     _run(load().fairm_lewin_merged, _ptr(x_img), _ptr(ln1s), _ptr(ln1b),
          _ptr(attn.wqkv), _ptr(attn.bqkv), _ptr(attn.wp), _ptr(attn.bp),
@@ -684,8 +717,7 @@ def merged_kernel(x_img, ln1s, ln1b, attn: AttnOperands, mask, lam, ln2s,
          _ptr(ln2b), _ptr(ffn.w1), _ptr(ffn.b1), _ptr(ffn.wd), _ptr(ffn.bd),
          _ptr(ffn.w2), _ptr(ffn.b2), _ptr(dps2), _ptr(scratch), _ptr(out),
          _ptr(stamps), scratch.numel(), B, H, W, C, h, win, shift, Hd,
-         _DTYPES[dt],
-         float(eps), _stream(x_img))
+         _DTYPES[dt], int(fused), float(eps), _stream(x_img))
     LAUNCHES["lewin_merged"] += 1
     if scratch_out is not None:
         scratch_out.append(scratch)
@@ -720,7 +752,7 @@ def freq_merged_kernel(x_img, ln1s, ln1b, intra: AttnOperands,
     ln1s, ln1b = _f32(ln1s, (C,)), _f32(ln1b, (C,))
     ln2s, ln2b = _f32(ln2s, (C,)), _f32(ln2b, (C,))
     dt = x_img.dtype
-    scratch = _merged_scratch(x_img, Hd, True)
+    scratch = _merged_scratch(x_img, Hd, True, False)
     out = torch.empty_like(x_img)
     _run(load().fairm_freq_merged, _ptr(x_img), _ptr(ln1s), _ptr(ln1b),
          _ptr(intra.wqkv), _ptr(intra.bqkv), _ptr(intra.wp), _ptr(intra.bp),
@@ -1477,16 +1509,17 @@ class BlockFFN(torch.autograd.Function):
         return (*grads, None, None)
 
 
-def _merged_forward_aux(x_img, run, Hd: int, freq: bool):
+def _merged_forward_aux(x_img, run, Hd: int, freq: bool, fused: bool):
     """One merged launch through ``run(scratch_out)``; hands back ``(out, u,
     y1)`` with ``u`` (true layout) and ``y1`` (K5: the intra output, rolled
-    layout) copied out of the scratch buffer the kernel already fills."""
+    layout) copied out of the scratch buffer the kernel already fills
+    (``fused``: K4 with the fused attention half, u first)."""
     B, H, W, C = x_img.shape
     M = B * H * W
     keep = []
     out = run(keep)
     scratch = keep[0]
-    at = M * (kpad(C) + 3 * C)
+    at = 0 if fused else M * (kpad(C) + 3 * C)
     y1 = None
     if freq:
         y1 = scratch[at:at + M * C].reshape(B, H, W, C).clone()
@@ -1518,7 +1551,9 @@ class BlockMerged(torch.autograd.Function):
                 x_img, lambda keep: merged_kernel(
                     x_img, ln1s, ln1b, attn, mask, lam, ln2s, ln2b, ffn, win,
                     shift, eps, dps1, dps2, scratch_out=keep),
-                w1.shape[1], False)
+                w1.shape[1], False,
+                attention_path(x_img.shape[-1], wq3.shape[0], win,
+                               x_img.dtype) == "fused")
         ctx.save_for_backward(x_img, u, ln1s, ln1b, *qkvp, bias, mask, lam,
                               ln2s, ln2b, *ffnp, dps1, dps2)
         ctx.win, ctx.shift, ctx.eps = win, shift, eps
@@ -1567,7 +1602,7 @@ class BlockFreqMerged(torch.autograd.Function):
                 x_img, lambda keep: freq_merged_kernel(
                     x_img, ln1s, ln1b, intra, inter, mask, ln2s, ln2b, ffn, L,
                     win, shift, eps, dps1, dps2, scratch_out=keep),
-                w1.shape[1], True)
+                w1.shape[1], True, False)
         ctx.save_for_backward(x_img, u, y1, ln1s, ln1b, *pA, biasA, *pB,
                               biasB, mask, ln2s, ln2b, *ffnp, dps1, dps2)
         ctx.L, ctx.win, ctx.shift, ctx.eps = L, win, shift, eps

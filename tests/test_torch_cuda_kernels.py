@@ -549,3 +549,143 @@ def test_block_ffn_fused_edges(card, case):
     assert scratch < images * hh * ww * hd * 2, scratch
     _check(got, lb.block_ffn_plain(x, *w, 1e-6, dps), dt)
     assert torch.equal(got, lb.ffn_kernel(x, w[0], w[1], op, 1e-6, dps))
+
+
+# the fused K1 (bf16, kpad(C) <= 224) at every stage it serves: (label, C,
+# heads, bias groups); the decoder's d = 56 and the encoder's intra
+# attention (d = 28, three bias groups, one a band)
+FUSED_STAGES = [
+    ("decoder C56", 56, 1, 1), ("decoder C112", 112, 2, 1),
+    ("decoder C224", 224, 4, 1), ("intra C28", 28, 1, 3),
+    ("intra C56", 56, 2, 3), ("intra C112", 112, 4, 3),
+    ("intra C224", 224, 8, 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("images", [4, 3], ids=["B4", "ragged B3"])
+@pytest.mark.parametrize("shifted", [True, False], ids=["shift lam", "plain"])
+@pytest.mark.parametrize("stage", FUSED_STAGES, ids=[s[0] for s in FUSED_STAGES])
+def test_fused_attention_at_every_stage(card, stage, shifted, images):
+    """K1 takes one fused launch at C <= 224 in bf16 (no qkv or attention
+    rows in device memory): against its twin, equal bits on a second
+    launch; shifted with the SW-MSA mask, the decoder's with lam and
+    DropPath."""
+    _, c, h, groups = stage
+    d, res, dt = c // h, 16, torch.bfloat16
+    assert lb.attention_path(c, h, WIN, dt) == "fused"
+    n_img = images * groups
+    x = _t(card, n_img, res, res, c, scale=0.5, dtype=dt)
+    w = [_t(card, h, c, d, scale=c ** -0.5) if i % 2 == 0 else
+         _t(card, h, d, scale=0.1) for i in range(6)]
+    w += [_t(card, h, d, c, scale=c ** -0.5), _t(card, c, scale=0.1)]
+    ln = [1.0 + _t(card, c, scale=0.1), _t(card, c, scale=0.1)]
+    mask = (torch.from_numpy(windows.shift_attn_mask(res, res, WIN, 4)).cuda()
+            if shifted else None)
+    if groups == 1:
+        bias = _t(card, h, N, N, scale=0.05)
+        lam = _t(card, n_img, h, scale=0.3) if shifted else None
+        dps = _dps(card, n_img) if shifted else None
+        args = [x, *ln, *w, bias, mask, lam, WIN, 1e-6, dps]
+        run, plain = lb.block_attention, lb.block_attention_plain
+    else:
+        bias, lam, dps = _t(card, groups, h, N, N, scale=0.05), None, None
+        args = [x, *ln, *w, bias, mask, groups, WIN, 1e-6]
+        run, plain = lb.freq_intra, lb.freq_intra_plain
+    op = lb.attn_operands(*w, bias, dt)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lb.reset_launches()
+    got = lb.attention_kernel(x, *ln, op, mask, lam, WIN, 1e-6, groups == 1,
+                              groups, dps)
+    torch.cuda.synchronize()
+    assert lb.LAUNCHES["lewin_attn"] == 1
+    # no device memory beyond the output (the passes' rows would take
+    # images x res^2 x (kpad(C) + 3C) elements)
+    assert (torch.cuda.max_memory_allocated() - base
+            - got.numel() * got.element_size()) <= 512
+    assert torch.equal(run(*args), got)
+    _check(got, plain(*args), dt)
+    assert torch.equal(run(*args), got)
+
+
+# products of the passes on the TMA / wgmma tile (bf16, wide K): (label,
+# kernel, C, res, images); M = images x res^2 rows, ragged against the
+# tile's 128 at 3 x 64 and 64, and N ragged at C = 448 (3.5 tiles)
+WGMMA_CASES = [
+    ("K2 C448 K448/1792 M192", "ffn", 448, 8, 3),
+    ("K2 C896 K896/3584 M64", "ffn", 896, 8, 1),
+    ("K1 C448 K448 N1344 M192", "attn", 448, 8, 3),
+    ("K1 C896 K896 N2688 M256", "attn", 896, 16, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=[c[0] for c in WGMMA_CASES])
+def test_wgmma_products(card, case):
+    """K2's four passes (fc1 K = C, fc2 K = 4C) and K1's passes (qkv, proj)
+    at C = 448 / 896 take the TMA / wgmma tile in bf16: against the twins
+    and against the fp32 products, equal bits on a second launch."""
+    _, kernel, c, res, images = case
+    dt = torch.bfloat16
+    x = _t(card, images, res, res, c, scale=0.5, dtype=dt)
+    ln = [1.0 + _t(card, c, scale=0.1), _t(card, c, scale=0.1)]
+    if kernel == "ffn":
+        hd = 4 * c
+        w = [_t(card, c, hd, scale=c ** -0.5), _t(card, hd, scale=0.1),
+             _t(card, 3, 3, hd, scale=0.2), _t(card, hd, scale=0.1),
+             _t(card, hd, c, scale=hd ** -0.5), _t(card, c, scale=0.1)]
+        args = [x, *ln, *w, 1e-6, _dps(card, images)]
+        run, plain = lb.block_ffn, lb.block_ffn_plain
+    else:
+        h = c // 56
+        w = [_t(card, h, c, 56, scale=c ** -0.5) if i % 2 == 0 else
+             _t(card, h, 56, scale=0.1) for i in range(6)]
+        w += [_t(card, h, 56, c, scale=c ** -0.5), _t(card, c, scale=0.1)]
+        mask = (torch.from_numpy(windows.shift_attn_mask(res, res, WIN, 4))
+                .cuda() if res > WIN else None)
+        assert lb.attention_path(c, h, WIN, dt) == "passes"
+        args = [x, *ln, *w, _t(card, h, N, N, scale=0.05), mask,
+                _t(card, images, h, scale=0.3), WIN, 1e-6, _dps(card, images)]
+        run, plain = lb.block_attention, lb.block_attention_plain
+    got = run(*args)
+    _check(got, plain(*args), dt)
+    assert torch.equal(run(*args), got)
+    # and against the fp32 products: the twin in float32 on the same bf16
+    # inputs and bf16-rounded weight matrices
+    mats = (3, 7) if kernel == "ffn" else (3, 5, 7, 9)
+    args32 = [a.to(dt).float() if i in mats else
+              a.float() if torch.is_tensor(a) else a for i, a in enumerate(args)]
+    want = plain(*args32)
+    err = (got.float() - want).abs().max().item() / max(
+        1.0, want.abs().max().item())
+    assert err <= TOL[dt], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [224, 448])
+def test_block_merged_at_res32(card, c):
+    """K4 where the default route runs it (res 32, shifted, lam, DropPath;
+    C = 224 with the fused attention half, 448 with its phases): against
+    its twin and its chain, equal bits on a second launch."""
+    h, res, images, dt = c // 56, 32, 2, torch.bfloat16
+    hd = 4 * c
+    x = _t(card, images, res, res, c, scale=0.5, dtype=dt)
+    w = [_t(card, h, c, 56, scale=c ** -0.5) if i % 2 == 0 else
+         _t(card, h, 56, scale=0.1) for i in range(6)]
+    w += [_t(card, h, 56, c, scale=c ** -0.5), _t(card, c, scale=0.1)]
+    fw = [_t(card, c, hd, scale=c ** -0.5), _t(card, hd, scale=0.1),
+          _t(card, 3, 3, hd, scale=0.2), _t(card, hd, scale=0.1),
+          _t(card, hd, c, scale=hd ** -0.5), _t(card, c, scale=0.1)]
+    ln = [1.0 + _t(card, c, scale=0.1), _t(card, c, scale=0.1)]
+    mask = torch.from_numpy(windows.shift_attn_mask(res, res, WIN, 4)).cuda()
+    args = ([x, *ln, *w, _t(card, h, N, N, scale=0.05), mask,
+             _t(card, images, h, scale=0.3)] + ln + fw
+            + [WIN, 4, 1e-6, _dps(card, images), _dps(card, images)])
+    lb.reset_launches()
+    got = lb.block_merged(*args)
+    assert lb.LAUNCHES["lewin_merged"] == 1
+    _check(got, lb.block_merged_plain(*args), dt)
+    _check(got, lb.merged_chain(lb.block_attention, lb.block_ffn, *args), dt)
+    assert torch.equal(lb.block_merged(*args), got)

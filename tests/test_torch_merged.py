@@ -26,6 +26,8 @@ from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops.kernels im
 
 B, C, H, L, WIN = 2, 16, 2, 3, 8
 N = WIN * WIN
+# the flagship decoder's width at each stage resolution on the way down
+FLAGSHIP_WIDTH = {128: 56, 64: 112, 32: 224, 16: 448, 8: 896}
 TOL = 5e-5        # fp32, a whole block (two or three kernels deep)
 BF16_TOL = 2e-2
 
@@ -235,28 +237,75 @@ def test_lewin_block_routes_agree_on_the_cpu(msa_type, impl):
     # the batch: merged from 32768 tokens (images x res^2) up
     ("origin", 128, 4, torch.bfloat16, 2, "kernel"),
     ("origin", 128, 4, torch.bfloat16, 1, "kernel"),
-    ("origin", 64, 4, torch.bfloat16, 8, "kernel"),
+    ("origin", 64, 4, torch.bfloat16, 8, "merged"),
     ("origin", 32, 4, torch.bfloat16, 33, "merged"),
-    ("origin", 32, 4, torch.bfloat16, 31, "kernel"),
-    ("origin", 32, 4, torch.bfloat16, 16, "kernel"),
+    ("origin", 32, 4, torch.bfloat16, 31, "merged"),
+    ("origin", 32, 4, torch.bfloat16, 16, "merged"),
     ("origin", 16, 4, torch.bfloat16, 128, "kernel"),   # not in the table
 ])
 def test_default_route_follows_the_measured_table(msa_type, res, shift, dtype,
                                                   batch, want):
     """impl='default' takes the merged kernel exactly for the blocks in
-    DEFAULT_MERGED (the shifted origin blocks at res 32 in bf16)
-    on a batch of at least MERGED_MIN_TOKENS tokens; a fixed impl is its own
-    route whatever the block and the batch."""
+    DEFAULT_MERGED (shifted origin blocks in bf16, keyed by width) on a
+    batch of at least the entry's tokens (res 32 at C = 224: 4096, res 64
+    at C = 112: 16384); a fixed impl is its own route whatever the block and
+    the batch."""
     kw = dict(msa_type=msa_type, L=L, all_bands_dc=msa_type == "origin",
               encoder_embed_dim=2, shift_size=shift)
-    assert uformer_lewin.LeWinBlock(C, res, H, impl="default",
+    dim = FLAGSHIP_WIDTH[res]   # the table is keyed by the block's width
+    assert uformer_lewin.LeWinBlock(dim, res, H, impl="default",
                                     **kw).route(dtype, batch) == want
     for impl in ("kernel", "merged", "plain"):
-        assert uformer_lewin.LeWinBlock(C, res, H, impl=impl,
+        assert uformer_lewin.LeWinBlock(dim, res, H, impl=impl,
                                         **kw).route(dtype, batch) == impl
-    assert uformer_lewin.MERGED_MIN_TOKENS == 32768
-    for key in uformer_lewin.DEFAULT_MERGED:
+    for key, tokens in uformer_lewin.DEFAULT_MERGED.items():
         assert key[0] in ("origin", "freq") and key[1] in (128, 64, 32, 16, 8)
+        assert key[4] in (56, 112, 224, 448, 896)
+        assert tokens > 0 and tokens % (key[1] * key[1]) == 0
+
+
+@pytest.mark.parametrize("dim,res,batch,want", [
+    (224, 32, 4, "merged"),      # the down path's shifted res-32 blocks
+    (448, 32, 16, "merged"),     # the up path's, from 16384 tokens
+    (448, 32, 8, "kernel"),
+    (112, 32, 32, "kernel"),     # a width the table does not name
+    (224, 64, 4, "merged"),      # the up path at res 64
+    (112, 128, 4, "merged"),
+    (56, 128, 32, "kernel"),     # the down path at res 128
+])
+def test_default_merged_table_is_keyed_by_width(dim, res, batch, want):
+    """DEFAULT_MERGED names (msa type, res, shifted, dtype, C): blocks of
+    one resolution but another width take their own entry."""
+    block = uformer_lewin.LeWinBlock(dim, res, H, impl="default",
+                                     all_bands_dc=True, encoder_embed_dim=2,
+                                     shift_size=4)
+    assert block.route(torch.bfloat16, batch) == want
+    assert block.route(torch.float32, batch) == "kernel"
+
+
+@pytest.mark.parametrize("dim,heads,win,dtype,want", [
+    (56, 1, 8, torch.bfloat16, "fused"),     # decoder, d = 56
+    (112, 2, 8, torch.bfloat16, "fused"),
+    (224, 4, 8, torch.bfloat16, "fused"),
+    (28, 1, 8, torch.bfloat16, "fused"),     # encoder intra, d = 28
+    (224, 8, 8, torch.bfloat16, "fused"),
+    (16, 2, 8, torch.bfloat16, "fused"),
+    (448, 8, 8, torch.bfloat16, "passes"),   # kpad(C) > 224
+    (896, 16, 8, torch.bfloat16, "passes"),
+    (56, 1, 8, torch.float32, "passes"),     # fp32 keeps the passes
+    (56, 1, 4, torch.bfloat16, "passes"),    # windows of 16 tokens
+    (10, 1, 8, torch.bfloat16, "passes"),    # C not a multiple of 4
+    (192, 1, 8, torch.bfloat16, "passes"),   # d = 192 > 64
+])
+def test_k1_path_chooser(dim, heads, win, dtype, want):
+    """attention_path: K1 (and K4's attention half) fused on the SM in bf16
+    at kpad(C) <= 224 with head dims up to 64, the four passes elsewhere;
+    K4's phase list follows it."""
+    assert tlb.attention_path(dim, heads, win, dtype) == want
+    phases = tlb.merged_phases(dim, heads, win, dtype)
+    assert phases == (tlb.MERGED_FUSED_PHASES if want == "fused"
+                      else tlb.MERGED_PHASES)
+    assert phases[-4:] == tlb.MERGED_PHASES[-4:]
 
 
 def test_lewin_block_rejects_unknown_impl():

@@ -8,15 +8,19 @@ C = 56 and res 16, C = 896); with ``--k6``, K6 at the shapes of its table
 inter attention at res 128, shifted and not, and res 8); with ``--k10``,
 the window-attention backward K10 at ``chip_smoke.py`` phase 10's res-128
 cases; with ``--k2``, the LeFF forward K2 (bf16) at every stage of its
-table.
+table; with ``--k1``, the attention half K1 (bf16) at every stage of its
+table (``chip_smoke.py::K1_STAGES``); with ``--k4``, the merged block K4
+(bf16) at the res-32 stages the default route runs it (C = 224 and 448),
+also the device clock at each of its phases' grid barriers.
 
 Run on a machine with an NVIDIA GPU, from the root of the checkout:
 
     python3 tools/bwd_kernel_profile.py [--dtype bfloat16] [--batch 4]
-        [--k7 | --k6 | --k8 | --k10 | --k2]
+        [--k7 | --k6 | --k8 | --k10 | --k2 | --k1 | --k4]
 
 Prints the card's name and power limit, then per kernel the passes in order
-of device time. Imports the PyTorch port only.
+of device time; for K1's and K2's passes also each product's rate. Imports
+the PyTorch port only.
 """
 
 from __future__ import annotations
@@ -55,6 +59,11 @@ def main(argv=None) -> int:
                        help="K8 at the shapes of chip_smoke.py's K8 table")
     which.add_argument("--k2", action="store_true",
                        help="K2 (bf16) at the stages of chip_smoke.py's K2 table")
+    which.add_argument("--k1", action="store_true",
+                       help="K1 (bf16) at the stages of chip_smoke.py's K1 table")
+    which.add_argument("--k4", action="store_true",
+                       help="K4 (bf16) at res 32, C = 224 and 448, with its "
+                       "phases' clock stamps")
     which.add_argument("--k10", action="store_true",
                        help="K10 at chip_smoke.py phase 10's res-128 cases")
     args = ap.parse_args(argv)
@@ -83,6 +92,14 @@ def main(argv=None) -> int:
         cases = chip_smoke.k8_cases(lb, windows, dtype, args.batch)
     elif args.k2:
         cases = [c for c, _ in chip_smoke.k2_cases(lb, args.batch)]
+    elif args.k1:
+        cases = [c for c, _ in chip_smoke.k1_cases(lb, windows, args.batch)]
+    elif args.k4:
+        cases = []
+        for c, _ in chip_smoke.k4_cases(lb, windows, args.batch):
+            chip_smoke.print_phases(lb, c, c.label)
+            cases.append(chip_smoke.BwdCase(c.kernel, c.label, c.timed,
+                                            lambda: None, c.flops, 0))
     elif args.k10:
         cases = [k10_case(wa, c) for c in chip_smoke.window_cases(
             windows, dtype, args.batch) if "res128" in c.label]
@@ -95,7 +112,7 @@ def main(argv=None) -> int:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             case.run()
             torch.cuda.synchronize()
-        by_name, total = {}, 0.0
+        by_name, total, gemms = {}, 0.0, []
         for e in prof.events():
             if e.device_type != DeviceType.CUDA:
                 continue
@@ -103,12 +120,33 @@ def main(argv=None) -> int:
             n, t = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, t + us)
             total += us
+            if "gemm" in e.name:
+                gemms.append((e.time_range.start, us, e.name))
         print(f"{case.label} {args.dtype} B={args.batch}: {ms:.4f} ms by CUDA "
               f"events, {total / 1e3:.4f} ms of device time in "
               f"{sum(n for n, _ in by_name.values())} passes")
         for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
             print(f"  {us / 1e3:8.4f} ms x {n:2d}  {name[:100]}")
+        print_products(case, sorted(gemms))
     return 0
+
+
+def print_products(case, gemms) -> None:
+    """The rate of each product of K1's or K2's passes (in launch order:
+    qkv then proj, fc1 then fc2), from the shapes in ``case.dims``."""
+    if case.kernel == "lewin_attn" and len(case.dims) == 4:
+        M, C = case.dims[:2]
+        shapes = (("qkv", M, 3 * C, C), ("proj", M, C, C))
+    elif case.kernel == "lewin_ffn" and len(case.dims) == 2:
+        M, C = case.dims
+        shapes = (("fc1", M, 4 * C, C), ("fc2", M, C, 4 * C))
+    else:
+        return
+    if len(gemms) != len(shapes):
+        return
+    for (label, m, n, k), (_, us, name) in zip(shapes, gemms):
+        print(f"  product {label} [{m} x {k}] x [{k} x {n}]: {us / 1e3:.4f} ms, "
+              f"{2.0 * m * n * k / us / 1e6:.1f} TFLOP/s ({name.split('(')[0]})")
 
 
 if __name__ == "__main__":
