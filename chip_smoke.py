@@ -868,6 +868,289 @@ def k1_table(lb, windows, card: str):
         torch.cuda.empty_cache()
 
 
+# the encoder's stages (res, C, heads) K3 serves: L = 3 bands, head dim 28
+K3_STAGES = ((128, 28, 1), (64, 56, 2), (32, 112, 4), (16, 224, 8),
+             (8, 448, 16))
+K3_BANDS = 3
+
+
+def k3_cases(lb, windows, B, dtype=torch.bfloat16):
+    """K3 at :data:`K3_STAGES` on ``B`` tiles (``L * B`` band images), as
+    the model hands it over: the per-pair tables ``[L*L, 225, h]`` with the
+    grouped bias made from them, the SW-MSA mask where the stage has more
+    than one window, DropPath. Per stage ``(case, yardstick, passes)``:
+    ``case`` a BwdCase (``run`` the launch with prepared operands by
+    ``freq_inter_path``, ``plain`` the twin; ``dims`` (rows M, C, heads,
+    group tokens)); ``passes`` the launch in four passes, the parent's form
+    (at the deep stages the same launch); ``yardstick`` ``torch.matmul``
+    over K3's four products, qkv [M, C] x [C, 3C], the logits and P V
+    batched over groups and heads, proj [M, C] x [C, C], on operands made
+    once. Operations: the four products; bytes: y and the residual read,
+    the output written, the weights and tables read."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    L, n = K3_BANDS, 64
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    out = []
+    for res, C, h in K3_STAGES:
+        images, d, keys = L * B, C // h, L * n
+        M = images * res * res
+        shift = 4 if res > 8 else 0
+        y, x = rnd(images, res, res, C).to(dtype), rnd(images, res, res, C).to(dtype)
+        aw = [rnd(h, C, d, scale=C ** -0.5) if i % 2 == 0 else
+              rnd(h, d, scale=0.1) for i in range(6)]
+        aw += [rnd(h, d, C, scale=C ** -0.5), rnd(C, scale=0.1)]
+        pairs = rnd(L * L, 225, h, scale=0.05)
+        bias = lb.inter_bias(pairs, L, 8)
+        mask = (torch.from_numpy(windows.shift_attn_mask(res, res, 8, shift))
+                .cuda() if shift else None)
+        dps = (torch.rand(images, generator=gen, device="cuda") < 0.9).float() / 0.9
+        args = [y, x, *aw, bias, mask, L, 8, 1e-6, dps]
+        op = lb.attn_operands(*aw, bias, dtype, pairs)
+        groups = M // keys
+        xm, w3, wp = rnd(M, C).to(dtype), rnd(C, 3 * C).to(dtype), rnd(C, C).to(dtype)
+        qh = rnd(groups * h, keys, d).to(dtype)
+        ph = rnd(groups * h, keys, keys).to(dtype)
+
+        def yardstick(xm=xm, w3=w3, wp=wp, qh=qh, ph=ph):
+            torch.matmul(xm, w3)                      # qkv
+            torch.matmul(qh, qh.transpose(-1, -2))    # logits
+            torch.matmul(ph, qh)                      # P V
+            torch.matmul(xm, wp)                      # proj
+        tables = [t for t in (pairs, mask, dps) if t is not None]
+        label = f"freq_inter res{res} C{C} h{h} shift{shift} L{L} images{images}"
+        flops = 2.0 * M * C * (4 * C + 2 * keys)
+        nbytes = (3 * y.numel() * y.element_size() + 4 * C * C * y.element_size()
+                  + 4 * sum(t.numel() for t in tables))
+
+        def case(path, tag, y=y, x=x, op=op, mask=mask, dps=dps, args=args):
+            return BwdCase(
+                "freq_inter", label + tag,
+                lambda: lb.freq_inter_kernel(y, x, op, mask, L, 8, dps, path),
+                lambda: lb.freq_inter_plain(*args), flops, nbytes,
+                (M, C, h, keys))
+        out.append((case(None, ""), yardstick, case("passes", " passes")))
+    return out
+
+
+# K3's launches at each encoder stage (two blocks a stage): per eval
+# forward and per joint step at B = 4 and 32 (the query and the key
+# encoder's forward)
+K3_LAUNCHES = (2, 4, 4)
+
+
+def k3_table(lb, windows, stats, card: str):
+    """Phase 3e: K3 in bf16 at every encoder stage of :data:`K3_STAGES`,
+    B = 4 and 32, in the model's form (the per-pair tables): against its
+    twin, against the four passes (the parent's form; fused where
+    ``freq_inter_path`` chooses it) and on a second launch (equal bits); the
+    passes' time beside the launch's, the plain version's, the bound, the
+    launches of :data:`K3_LAUNCHES`, launches x (time - bound) per eval
+    forward, K3 over the yardstick of :func:`k3_cases`, and the device
+    memory one launch takes beyond its output (0 where K3 runs fused). The
+    kernels line takes the res-128 row at B = 32."""
+    print(f"K3 table (bf16): passes (parent) -> launch ms, plain ms, "
+          f"yardstick ms, bound, launches (eval B=32, step B=4, step B=32), "
+          f"scratch ({card}):", flush=True)
+    tol = KERNEL_TOL[torch.bfloat16]
+    for B in (SMALL_BATCH, BATCH):
+        for case, yardstick, passes in k3_cases(lb, windows, B):
+            M, C, h, keys = case.dims
+            path = lb.freq_inter_path(C, h, 8, torch.bfloat16, K3_BANDS,
+                                      M // keys)
+            label = f"K3 {case.label} bf16 ({path})"
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            got = case.run()
+            torch.cuda.synchronize()
+            scratch = (torch.cuda.max_memory_allocated() - base
+                       - got.numel() * got.element_size())
+            err = compare(label, got, case.plain(), tol)
+            ref = passes.run()
+            compare(f"{label} vs passes", got, ref, tol)
+            if not torch.equal(case.run(), got):
+                raise Failed(f"{label}: two launches give different bits")
+            same = torch.equal(got, ref)
+            del got, ref
+            ms, pms = time_ms(case.run), time_ms(passes.run)
+            plain_ms = time_ms(case.plain, iters=3, warmup=1)
+            yms = time_ms(yardstick)
+            t_bytes = case.nbytes / PEAK_BYTES * 1e3
+            t_flops = case.flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+            bound, by = max(t_bytes, t_flops), (
+                "bytes" if t_bytes >= t_flops else "operations")
+            ev = K3_LAUNCHES[0]
+            print(f"    {label}: passes {pms:.4f} -> {ms:.4f} ms "
+                  f"(bits {'equal' if same else 'differ'}), plain "
+                  f"{plain_ms:.4f} ms, yardstick {yms:.4f} ms, K3 / yardstick "
+                  f"{pms / yms:.3f} -> {ms / yms:.3f}, bound {bound:.4f} ms by "
+                  f"{by}, launches {K3_LAUNCHES}, L x (t - b) "
+                  f"{ev * (pms - bound):.4f} -> {ev * (ms - bound):.4f} ms, "
+                  f"scratch {scratch / 2 ** 20:.2f} MiB", flush=True)
+            st = stats["freq_inter"]
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            if B == BATCH and case.dims[0] == K3_BANDS * B * 128 * 128:
+                st.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        torch.cuda.empty_cache()
+
+
+# F2: where the LeFF's hidden leaves the SM (K2's passes, K13, K4, K5) it
+# is kept in fp32 from fc1 through the conv, as JAX keeps it. The check's
+# inputs make a bf16 rounding of that hidden show: fc1's outputs sit near
+# 100 (bf16 spacing 0.5) and vary by less than 1, and the conv's taps
+# cancel (centre 1, the eight others -1/8), so its output, away from the
+# image's rim, is the small difference of large values. A twin that rounds
+# the hidden to bf16 after fc1, as the kernels did before, errs there by
+# about 0.2 against the plain twin; the kernels, by their own bf16 output
+# (about 0.004). F2_FACTOR = 4 leaves room for their summation order.
+F2_FACTOR = 4.0
+F2_FFN = ((16, 448, 1), (32, 448, 1), (8, 448, 3), (8, 896, 1), (16, 896, 1))
+F2_SPLIT = ((8, 896), (16, 896))
+F2_FREQ = ((32, 112, 4, 4), (8, 448, 16, 0))
+
+
+def ffn_rounded_hidden_plain(x_img, lns, lnb, w1, b1, wd, bd, w2, b2,
+                             eps=1e-6, dps=None):
+    """``block_ffn_plain`` with the hidden rounded to the model dtype after
+    fc1 + GELU: the rounding points of K2's passes, K13, K4 and K5 before
+    they kept it in fp32."""
+    import torch.nn.functional as F
+    dtype, Hd = x_img.dtype, w1.shape[1]
+    xf = x_img.float()
+    xn = F.layer_norm(xf, (xf.shape[-1],), lns.float(), lnb.float(), eps)
+    gelu = lambda t: F.gelu(t, approximate="tanh")
+    hdn = gelu(torch.matmul(xn.to(dtype), w1.to(dtype)).float() + b1.float())
+    hdn = hdn.to(dtype).float()
+    hdn = F.conv2d(hdn.permute(0, 3, 1, 2), wd.float().permute(2, 0, 1)[:, None],
+                   padding=1, groups=Hd)
+    hdn = gelu(hdn.permute(0, 2, 3, 1) + bd.float())
+    y = torch.matmul(hdn.to(dtype), w2.to(dtype)).float() + b2.float()
+    if dps is not None:
+        y = y * dps.float()[:, None, None, None]
+    return (xf + y).to(dtype)
+
+
+def f2_ffn_weights(C, rnd):
+    """LeFF weights under which a bf16 rounding of the hidden shows."""
+    Hd = 4 * C
+    wd = torch.full((3, 3, Hd), -0.125, device="cuda")
+    wd[1, 1] = 1.0
+    return [rnd(C, Hd, scale=0.02), torch.full((Hd,), 100.0, device="cuda"),
+            wd, torch.zeros(Hd, device="cuda"), rnd(Hd, C, scale=Hd ** -0.5),
+            rnd(C, scale=0.1)]
+
+
+def f2_check(lb, windows, card: str):
+    """Phase 3f: F2 at every stage of the kernels that keep the LeFF's
+    hidden in device memory (bf16, B = 4): K2's passes, K13, K4 at the
+    stages the default route merges, K5 at two encoder stages. Each is
+    held against its plain twin and against a twin that rounds the hidden
+    after fc1 (:func:`ffn_rounded_hidden_plain`) away from the image's
+    rim: the kernel must be F2_FACTOR times closer to the plain twin."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    dt, B, n = torch.bfloat16, SMALL_BATCH, 64
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    def attn(C, h):
+        d = C // h
+        return ([rnd(h, C, d, scale=C ** -0.5) if i % 2 == 0 else
+                 rnd(h, d, scale=0.1) for i in range(6)]
+                + [rnd(h, d, C, scale=C ** -0.5), rnd(C, scale=0.1)])
+
+    ln = lambda C: [torch.ones(C, device="cuda"), torch.zeros(C, device="cuda")]
+    rows = []   # (kernel, label, run, plain, faulty)
+    for res, C, bands in F2_FFN:
+        args = [rnd(bands * B, res, res, C, scale=0.5).to(dt), *ln(C),
+                *f2_ffn_weights(C, rnd), 1e-6, None]
+        rows.append(("lewin_ffn", f"block_ffn res{res} C{C} images{bands * B}",
+                     lb.block_ffn, lb.block_ffn_plain, args,
+                     ffn_rounded_hidden_plain))
+    for res, C in F2_SPLIT:
+        args = [rnd(B, res, res, C, scale=0.5).to(dt), *ln(C),
+                *f2_ffn_weights(C, rnd), 1e-6, None]
+        rows.append(("lewin_ffn_split", f"block_ffn_split res{res} C{C}",
+                     lb.block_ffn_split, lb.lewin_ffn_split_plain, args,
+                     ffn_rounded_hidden_plain))
+    heads = {C: h for _, C, h in DECODER_STAGES}
+    for res, C, *_ in DEFAULT_MERGED_STAGES:
+        h = heads[C]
+        mask = torch.from_numpy(windows.shift_attn_mask(res, res, 8, 4)).cuda()
+        args = ([rnd(B, res, res, C, scale=0.5).to(dt), *ln(C), *attn(C, h),
+                 rnd(h, n, n, scale=0.05), mask, rnd(B, h, scale=0.3), *ln(C),
+                 *f2_ffn_weights(C, rnd), 8, 4, 1e-6, None, None])
+        rows.append(("lewin_merged", f"block_merged res{res} C{C} shift4",
+                     lb.block_merged, lb.block_merged_plain, args,
+                     functools.partial(lb.merged_chain, lb.block_attention_plain,
+                                       ffn_rounded_hidden_plain)))
+    L = K3_BANDS
+    for res, C, h, shift in F2_FREQ:
+        mask = (torch.from_numpy(windows.shift_attn_mask(res, res, 8, shift))
+                .cuda() if shift else None)
+        args = ([rnd(L * B, res, res, C, scale=0.5).to(dt), *ln(C), *attn(C, h),
+                 rnd(L, h, n, n, scale=0.05), *attn(C, h),
+                 rnd(h, L * n, L * n, scale=0.05), mask, *ln(C),
+                 *f2_ffn_weights(C, rnd), L, 8, shift, 1e-6, None, None])
+        rows.append(("freq_merged", f"block_freq_merged res{res} C{C} shift{shift}",
+                     lb.block_freq_merged, lb.block_freq_merged_plain, args,
+                     functools.partial(lb.freq_merged_chain, lb.freq_intra_plain,
+                                       lb.freq_inter_plain,
+                                       ffn_rounded_hidden_plain)))
+    print(f"F2 check (bf16, B={B}): max |. - plain| away from the rim, the "
+          f"kernel's and the hidden-rounded twin's ({card}):", flush=True)
+    for kernel, label, run, plain, args, faulty in rows:
+        COUNTERS.reset()
+        got = run(*args)
+        torch.cuda.synchronize()
+        if COUNTERS.read()[kernel] != 1:
+            raise Failed(f"F2 {label}: {kernel} did not run")
+        want, bad = plain(*args).float(), faulty(*args).float()
+        if not torch.isfinite(got).all():
+            raise Failed(f"F2 {label}: non-finite kernel output")
+        inner = (slice(None), slice(1, -1), slice(1, -1))
+        e_k = (got.float() - want)[inner].abs().max().item()
+        e_f = (bad - want)[inner].abs().max().item()
+        ok = e_k * F2_FACTOR <= e_f
+        print(f"  F2 {kernel} {label}: kernel {e_k:.3e}, rounded twin "
+              f"{e_f:.3e}, ratio {e_f / max(e_k, 1e-30):.1f} (at least "
+              f"{F2_FACTOR:.0f}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise Failed(f"F2 {label}: the kernel is not {F2_FACTOR}x closer "
+                         f"to the plain twin than the hidden-rounded twin")
+
+
+def dcn_cases(dc, B, dtype=torch.bfloat16, stages=None):
+    """K11 at ``stages`` ((res, C) with Cout = C; default
+    :data:`DCN_STAGES`) on ``B`` images, exact (no clamp), offsets up to
+    +-3.5 pixels: a BwdCase each (``run`` the launch, ``plain``
+    ``dcn_plain``; ``dims`` (rows M, C, Cout)). Operations: the
+    contraction, 2 M 9C Cout; bytes: x, offsets, mask and weight read once,
+    the output written once."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = []
+    for res, C in stages or DCN_STAGES:
+        x = (torch.randn(B, res, res, C, generator=gen, device="cuda")
+             * 0.5).to(dtype)
+        off = (torch.rand(B, res, res, 18, generator=gen, device="cuda")
+               * 7 - 3.5).to(dtype)
+        mask = torch.rand(B, res, res, 9, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(3, 3, C, C, generator=gen, device="cuda")
+             * (9 * C) ** -0.5).to(dtype)
+        args = (x, off, mask, w, None, 1, 1, None)
+        M = B * res * res
+        out.append(BwdCase(
+            "dcn", f"dcn res{res} C{C} exact B{B}",
+            lambda a=args: dc.dcn_kernel(*a), lambda a=args: dc.dcn_plain(*a),
+            2.0 * M * 9 * C * C,
+            sum(t.numel() * t.element_size() for t in (x, off, mask, w))
+            + x.numel() * x.element_size(), (M, C, C)))
+    return out
+
+
 # K4 at the res-32 stages of the default route: the shifted blocks of the
 # way down, C = 224 (h = 4; the fused attention half), and of the up path,
 # C = 448 (h = 8; the attention phases)
@@ -2186,10 +2469,12 @@ def check_window_function(wa, windows, dtype):
 
 
 def check_dcn(dc, stats, card: str):
-    """K11 against ``dcn_plain`` at every deform_conv stage shape, bf16 at
-    B=32 and fp32 at B=4, exact and with offsets clamped to 2; offsets up
-    to +-3.5 pixels, past every edge of the image; then ``DCNFn``'s
-    gradients against autograd of the plain version at res 32."""
+    """K11 against ``dcn_plain`` at every deform_conv stage shape and DGRN's
+    (res 128, C = 64), bf16 at B=32 and fp32 at B=4, exact and with offsets
+    clamped to 2; offsets up to +-3.5 pixels, past every edge of the image;
+    each row with the device memory of its column matrix (none in bf16, the
+    implicit GEMM); then ``DCNFn``'s gradients against autograd of the
+    plain version at res 32."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     for dtype, B in ((torch.bfloat16, BATCH), (torch.float32, TRAIN_BATCH)):
         name_dt = str(dtype)[6:]
@@ -2207,8 +2492,19 @@ def check_dcn(dc, stats, card: str):
                 label = (f"dcn res{res} C{C} {'exact' if clamp is None else 'clamp 2'}"
                          f" {name_dt} B{B}")
                 run = lambda: dc.dcn_kernel(x, off, mask, w, None, 1, 1, clamp)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
                 got = run()
                 torch.cuda.synchronize()
+                # the device memory a launch takes beyond its output and the
+                # launcher's fp32 copies of the offsets and the mask (its
+                # weight operand; in fp32 the column matrix), against the
+                # bytes a column matrix [B res^2, kpad(9C)] takes in x's type
+                extra = (torch.cuda.max_memory_allocated() - base
+                         - got.numel() * got.element_size()
+                         - 4 * (off.numel() + mask.numel()))
+                cols = B * res * res * ((9 * C + 31) // 32 * 32) * x.element_size()
                 plain = lambda: dc.dcn_plain(x, off, mask, w, None, 1, 1, clamp)
                 err = compare(label, got, plain(), KERNEL_TOL[dtype])
                 del got
@@ -2221,8 +2517,12 @@ def check_dcn(dc, stats, card: str):
                 bound, by = max(t_bytes, t_flops), (
                     "bytes" if t_bytes >= t_flops else "operations")
                 print(f"    time: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-                      f"{bound:.4f} ms by {by} (no PyTorch call computes a DCN)",
-                      flush=True)
+                      f"{bound:.4f} ms by {by} (no PyTorch call computes a DCN)"
+                      f"; memory beyond the output {extra / 2 ** 20:.2f} MiB "
+                      f"(a column matrix {cols / 2 ** 20:.2f})", flush=True)
+                if dtype == torch.bfloat16 and extra >= cols:
+                    raise Failed(f"{label}: {extra} bytes beyond the output: "
+                                 "bf16 allocates no column matrix")
                 st = stats["dcn"]
                 st["max_abs_err"] = max(st["max_abs_err"], err)
                 if dtype == torch.bfloat16 and clamp is None and st["ms"] is None:
@@ -3029,6 +3329,8 @@ def main(argv=None) -> int:
             k2_table(lb, card)
             k1_table(lb, windows, card)
             k4_table(lb, windows, card)
+            k3_table(lb, windows, stats, card)
+            f2_check(lb, windows, card)
         if 4 in phases:
             marks.append((4, time.perf_counter()))
             full_forward(bundles, airnet, lb, uformer_lewin, frequency)

@@ -1,6 +1,8 @@
-// The depthwise 3x3 conv + bd + GELU pass of the LeFF (K2, and the merged
-// blocks K4 / K5), over the hidden rows after GELU(fc1): zero padding at the
-// image border.
+// The depthwise 3x3 conv + bd + GELU pass of the LeFF (K2, K13, and the
+// merged blocks K4 / K5), over the hidden rows after GELU(fc1): zero padding
+// at the image border. The hidden rows come in fp32 (JAX keeps them in fp32
+// from fc1 through the conv) and leave in the model dtype, fc2's operand,
+// rounded once.
 
 #pragma once
 
@@ -17,10 +19,10 @@ struct alignas(sizeof(T) * V) Vec {
   T v[V];
 };
 
-// the 16-byte form when the rows allow it
-template <typename T>
+// the 16-byte form of the input rows when they allow it
+template <typename TI>
 __host__ __device__ inline int dwconv_vec(int Hd) {
-  constexpr int V = 16 / sizeof(T);
+  constexpr int V = 16 / sizeof(TI);
   return Hd % V == 0 ? V : 1;
 }
 
@@ -34,17 +36,18 @@ __host__ __device__ inline long long dwconv_items(long long rows, int W, int ldo
   return rows * dwconv_segs(W) * (ldo / v);
 }
 
-// hid [B*H*W, Hd] -> out [B*H*W, ldo] (ldo = kpad(Hd), pad columns zero).
-// One item of work is V channels (one 16-byte access when Hd % V == 0) over
+// hid [B*H*W, Hd] (TI) -> out [B*H*W, ldo] (TO; ldo = kpad(Hd), pad columns
+// zero). One item of work is V channels (one 16-byte access of the input
+// when Hd % V == 0) over
 // a run of up to DW_SEG pixels of one image row: the thread keeps the 9 x V
 // taps and the 3 x 3 window of inputs in registers and walks the run, three
 // loads a pixel, issued a pixel ahead. Items are numbered channel vector
 // first, so neighbouring lanes read neighbouring channels of one pixel and
 // no lane idles whatever Hd is; a thread takes items first, first + stride,
 // ...
-template <typename T, int V>
-__device__ __forceinline__ void dwconv_gelu_items(const T* in, const float* wd,
-                                                  const float* bd, T* out,
+template <typename TI, typename TO, int V>
+__device__ __forceinline__ void dwconv_gelu_items(const TI* in, const float* wd,
+                                                  const float* bd, TO* out,
                                                   long long first,
                                                   long long stride,
                                                   long long rows, int H, int W,
@@ -61,12 +64,12 @@ __device__ __forceinline__ void dwconv_gelu_items(const T* in, const float* wd,
     const int x0 = sg * DW_SEG;
     const int x1 = min(W, x0 + DW_SEG);
     const int c0 = cv * V;
-    Vec<T, V> res;
+    Vec<TO, V> res;
     if (c0 >= Hd) {
 #pragma unroll
-      for (int i = 0; i < V; ++i) res.v[i] = from_f<T>(0.f);
+      for (int i = 0; i < V; ++i) res.v[i] = from_f<TO>(0.f);
       for (int x = x0; x < x1; ++x)
-        reinterpret_cast<Vec<T, V>*>(out + (row0 + x) * ldo)[cv] = res;
+        reinterpret_cast<Vec<TO, V>*>(out + (row0 + x) * ldo)[cv] = res;
       continue;
     }
     float w[9][V], b[V];
@@ -79,16 +82,16 @@ __device__ __forceinline__ void dwconv_gelu_items(const T* in, const float* wd,
     // the 3 x 3 window slides along the run: three columns of it in
     // registers, the column after next loaded a pixel ahead; a tap outside
     // the image adds nothing (the order of the sums is the taps' order)
-    auto column = [&](int xx, Vec<T, V>* col) {
+    auto column = [&](int xx, Vec<TI, V>* col) {
 #pragma unroll
       for (int dy = 0; dy < 3; ++dy) {
         const int yy = y + dy - 1;
         if (xx >= 0 && xx < W && yy >= 0 && yy < H)
-          col[dy] = *reinterpret_cast<const Vec<T, V>*>(
+          col[dy] = *reinterpret_cast<const Vec<TI, V>*>(
               in + (row0 + (long long)(dy - 1) * W + xx) * Hd + c0);
       }
     };
-    Vec<T, V> win[4][3];  // [column x - 1 + dx][dy]; [3]: the next one
+    Vec<TI, V> win[4][3];  // [column x - 1 + dx][dy]; [3]: the next one
     column(x0 - 1, win[0]);
     column(x0, win[1]);
     column(x0 + 1, win[2]);
@@ -111,8 +114,8 @@ __device__ __forceinline__ void dwconv_gelu_items(const T* in, const float* wd,
         }
       }
 #pragma unroll
-      for (int i = 0; i < V; ++i) res.v[i] = from_f<T>(gelu_tanh(acc[i] + b[i]));
-      reinterpret_cast<Vec<T, V>*>(out + (row0 + x) * ldo)[cv] = res;
+      for (int i = 0; i < V; ++i) res.v[i] = from_f<TO>(gelu_tanh(acc[i] + b[i]));
+      reinterpret_cast<Vec<TO, V>*>(out + (row0 + x) * ldo)[cv] = res;
 #pragma unroll
       for (int dy = 0; dy < 3; ++dy) {
         win[0][dy] = win[1][dy];
@@ -123,38 +126,41 @@ __device__ __forceinline__ void dwconv_gelu_items(const T* in, const float* wd,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ void dwconv_gelu_any(const T* in, const float* wd,
-                                                const float* bd, T* out,
+template <typename TI, typename TO>
+__device__ __forceinline__ void dwconv_gelu_any(const TI* in, const float* wd,
+                                                const float* bd, TO* out,
                                                 long long first,
                                                 long long stride,
                                                 long long rows, int H, int W,
                                                 int Hd, int ldo) {
-  constexpr int V = 16 / sizeof(T);
-  if (dwconv_vec<T>(Hd) == V)
-    dwconv_gelu_items<T, V>(in, wd, bd, out, first, stride, rows, H, W, Hd, ldo);
+  constexpr int V = 16 / sizeof(TI);
+  if (dwconv_vec<TI>(Hd) == V)
+    dwconv_gelu_items<TI, TO, V>(in, wd, bd, out, first, stride, rows, H, W,
+                                 Hd, ldo);
   else
-    dwconv_gelu_items<T, 1>(in, wd, bd, out, first, stride, rows, H, W, Hd, ldo);
+    dwconv_gelu_items<TI, TO, 1>(in, wd, bd, out, first, stride, rows, H, W,
+                                 Hd, ldo);
 }
 
-template <typename T>
+template <typename TI, typename TO>
 __global__ void __launch_bounds__(DW_NT, 3) dwconv_gelu_kernel(
-    const T* in, const float* wd, const float* bd, T* out, long long rows,
+    const TI* in, const float* wd, const float* bd, TO* out, long long rows,
     int H, int W, int Hd, int ldo) {
-  dwconv_gelu_any<T>(in, wd, bd, out,
-                     (long long)blockIdx.x * DW_NT + threadIdx.x,
-                     (long long)gridDim.x * DW_NT, rows, H, W, Hd, ldo);
+  dwconv_gelu_any<TI, TO>(in, wd, bd, out,
+                          (long long)blockIdx.x * DW_NT + threadIdx.x,
+                          (long long)gridDim.x * DW_NT, rows, H, W, Hd, ldo);
 }
 
+// the hidden rows in fp32, the conv's output in T
 template <typename T>
-inline void launch_dwconv(const void* in, const float* wd, const float* bd,
+inline void launch_dwconv(const float* in, const float* wd, const float* bd,
                           void* out, long long rows, int H, int W, int Hd,
                           cudaStream_t st) {
   const int ldo = kpad(Hd);
-  const long long items = dwconv_items(rows, W, ldo, dwconv_vec<T>(Hd));
-  dwconv_gelu_kernel<T><<<(unsigned)((items + DW_NT - 1) / DW_NT), DW_NT, 0, st>>>(
-      static_cast<const T*>(in), wd, bd, static_cast<T*>(out), rows, H, W, Hd,
-      ldo);
+  const long long items = dwconv_items(rows, W, ldo, dwconv_vec<float>(Hd));
+  dwconv_gelu_kernel<float, T>
+      <<<(unsigned)((items + DW_NT - 1) / DW_NT), DW_NT, 0, st>>>(
+          in, wd, bd, static_cast<T*>(out), rows, H, W, Hd, ldo);
 }
 
 }  // namespace fairm

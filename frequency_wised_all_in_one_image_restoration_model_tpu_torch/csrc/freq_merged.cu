@@ -33,7 +33,9 @@ extern "C" int fairm_freq_merged(
     int C, int h, int win, int shift, int L, int Hd, int is_bf16, float eps,
     void* stream) {
   if (L < 1 || LB % L ||
-      scratch_elems < (long long)LB * H * W * merged_scratch_cols(C, Hd, true, false))
+      scratch_elems < (long long)LB * H * W *
+                          merged_scratch_cols(C, Hd, true, false,
+                                              is_bf16 ? 2 : 4))
     return (int)cudaErrorInvalidValue;
   MergedArgs p{};
   p.x = x;

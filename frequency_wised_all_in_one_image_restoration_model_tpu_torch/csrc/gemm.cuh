@@ -13,8 +13,9 @@
 // Wt [N, lda] dense, lda = kpad(K) (a multiple of 32, rows 16-byte
 // aligned, zero pad). Epilogue in fp32: + bias[col], optional tanh-GELU,
 // x dps[image] (DropPath branch scale), + residual in C's layout, rounded to
-// the output type; the C rows are scattered through cmap (the window
-// reverse). bf16, wide products (gemm_wgmma_ok): TMA and wgmma
+// the output type (or, with c_f32, stored in fp32: the LeFF's hidden after
+// fc1, which JAX keeps in fp32 through the depthwise conv); the C rows are
+// scattered through cmap (the window reverse). bf16, wide products (gemm_wgmma_ok): TMA and wgmma
 // (gemm_wgmma.cuh); other bf16 products: a 3-stage cp.async pipeline into
 // padded shared-memory tiles, ldmatrix fragments and mma.sync m16n8k16 with
 // fp32 accumulation, warps of 64 x 32, the epilogue staged through shared
@@ -337,6 +338,7 @@ struct GemmArgs {
   int N;
   int act;             // 1: tanh-GELU after the bias
   int ktiles;          // GBK-wide k-tiles to contract from A, Wt (0: lda / GBK)
+  int c_f32;           // 1: C is fp32 whatever the operands' type (no res)
 };
 
 // one element of C at physical row pc
@@ -396,6 +398,26 @@ __device__ __forceinline__ void gemm_store4(const GemmArgs& a, long long pc,
 #pragma unroll
   for (int i = 0; i < 4; ++i) o.v[i] = from_f<T>(x[i]);
   *reinterpret_cast<Vec4<T>*>(static_cast<T*>(a.C) + off) = o;
+}
+
+// C's four-column stores may be one access: N % 4 == 0, C and res aligned
+template <typename TC>
+__device__ __forceinline__ bool gemm_vec(const GemmArgs& a) {
+  return a.N % 4 == 0 &&
+         (reinterpret_cast<uintptr_t>(a.C) | reinterpret_cast<uintptr_t>(a.res)) %
+                 (4 * sizeof(TC)) == 0;
+}
+
+// four adjacent columns of C in C's type: TC, or fp32 where a.c_f32
+template <typename TC>
+__device__ __forceinline__ void gemm_store4_any(const GemmArgs& a, long long pc,
+                                                float scale, int col,
+                                                const float4& acc, bool vec,
+                                                bool vec32) {
+  if (a.c_f32)
+    gemm_store4<float>(a, pc, scale, col, acc, vec32);
+  else
+    gemm_store4<TC>(a, pc, scale, col, acc, vec);
 }
 
 template <int BM>
@@ -571,10 +593,7 @@ __device__ __forceinline__ void gemm_mma_tile(const GemmArgs& a, long long bx,
                     sizeof(bf16_t) * MMA_STAGES * (MMA_BM + BN) * MMA_LDS,
                 "the C tile must fit the operand stages");
   float* Cs = reinterpret_cast<float*>(smem_raw);
-  const bool vec =
-      a.N % 4 == 0 &&
-      (reinterpret_cast<uintptr_t>(a.C) | reinterpret_cast<uintptr_t>(a.res)) %
-              (4 * sizeof(TC)) == 0;
+  const bool vec = gemm_vec<TC>(a), vec32 = gemm_vec<float>(a);
   const int g = lane >> 2, t4 = lane & 3;
   const int rbase = (wm * 64) % RP;
 #pragma unroll
@@ -597,9 +616,9 @@ __device__ __forceinline__ void gemm_mma_tile(const GemmArgs& a, long long bx,
       const int row = pass * RP + lr, col = n0 + cv * 4;
       const long long pc = s_crow[row];
       if (pc < 0 || col >= a.N) continue;
-      gemm_store4<TC>(a, pc, s_scale[row], col,
-                          *reinterpret_cast<const float4*>(Cs + lr * LDC + cv * 4),
-                          vec);
+      gemm_store4_any<TC>(
+          a, pc, s_scale[row], col,
+          *reinterpret_cast<const float4*>(Cs + lr * LDC + cv * 4), vec, vec32);
     }
   }
   __syncthreads();

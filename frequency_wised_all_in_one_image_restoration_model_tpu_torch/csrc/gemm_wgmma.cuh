@@ -2,8 +2,9 @@
 // shared-memory stages, wgmma (m64nNk16, bf16 operands, fp32 accumulators)
 // reading both operands from shared memory in the 128-byte swizzle, and
 // gemm.cuh's epilogue contract (GemmArgs: bias, tanh-GELU, dps, residual,
-// the RowMap scatter of C's rows). Part of gemm.cuh, which includes it
-// after GemmArgs and the epilogue pieces, before launch_gemm.
+// the RowMap scatter of C's rows, C in bf16 or, with c_f32, in fp32). Part
+// of gemm.cuh, which includes it after GemmArgs and the epilogue pieces,
+// before launch_gemm.
 //
 // A k-tile is BK = 64 columns, one 128-byte row of the swizzle. The host
 // encodes a tensor map for A [M, lda] and one for Wt [N, lda]
@@ -241,18 +242,15 @@ __device__ __forceinline__ void wgmma_epilogue(const GemmArgs& a, const float* C
                                                int ldc, const long long* s_crow,
                                                const float* s_scale, int n0,
                                                int tid, int nt) {
-  const bool vec =
-      a.N % 4 == 0 &&
-      (reinterpret_cast<uintptr_t>(a.C) | reinterpret_cast<uintptr_t>(a.res)) %
-              (4 * sizeof(bf16_t)) == 0;
+  const bool vec = gemm_vec<bf16_t>(a), vec32 = gemm_vec<float>(a);
   for (int idx = tid; idx < WG_BM * (BN / 4); idx += nt) {
     const int row = idx / (BN / 4), cv = idx % (BN / 4);
     const int col = n0 + cv * 4;
     const long long pc = s_crow[row];
     if (pc < 0 || col >= a.N) continue;
-    gemm_store4<bf16_t>(a, pc, s_scale[row], col,
-                        *reinterpret_cast<const float4*>(Cs + row * ldc + cv * 4),
-                        vec);
+    gemm_store4_any<bf16_t>(
+        a, pc, s_scale[row], col,
+        *reinterpret_cast<const float4*>(Cs + row * ldc + cv * 4), vec, vec32);
   }
 }
 

@@ -40,7 +40,9 @@
 // Other widths and fp32 keep four passes (at C = 448 this kernel, one CTA
 // an SM, took 1.5-4x their time on an H100, PERF.md section 6): LN2 into a
 // dense padded matrix, fc1 with b1 + GELU as the GEMM's epilogue into
-// [M, 4C], the depthwise conv + bd + GELU pass, fc2 with b2, dps and the
+// [M, 4C] in fp32 (the fused kernel's and JAX's rounding points: the
+// hidden is rounded once, after the conv), the depthwise conv + bd + GELU
+// pass into fc2's operand in the model dtype, fc2 with b2, dps and the
 // residual as its epilogue (both products on gemm.cuh's GEMM).
 
 #include "dwconv.cuh"
@@ -381,10 +383,12 @@ cudaError_t lewin_ffn(const void* x, const float* lns, const float* lnb,
   g1.M = M;
   g1.N = Hd;
   g1.act = 1;
+  g1.c_f32 = 1;  // the hidden stays fp32 until the conv's GELU, as in JAX
   cudaError_t err = launch_gemm<T>(g1, st);
   if (err != cudaSuccess) return err;
 
-  launch_dwconv<T>(hid1, wd, bd, hid2, (long long)B * H, H, W, Hd, st);
+  launch_dwconv<T>(static_cast<const float*>(hid1), wd, bd, hid2,
+                   (long long)B * H, H, W, Hd, st);
 
   GemmArgs g2{};
   g2.A = hid2;

@@ -14,8 +14,8 @@
 // What bounds it on the H100: at the deep stages the two products (2 M C
 // Hd operations each) on the CUDA cores in fp32; with few rows (M = 64 B at
 // res 8) linear2 has few output tiles over a long reduction (Hd = 3584).
-// What the design does about it: LN2, linear1 + b1 + GELU and the depthwise
-// conv + bd + GELU are K2's passes (gemm.cuh, dwconv.cuh); linear2 runs as
+// What the design does about it: LN2, linear1 + b1 + GELU (into fp32) and
+// the depthwise conv + bd + GELU are K2's passes (gemm.cuh, dwconv.cuh); linear2 runs as
 // kb parts, grid (row tiles, column tiles, kb), each over its hidden block's
 // k-tiles into an fp32 partial [M, C] (split.cuh), kb times K2's CTAs; a
 // fixed-order pass adds the parts, b2, dps and the residual (no atomics: a
@@ -58,10 +58,12 @@ static cudaError_t lewin_ffn_split(const void* x, const float* lns,
   g1.M = M;
   g1.N = Hd;
   g1.act = 1;
+  g1.c_f32 = 1;  // the hidden stays fp32 until the conv's GELU, as in JAX
   cudaError_t err = launch_gemm<T>(g1, st);
   if (err != cudaSuccess) return err;
 
-  launch_dwconv<T>(hid1, wd, bd, hid2, (long long)B * H, H, W, Hd, st);
+  launch_dwconv<T>(static_cast<const float*>(hid1), wd, bd, hid2,
+                   (long long)B * H, H, W, Hd, st);
 
   // linear2, one fp32 partial per hidden block
   err = launch_splitk<T>(hid2, w2t, kpad(Hd), M, C, kb, parts, st);

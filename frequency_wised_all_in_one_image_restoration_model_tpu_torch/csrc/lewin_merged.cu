@@ -34,7 +34,8 @@ extern "C" int fairm_lewin_merged(
     int C, int h, int win, int shift, int Hd, int is_bf16, int fused, float eps,
     void* stream) {
   if (scratch_elems <
-      (long long)B * H * W * merged_scratch_cols(C, Hd, false, fused))
+      (long long)B * H * W * merged_scratch_cols(C, Hd, false, fused,
+                                                is_bf16 ? 2 : 4))
     return (int)cudaErrorInvalidValue;
   MergedArgs p{};
   p.x = x;

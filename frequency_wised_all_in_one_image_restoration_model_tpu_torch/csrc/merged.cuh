@@ -99,12 +99,14 @@ struct MergedArgs {
   CUtensorMap t_wqkv, t_wp, t_w1, t_w2;
 };
 
-// the scratch buffer: xo [M, kpad(C)], qkv [M, 3C], y1 [M, C] (K5 only),
-// u [M, C], hid1 [M, Hd], hid2 [M, kpad(Hd)]; with the fused attention half
-// u, hid1 and hid2 only
+// the scratch buffer, in elements of the model dtype (tsize bytes): xo
+// [M, kpad(C)], qkv [M, 3C], y1 [M, C] (K5 only), u [M, C], hid1 [M, Hd]
+// in fp32 (the LeFF's hidden, JAX's rounding points: rounded once, after the
+// conv), hid2 [M, kpad(Hd)]; with the fused attention half u, hid1 and hid2
+// only
 __host__ __device__ inline long long merged_scratch_cols(int C, int Hd, bool freq,
-                                                         bool fused) {
-  const long long ffn = (long long)C + Hd + kpad(Hd);
+                                                         bool fused, int tsize) {
+  const long long ffn = (long long)C + Hd * (4 / tsize) + kpad(Hd);
   return fused ? ffn : (long long)kpad(C) + 3 * C + (freq ? C : 0) + ffn;
 }
 
@@ -128,7 +130,7 @@ __device__ __forceinline__ void gemm_phase(const void* A, const void* Wt, int K,
                                            int N, int act, unsigned char* smem,
                                            const CUtensorMap* ta,
                                            const CUtensorMap* tb,
-                                           WgPipe& pipe) {
+                                           WgPipe& pipe, int c_f32 = 0) {
   GemmArgs a{};
   a.A = A;
   a.Wt = Wt;
@@ -142,6 +144,7 @@ __device__ __forceinline__ void gemm_phase(const void* A, const void* Wt, int K,
   a.M = M;
   a.N = N;
   a.act = act;
+  a.c_f32 = c_f32;
   const long long tm = (M + 127) / 128;
   const int tn = (N + 63) / 64;
   for (long long t = blockIdx.x; t < tm * tn; t += gridDim.x) {
@@ -224,8 +227,8 @@ __global__ void __launch_bounds__(MNT, merged_min_blocks<T, FUSED>())
   T* qkv = xo + (FUSED ? 0 : M * kpad(C));
   T* y1 = qkv + (FUSED ? 0 : M * 3 * C);
   T* u = y1 + (FREQ ? M * C : 0);
-  T* hid1 = u + M * C;
-  T* hid2 = hid1 + M * Hd;
+  float* hid1 = reinterpret_cast<float*>(u + M * C);
+  T* hid2 = reinterpret_cast<T*>(hid1 + M * Hd);
   T* rows2 = FUSED ? hid2 : xo;  // LN2's rows
 
   const RowMap rolled{1, p.H, p.W, p.win, p.B, 1, p.shift};
@@ -317,9 +320,10 @@ __global__ void __launch_bounds__(MNT, merged_min_blocks<T, FUSED>())
   prep_phase<T>(u, C, identity_map(), M, p.ln2s, p.ln2b, p.eps, rows2);
   end_phase(grid, p, phase++);
   gemm_phase<T, WG>(rows2, p.w1, C, p.b1, nullptr, hw, nullptr, hid1,
-                    identity_map(), M, Hd, 1, smem, &p.t_rows, &p.t_w1, pipe);
+                    identity_map(), M, Hd, 1, smem, &p.t_rows, &p.t_w1, pipe,
+                    1);
   end_phase(grid, p, phase++);
-  dwconv_gelu_any<T>(hid1, p.wd, p.bd, hid2,
+  dwconv_gelu_any<float, T>(hid1, p.wd, p.bd, hid2,
                      (long long)blockIdx.x * MNT + threadIdx.x,
                      (long long)gridDim.x * MNT, (long long)p.B * p.H, p.H,
                      p.W, Hd, kpad(Hd));
@@ -361,8 +365,8 @@ inline cudaError_t merged_tensor_maps(MergedArgs& p) {
   const long long M = (long long)p.B * p.H * p.W;
   const int C = p.C, Hd = p.Hd, kc = kpad(C), kh = kpad(Hd);
   const bf16_t* xo = static_cast<const bf16_t*>(p.scratch);
-  const bf16_t* hid2 = xo + M * merged_scratch_cols(C, Hd, false, p.fused) -
-                       M * kh;
+  const bf16_t* hid2 =
+      xo + M * merged_scratch_cols(C, Hd, false, p.fused, 2) - M * kh;
   cudaError_t err;
   if ((err = tensor_map(&p.t_rows, p.fused ? hid2 : xo, M, kc, kc, WG_BM)) ||
       (err = tensor_map(&p.t_hid, hid2, M, kh, kh, WG_BM)) ||

@@ -315,6 +315,16 @@ class FrequencyWindowAttention(KernelParams):
         wp3 = self.proj.weight.t().reshape(h, c // h, c)
         return (*self.qkv.per_head(h), wp3, self.proj.bias, bias)
 
+    def make_operands(self, *weights):
+        """The kernels' operands; an 'inter' holder's also carry its per-pair
+        tables, which the fused K3 reads in place of the grouped bias."""
+        op = lewin_block.attn_operands(*weights)
+        return op._replace(pairs=self.pairs()) if self.kind == "inter" else op
+
+    def pairs(self):
+        """The per-pair tables ``[L*L, (2 win - 1)^2, h]`` fp32, detached."""
+        return self.relative_position_bias_tables.detach().float().contiguous()
+
     def _per_pair(self):
         h, L = self.num_heads, self.L
         idx = self.relative_position_index

@@ -380,7 +380,7 @@ class LeWinBlock(nn.Module):
             rolled = lb.roll(img, shift)
             y1 = lb.FreqIntra.apply(rolled, *n1, *intra, mask, L, win, 1e-6)
             y = lb.FreqInter.apply(y1, rolled, *inter, mask, L, win, 1e-6,
-                                   dps1)
+                                   dps1, self.attn_inter.pairs())
         else:
             lam = None
             if self.attn.all_bands_dc:

@@ -19,7 +19,9 @@ sigmoided modulation scalar of the tap, enters a contraction over
 * :func:`dcn` launches K11 on a CUDA tensor: a gather DCNv2 with the exact
   semantics, not the TPU's gather-free shift decomposition, which was a
   workaround for Mosaic's gather limits (``dcn.py:5-10``) and costs about
-  six times the arithmetic.
+  six times the arithmetic. In bf16 it is one implicit GEMM that builds
+  the modulated columns on the SM; in fp32 a column pass into device
+  memory and a GEMM.
 * :class:`DCNFn` is the autograd Function: forward K11, backward
   :func:`dcn_bwd`: :func:`dcn_bwd_plain` on a CPU tensor, K14
   (``csrc/dcn_bwd.cu``) on a CUDA tensor. The JAX package's backward is
@@ -163,9 +165,12 @@ def dcn_kernel(x, offset, mask, weight, bias=None, padding: int = 1,
     with torch.no_grad():  # the GEMM operand [Cout, kpad(K * Cin)]
         wt = _nk(weight.reshape(k * cin, cout).t(), dt)
     bias = _f32(bias, (cout,))
-    kp = wt.shape[1]
-    # the modulated columns, staged through device memory for the GEMM
-    cols = torch.empty((b * ho * wo, kp), dtype=dt, device=x.device)
+    # fp32 stages the modulated columns through device memory for its GEMM;
+    # bf16 builds them on the SM (an implicit GEMM), no column matrix
+    cols = None
+    if dt == torch.float32:
+        cols = torch.empty((b * ho * wo, wt.shape[1]), dtype=dt,
+                           device=x.device)
     out = torch.empty((b, ho, wo, cout), dtype=dt, device=x.device)
     _run(load().fairm_dcn, _ptr(x), _ptr(off), _ptr(msk), _ptr(wt),
          _ptr(bias), _ptr(cols), _ptr(out), b, h, w, cin, ho, wo, cout, kh,

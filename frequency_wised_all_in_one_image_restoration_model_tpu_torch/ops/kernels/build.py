@@ -40,9 +40,11 @@ SIGNATURES = {
     # x, lns, lnb, wqkv, bqkv, wp, bp, bias, mask, lam, dps, xo, qkv, out,
     # B, H, W, C, h, win, groups, res, bf16, fused, eps, stream
     "fairm_lewin_attn": [_P] * 14 + [_I] * 10 + [_F, _P],
-    # y, res, wqkv, bqkv, wp, bp, bias, mask, dps, zo, qkv, out,
-    # LB, H, W, C, h, win, L, bf16, stream
-    "fairm_freq_inter": [_P] * 12 + [_I] * 8 + [_P],
+    # y, res, wqkv, bqkv, wp, bp, bias, pairs, mask, dps, zo, qkv, out,
+    # LB, H, W, C, h, win, L, bf16, fused, stream
+    "fairm_freq_inter": [_P] * 13 + [_I] * 9 + [_P],
+    # C, h, win, L: 1 if the fused form of fairm_freq_inter takes the shape
+    "fairm_freq_inter_fused_ok": [_I] * 4,
     # x, lns, lnb, w1t, b1, wd, bd, w2t, b2, dps, xn, hid1, hid2, out,
     # B, H, W, C, Hd, bf16, eps, stream
     "fairm_lewin_ffn": [_P] * 14 + [_I] * 6 + [_F, _P],

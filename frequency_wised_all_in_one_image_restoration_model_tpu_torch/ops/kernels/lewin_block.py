@@ -208,6 +208,28 @@ def freq_inter_plain(y_img, res_img, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp,
     return (res_img.float() + y).to(dtype)
 
 
+def inter_bias(pairs, L: int, win: int = 8):
+    """The grouped bias ``[h, L*n, L*n]`` of the cross-band attention, formed
+    from the per-pair relative-position tables ``pairs [L*L, (2 win - 1)^2,
+    h]`` as the fused K3 forms it on the SM: entry ``(hh, l n + i, m n + j)``
+    is ``pairs[l L + m, r(i, j), hh]`` plus the 'inter' band mask (-100
+    where ``l == m``, else 0), one fp32 add, with ``r(i, j) = (y_i - y_j +
+    win - 1) (2 win - 1) + x_i - x_j + win - 1`` for token ``t = y win +
+    x`` (``ops/windows.py::relative_position_index``)."""
+    n = win * win
+    h = pairs.shape[-1]
+    t = torch.arange(n, device=pairs.device)
+    y, x = t // win, t % win
+    r = ((y[:, None] - y[None, :] + win - 1) * (2 * win - 1)
+         + x[:, None] - x[None, :] + win - 1)
+    g = (pairs.float()[:, r.reshape(-1)].reshape(L, L, n, n, h)
+         .permute(4, 0, 2, 1, 3).reshape(h, L * n, L * n))
+    same = torch.eye(L, dtype=torch.bool, device=pairs.device)
+    band = torch.where(same, -100.0, 0.0).repeat_interleave(n, 0) \
+        .repeat_interleave(n, 1)
+    return g + band
+
+
 def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
@@ -319,6 +341,7 @@ def block_freq_merged_plain(*args, **kwargs):
 # ---------------------------------------------------------------------------
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SIZES = {torch.float32: 4, torch.bfloat16: 2}
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -364,12 +387,16 @@ class AttnOperands(NamedTuple):
     wp: torch.Tensor     # [C, kpad(C)] compute dtype
     bp: torch.Tensor     # [C] fp32
     bias: torch.Tensor   # fp32 [h, n, n], [L, h, n, n] or [h, L*n, L*n]
+    # K3: the per-pair tables [L*L, (2 win - 1)^2, h] fp32 that ``bias`` was
+    # made from (:func:`inter_bias`), which the fused K3 reads instead of it
+    pairs: Optional[torch.Tensor] = None
 
 
 def attn_operands(wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp, bias,
-                  dtype) -> AttnOperands:
+                  dtype, pairs=None) -> AttnOperands:
     """Per-head weights (``wq3 [h, C, d]``, ``wp3 [h, d, C]``) -> the N x K
-    operands of the qkv and proj GEMMs, the scale d^-0.5 folded into q."""
+    operands of the qkv and proj GEMMs, the scale d^-0.5 folded into q;
+    ``pairs``, K3's per-pair tables, as they are (fp32)."""
     h, C, d = wq3.shape
     scale = d ** -0.5
     to_nk = lambda w3: w3.permute(0, 2, 1).reshape(h * d, C)
@@ -378,7 +405,8 @@ def attn_operands(wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp, bias,
                       bv3.reshape(-1)])
     return AttnOperands(h, _nk(wqkv, dtype), bqkv.float().contiguous(),
                         _nk(wp3.reshape(C, C).t(), dtype),
-                        bp.float().contiguous(), bias.float().contiguous())
+                        bp.float().contiguous(), bias.float().contiguous(),
+                        None if pairs is None else pairs.float().contiguous())
 
 
 class FfnOperands(NamedTuple):
@@ -481,9 +509,37 @@ def attention_kernel(x_img, lns, lnb, op: AttnOperands, mask, lam, win: int,
     return out
 
 
+# The fused K3's least launch in 192-token groups, by kpad(C), where it
+# does not take every launch: at C = 112 a launch of 64 groups (B = 4 at
+# res 32) ran slower fused than in passes on an H100, one of 512 faster
+# (chip_smoke.py phase 3's K3 table, PERF.md section 6)
+FREQ_INTER_MIN_GROUPS = {128: 256}
+
+
+def freq_inter_path(C: int, heads: int, win: int, dtype, L: int = 3,
+                    groups: Optional[int] = None) -> str:
+    """How K3 runs a block of width ``C`` on ``groups`` 192-token groups
+    (None: any): ``'fused'``, one launch with each group's rows on the SM
+    (``csrc/freq_inter.cu``: bf16, L = 3 bands of 8 x 8 windows, C a
+    multiple of 4 and of the heads, head dims <= 32, kpad(C) <= 128: the
+    encoder's res 128 / 64 / 32 stages, at res 32 from
+    FREQ_INTER_MIN_GROUPS groups), else ``'passes'`` (the band regroup, the
+    qkv product, the attention core, the projection with the scatter
+    back)."""
+    d = C // heads if heads > 0 and C % heads == 0 else 0
+    if not (dtype == torch.bfloat16 and win == 8 and L == 3 and C % 4 == 0
+            and kpad(C) <= 128 and 0 < d <= 32):
+        return "passes"
+    least = FREQ_INTER_MIN_GROUPS.get(kpad(C), 0)
+    return "fused" if groups is None or groups >= least else "passes"
+
+
 def freq_inter_kernel(y_img, res_img, op: AttnOperands, mask, L: int,
-                      win: int, dps):
-    """Launch K3 (:func:`freq_inter`) on CUDA tensors with prepared operands."""
+                      win: int, dps, path: Optional[str] = None):
+    """Launch K3 (:func:`freq_inter`) on CUDA tensors with prepared
+    operands, by :func:`freq_inter_path` (``path`` names the form instead:
+    the two are compared by ``chip_smoke.py``). The fused form reads the
+    per-pair tables ``op.pairs``: operands without them run the passes."""
     from .build import load
 
     LB, H, W, C = y_img.shape
@@ -497,16 +553,29 @@ def freq_inter_kernel(y_img, res_img, op: AttnOperands, mask, L: int,
     if H % win or W % win or C % h or LB % L:
         raise ValueError(f"unsupported shape {tuple(y_img.shape)}, h={h}, L={L}")
     _check_attn_operands(op, y_img, (h, L * n, L * n))
+    if op.pairs is not None:
+        _operand(op.pairs, (L * L, (2 * win - 1) ** 2, h), torch.float32,
+                 y_img)
     mask = _f32(mask, (nW, n, n))
     dps = _f32(dps, (LB,))
     dt = y_img.dtype
-    zo = torch.empty((LB * H * W, kpad(C)), dtype=dt, device=y_img.device)
-    qkv = torch.empty((LB * H * W, 3 * C), dtype=dt, device=y_img.device)
+    groups = LB // L * nW
+    if path == "fused" and op.pairs is None:
+        raise ValueError("the fused K3 reads the per-pair tables: op.pairs")
+    fused = op.pairs is not None and (
+        path or freq_inter_path(C, h, win, dt, L, groups)) == "fused"
+    zo = qkv = None
+    if not fused:
+        # the passes' buffers: the regrouped rows, then the attention rows;
+        # the qkv rows
+        zo = torch.empty((LB * H * W, kpad(C)), dtype=dt, device=y_img.device)
+        qkv = torch.empty((LB * H * W, 3 * C), dtype=dt, device=y_img.device)
     out = torch.empty_like(y_img)
     _run(load().fairm_freq_inter, _ptr(y_img), _ptr(res_img), _ptr(op.wqkv),
-         _ptr(op.bqkv), _ptr(op.wp), _ptr(op.bp), _ptr(op.bias), _ptr(mask),
-         _ptr(dps), _ptr(zo), _ptr(qkv), _ptr(out), LB, H, W, C, h, win, L,
-         _DTYPES[dt], _stream(y_img))
+         _ptr(op.bqkv), _ptr(op.wp), _ptr(op.bp), _ptr(op.bias),
+         _ptr(op.pairs), _ptr(mask), _ptr(dps), _ptr(zo), _ptr(qkv),
+         _ptr(out), LB, H, W, C, h, win, L, _DTYPES[dt], int(fused),
+         _stream(y_img))
     LAUNCHES["freq_inter"] += 1
     return out
 
@@ -538,10 +607,11 @@ def ffn_kernel(x_img, lns, lnb, op: FfnOperands, eps: float, dps):
     lib = load()
     xn = hid1 = hid2 = None
     if not lib.fairm_lewin_ffn_fused(C, _DTYPES[dt]):
-        # the four passes' LN2 rows and hidden tensors (the fused kernel
-        # keeps its hidden rows on the SM)
+        # the four passes' LN2 rows and hidden tensors: fc1's output in fp32,
+        # the conv's in the model dtype (the fused kernel keeps its hidden
+        # rows on the SM)
         xn = torch.empty((M, kpad(C)), dtype=dt, device=x_img.device)
-        hid1 = torch.empty((M, Hd), dtype=dt, device=x_img.device)
+        hid1 = torch.empty((M, Hd), dtype=torch.float32, device=x_img.device)
         hid2 = torch.empty((M, kpad(Hd)), dtype=dt, device=x_img.device)
     out = torch.empty_like(x_img)
     _run(lib.fairm_lewin_ffn, _ptr(x_img), _ptr(lns), _ptr(lnb),
@@ -625,7 +695,8 @@ def ffn_split_kernel(x_img, lns, lnb, op: FfnOperands, eps: float, dps,
     dps = _f32(dps, (B,))
     dt = x_img.dtype
     xn = torch.empty((M, kpad(C)), dtype=dt, device=x_img.device)
-    hid1 = torch.empty((M, Hd), dtype=dt, device=x_img.device)
+    # fc1's output in fp32, the conv's in the model dtype
+    hid1 = torch.empty((M, Hd), dtype=torch.float32, device=x_img.device)
     hid2 = torch.empty((M, kpad(Hd)), dtype=dt, device=x_img.device)
     parts = torch.empty((kb, M, C), dtype=torch.float32, device=x_img.device)
     out = torch.empty_like(x_img)
@@ -638,18 +709,21 @@ def ffn_split_kernel(x_img, lns, lnb, op: FfnOperands, eps: float, dps,
     return out
 
 
-def _merged_scratch_cols(C: int, Hd: int, freq: bool, fused: bool) -> int:
-    """Columns per pixel of the merged kernels' working buffer
-    (csrc/merged.cuh): the LN'd / attention rows and qkv (not with the fused
-    attention half), the intra output (K5), u and both hidden rows."""
-    ffn = C + Hd + kpad(Hd)
+def _merged_scratch_cols(C: int, Hd: int, freq: bool, fused: bool,
+                         dtype) -> int:
+    """Columns per pixel, in elements of ``dtype``, of the merged kernels'
+    working buffer (csrc/merged.cuh): the LN'd / attention rows and qkv (not
+    with the fused attention half), the intra output (K5), u, the hidden
+    after fc1 in fp32 and the conv's output."""
+    ffn = C + Hd * 4 // _SIZES[dtype] + kpad(Hd)
     return ffn if fused else kpad(C) + 3 * C + (C if freq else 0) + ffn
 
 
 def _merged_scratch(x_img, Hd: int, freq: bool, fused: bool) -> torch.Tensor:
     B, H, W, C = x_img.shape
-    return torch.empty(B * H * W * _merged_scratch_cols(C, Hd, freq, fused),
-                       dtype=x_img.dtype, device=x_img.device)
+    cols = _merged_scratch_cols(C, Hd, freq, fused, x_img.dtype)
+    return torch.empty(B * H * W * cols, dtype=x_img.dtype,
+                       device=x_img.device)
 
 
 # the merged kernels' phases, in order: slot i + 1 of a ``stamps`` tensor
@@ -816,17 +890,24 @@ def freq_intra(x_img, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp, biasA,
 
 
 def freq_inter(y_img, res_img, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp, biasB,
-               mask, L: int = 1, win: int = 8, eps: float = 1e-6, dps=None):
+               mask, L: int = 1, win: int = 8, eps: float = 1e-6, dps=None,
+               pairs=None):
     """``res + dps * proj(grouped_attn(y))``: attention over each window's
     ``L*n`` band-grouped tokens with ``biasB [h, L*n, L*n]`` (the L x L
     bias tables with the 'inter' band mask folded in) and the SW-MSA mask
     tiled (L, L). ``dps [L*B]`` is indexed by the folded sample ``l*B + b``.
-    ``eps`` is unused (no LayerNorm), kept for the Pallas signature."""
+    ``eps`` is unused (no LayerNorm), kept for the Pallas signature.
+    ``pairs``: the per-pair tables ``biasB`` was made from
+    (:func:`inter_bias`), or None; the fused K3 reads them in place of
+    ``biasB`` (bit for bit the same bias) and runs only where they are
+    given."""
     if y_img.device.type == "cpu":
         return freq_inter_plain(y_img, res_img, wq3, bq3, wk3, bk3, wv3, bv3,
                                 wp3, bp, biasB, mask, L, win, eps, dps)
+    _check(y_img, pairs)
     op = _kernel_operands(y_img, attn_operands, wq3, bq3, wk3, bk3, wv3, bv3,
-                          wp3, bp, biasB)
+                          wp3, bp, biasB)._replace(
+        pairs=None if pairs is None else pairs.float().contiguous())
     return freq_inter_kernel(y_img, res_img, op, mask, L, win, dps)
 
 
@@ -1478,19 +1559,22 @@ class FreqInter(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, y_img, res_img, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp,
-                biasB, mask, L, win, eps, dps):
+                biasB, mask, L, win, eps, dps, pairs=None):
         ctx.save_for_backward(y_img, res_img, wq3, bq3, wk3, bk3, wv3, bv3,
                               wp3, bp, biasB, mask, dps)
         ctx.L, ctx.win = L, win
         return freq_inter(y_img, res_img, wq3, bq3, wk3, bk3, wv3, bv3, wp3,
-                          bp, biasB, mask, L, win, eps, dps)
+                          bp, biasB, mask, L, win, eps, dps,
+                          None if pairs is None else pairs.detach())
 
     @staticmethod
     def backward(ctx, g):
         y_img, res_img, *qkvp, biasB, mask, dps = ctx.saved_tensors
         grads = _inter_vjp(y_img, res_img, g, qkvp, biasB, mask, ctx.L,
                            ctx.win, dps)
-        return (*grads, None, None, None, None, None)
+        # biasB's gradient reaches the per-pair tables through the autograd
+        # of its assembly; ``pairs`` only spares the forward reading biasB
+        return (*grads, None, None, None, None, None, None)
 
 
 class BlockFFN(torch.autograd.Function):

@@ -308,6 +308,61 @@ def test_k1_path_chooser(dim, heads, win, dtype, want):
     assert phases[-4:] == tlb.MERGED_PHASES[-4:]
 
 
+@pytest.mark.parametrize("dim,heads,win,L,dtype,groups,want", [
+    (28, 1, 8, 3, torch.bfloat16, 1024, "fused"),   # encoder res 128, B=4
+    (28, 1, 8, 3, torch.bfloat16, 1, "fused"),
+    (56, 2, 8, 3, torch.bfloat16, 256, "fused"),    # res 64, B=4
+    (112, 4, 8, 3, torch.bfloat16, 512, "fused"),   # res 32, B=32
+    (112, 4, 8, 3, torch.bfloat16, 256, "fused"),
+    (112, 4, 8, 3, torch.bfloat16, 64, "passes"),   # res 32, B=4
+    (112, 4, 8, 3, torch.bfloat16, None, "fused"),  # any launch
+    (16, 2, 8, 3, torch.bfloat16, 8, "fused"),
+    (224, 8, 8, 3, torch.bfloat16, 4096, "passes"),  # kpad(C) > 128: res 16
+    (448, 16, 8, 3, torch.bfloat16, 1024, "passes"),  # res 8
+    (28, 1, 8, 3, torch.float32, 1024, "passes"),   # fp32 keeps the passes
+    (28, 1, 8, 1, torch.bfloat16, 1024, "passes"),  # groups of 64 tokens
+    (28, 1, 4, 3, torch.bfloat16, 1024, "passes"),  # windows of 16 tokens
+    (56, 1, 8, 3, torch.bfloat16, 1024, "passes"),  # d = 56 > 32
+    (30, 1, 8, 3, torch.bfloat16, 1024, "passes"),  # C not a multiple of 4
+])
+def test_k3_path_chooser(dim, heads, win, L, dtype, groups, want):
+    """freq_inter_path: K3 fused on the SM in bf16 for L = 3 bands of 8 x 8
+    windows, head dims up to 32 and kpad(C) <= 128 (the encoder's res 128,
+    64 and 32 stages; at C = 112 from FREQ_INTER_MIN_GROUPS groups), the
+    four passes elsewhere."""
+    assert tlb.freq_inter_path(dim, heads, win, dtype, L, groups) == want
+
+
+def test_inter_bias_from_pairs_is_the_grouped_bias():
+    """The bias the fused K3 forms from the per-pair tables
+    (``inter_bias``: table at the pair's relative position + the band mask,
+    one fp32 add) equals, bit for bit, the port's assembled operand
+    (``FrequencyWindowAttention('inter')``) and the JAX
+    ``_FusedFreqAttnParams(kind='inter')`` bias, from one JAX init."""
+    import jax
+
+    from frequency_wised_all_in_one_image_restoration_model_tpu.models import (
+        uformer_blocks as jub)
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.models import (
+        uformer_blocks as tub)
+    params = jub._FusedFreqAttnParams(C, WIN, H, L, "inter")
+    variables = params.init(jax.random.PRNGKey(3))
+    want = np.asarray(params.apply(variables)[-1])
+    tables = np.array(
+        variables["params"]["relative_position_bias_tables"])
+    port = tub.FrequencyWindowAttention(C, WIN, H, L, "inter")
+    with torch.no_grad():
+        port.relative_position_bias_tables.copy_(torch.from_numpy(tables))
+    assembled = port.kernel_weights()[-1]
+    formed = tlb.inter_bias(torch.from_numpy(tables), L, WIN)
+    assert formed.dtype == torch.float32 and formed.shape == (H, L * N, L * N)
+    assert torch.equal(formed, assembled)
+    np.testing.assert_array_equal(formed.numpy(), want)
+    op = port.kernel_operands(torch.float32)
+    assert torch.equal(op.pairs, torch.from_numpy(tables))
+    assert torch.equal(op.bias, assembled)
+
+
 def test_lewin_block_rejects_unknown_impl():
     with pytest.raises(ValueError, match="impl"):
         uformer_lewin.LeWinBlock(C, 16, H, impl="fused")

@@ -11,15 +11,23 @@ cases; with ``--k2``, the LeFF forward K2 (bf16) at every stage of its
 table; with ``--k1``, the attention half K1 (bf16) at every stage of its
 table (``chip_smoke.py::K1_STAGES``); with ``--k4``, the merged block K4
 (bf16) at the res-32 stages the default route runs it (C = 224 and 448),
-also the device clock at each of its phases' grid barriers.
+also the device clock at each of its phases' grid barriers; with ``--k3``,
+the cross-band attention K3 (bf16) at every encoder stage
+(``chip_smoke.py::K3_STAGES``), as ``freq_inter_path`` runs it and in its
+four passes; with ``--k11``, the DCN K11 (bf16) at
+``chip_smoke.py::DCN_STAGES``; with ``--f2``, the launches that hold the
+LeFF's hidden in device memory (K2's passes, K4, K5, K13) at every stage
+each serves.
 
 Run on a machine with an NVIDIA GPU, from the root of the checkout:
 
     python3 tools/bwd_kernel_profile.py [--dtype bfloat16] [--batch 4]
-        [--k7 | --k6 | --k8 | --k10 | --k2 | --k1 | --k4]
+        [--k7 | --k6 | --k8 | --k10 | --k2 | --k1 | --k4 | --k3 | --k11
+         | --f2]
 
 Prints the card's name and power limit, then per kernel the passes in order
-of device time; for K1's and K2's passes also each product's rate. Imports
+of device time; for K1's, K2's and K3's passes and K11's column GEMM
+also each product's rate. Imports
 the PyTorch port only.
 """
 
@@ -66,6 +74,15 @@ def main(argv=None) -> int:
                        "phases' clock stamps")
     which.add_argument("--k10", action="store_true",
                        help="K10 at chip_smoke.py phase 10's res-128 cases")
+    which.add_argument("--k3", action="store_true",
+                       help="K3 (bf16) at every encoder stage of "
+                       "chip_smoke.py's K3_STAGES")
+    which.add_argument("--k11", action="store_true",
+                       help="K11 (bf16) at chip_smoke.py's DCN_STAGES")
+    which.add_argument("--f2", action="store_true",
+                       help="the kernels that keep the LeFF's hidden in a "
+                       "buffer (bf16): K2's passes, K4, K5 and K13 at every "
+                       "stage each serves")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -103,6 +120,16 @@ def main(argv=None) -> int:
     elif args.k10:
         cases = [k10_case(wa, c) for c in chip_smoke.window_cases(
             windows, dtype, args.batch) if "res128" in c.label]
+    elif args.k3:  # the launch by freq_inter_path, then the four passes
+        cases = []
+        for c, _, passes in chip_smoke.k3_cases(lb, windows, args.batch):
+            cases += [c, passes]
+    elif args.f2:
+        cases = f2_cases(chip_smoke, lb, windows, args.batch)
+    elif args.k11:
+        from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops import (
+            deform_conv as dc)
+        cases = chip_smoke.dcn_cases(dc, args.batch)
     else:
         cases = [c for c in chip_smoke.bwd_cases(lb, windows, dtype, args.batch)
                  if "res128" in c.label]
@@ -131,12 +158,36 @@ def main(argv=None) -> int:
     return 0
 
 
+def f2_cases(chip_smoke, lb, windows, batch):
+    """The launches that hold the LeFF's hidden in device memory, bf16 on
+    ``batch`` tiles: K2 where it runs its passes (C = 448 and 896), K4 at
+    the shifted decoder stages the default route merges, K5 at every
+    encoder stage, K13 at the C = 896 stages."""
+    from chip_smoke import BwdCase
+
+    def as_case(c):
+        return BwdCase(c.kernel, c.label, c.timed, lambda: None, c.flops, 0)
+    cases = [c for c, _ in chip_smoke.k2_cases(lb, batch) if c.dims[1] >= 448]
+    merged = {(res, C) for res, C, *_ in chip_smoke.DEFAULT_MERGED_STAGES}
+    for c in chip_smoke.kernel_cases(lb, windows, torch.bfloat16, batch):
+        if c.kernel == "freq_merged" or (
+                c.kernel == "lewin_merged" and c.stage[2]
+                and (c.stage[1], c.stage[3]) in merged):
+            cases.append(as_case(c))
+    cases += [as_case(c) for c in chip_smoke.split_cases(
+        lb, windows, torch.bfloat16, batch) if c.kernel == "lewin_ffn_split"]
+    return cases
+
+
 def print_products(case, gemms) -> None:
     """The rate of each product of K1's or K2's passes (in launch order:
     qkv then proj, fc1 then fc2), from the shapes in ``case.dims``."""
-    if case.kernel == "lewin_attn" and len(case.dims) == 4:
+    if case.kernel in ("lewin_attn", "freq_inter") and len(case.dims) == 4:
         M, C = case.dims[:2]
         shapes = (("qkv", M, 3 * C, C), ("proj", M, C, C))
+    elif case.kernel == "dcn":
+        M, C, cout = case.dims
+        shapes = (("columns x weight", M, cout, 9 * C),)
     elif case.kernel == "lewin_ffn" and len(case.dims) == 2:
         M, C = case.dims
         shapes = (("fc1", M, 4 * C, C), ("fc2", M, C, 4 * C))
