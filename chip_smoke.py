@@ -144,6 +144,7 @@ import bisect
 import copy
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
@@ -241,9 +242,8 @@ def split_blocks(B: int, stages=SPLIT_STAGE_BLOCKS) -> int:
 # (tiles x res^2) up; "down" is the way down (fused in every configuration),
 # "up" the up path (fused in the flagship only). In float32 every block
 # takes the chain
-DEFAULT_MERGED_STAGES = ((64, 112, 1, 16384, "down"), (32, 224, 4, 4096, "down"),
-                         (32, 448, 4, 16384, "up"), (64, 224, 1, 16384, "up"),
-                         (128, 112, 1, 65536, "up"))
+DEFAULT_MERGED_STAGES = ((32, 224, 4, 4096, "down"), (32, 448, 4, 16384, "up"),
+                         (64, 224, 1, 131072, "up"))
 
 
 def merged_blocks(B: int, paths=("down", "up")) -> int:
@@ -528,11 +528,14 @@ def kernel_cases(lb, windows, dtype, B):
             ln1, ln2, fw = ln(C), ln(C), ffn_weights(C)
             awA, awB = attn_weights(C, h), attn_weights(C, h)
             biasA = rnd(L, h, n, n, scale=0.05)
-            biasB = rnd(h, L * n, L * n, scale=0.05)
+            # K3 reads the per-pair tables the grouped bias is made from
+            pairsB = rnd(L * L, 225, h, scale=0.05)
+            biasB = lb.inter_bias(pairsB, L, 8)
+            inter = functools.partial(lb.freq_inter, pairs=pairsB)
             mask = mask_of(res, shift)
             dps1, dps2 = dps_of(LB), dps_of(LB)
             opA = lb.attn_operands(*awA, biasA, dtype)
-            opB = lb.attn_operands(*awB, biasB, dtype)
+            opB = lb.attn_operands(*awB, biasB, dtype, pairsB)
             fop = lb.ffn_operands(*fw, dtype)
             tag = f"res{res} C{C} h{h} shift{shift} L{L}"
             if res in (128, 32, 8):
@@ -547,7 +550,7 @@ def kernel_cases(lb, windows, dtype, B):
                 y = rnd(LB, res, res, C).to(dtype)
                 cases.append(Case(
                     "freq_inter", f"freq_inter {tag}",
-                    [y, x, *awB, biasB, mask, L, 8, 1e-6, dps1], lb.freq_inter,
+                    [y, x, *awB, biasB, mask, L, 8, 1e-6, dps1], inter,
                     lb.freq_inter_plain,
                     lambda y=y, x=x, opB=opB, mask=mask, dps1=dps1:
                     lb.freq_inter_kernel(y, x, opB, mask, L, 8, dps1),
@@ -581,7 +584,7 @@ def kernel_cases(lb, windows, dtype, B):
                 attn_flops(M, C, n) + attn_flops(M, C, L * n) + ffn_flops(M, C),
                 ("freq", res, shift, C),
                 functools.partial(lb.freq_merged_chain, lb.freq_intra,
-                                  lb.freq_inter, lb.block_ffn), chain_timed))
+                                  inter, lb.block_ffn), chain_timed))
     return cases
 
 
@@ -931,7 +934,8 @@ def k3_cases(lb, windows, B, dtype=torch.bfloat16):
                 lambda: lb.freq_inter_kernel(y, x, op, mask, L, 8, dps, path),
                 lambda: lb.freq_inter_plain(*args), flops, nbytes,
                 (M, C, h, keys))
-        out.append((case(None, ""), yardstick, case("passes", " passes")))
+        out.append((case(None, ""), yardstick, case("passes", " passes"),
+                    case("fused", " fused")))
     return out
 
 
@@ -956,7 +960,7 @@ def k3_table(lb, windows, stats, card: str):
           f"scratch ({card}):", flush=True)
     tol = KERNEL_TOL[torch.bfloat16]
     for B in (SMALL_BATCH, BATCH):
-        for case, yardstick, passes in k3_cases(lb, windows, B):
+        for case, yardstick, passes, _ in k3_cases(lb, windows, B):
             M, C, h, keys = case.dims
             path = lb.freq_inter_path(C, h, 8, torch.bfloat16, K3_BANDS,
                                       M // keys)
@@ -1009,47 +1013,20 @@ def k3_table(lb, windows, stats, card: str):
 F2_FACTOR = 4.0
 F2_FFN = ((16, 448, 1), (32, 448, 1), (8, 448, 3), (8, 896, 1), (16, 896, 1))
 F2_SPLIT = ((8, 896), (16, 896))
+# K4: the shifted decoder stages of DEFAULT_MERGED_STAGES and those at
+# C = 112, where impl='merged' runs K4 and the default route the chain
+F2_MERGED = ((64, 112), (32, 224), (32, 448), (64, 224), (128, 112))
 F2_FREQ = ((32, 112, 4, 4), (8, 448, 16, 0))
-
-
-def ffn_rounded_hidden_plain(x_img, lns, lnb, w1, b1, wd, bd, w2, b2,
-                             eps=1e-6, dps=None):
-    """``block_ffn_plain`` with the hidden rounded to the model dtype after
-    fc1 + GELU: the rounding points of K2's passes, K13, K4 and K5 before
-    they kept it in fp32."""
-    import torch.nn.functional as F
-    dtype, Hd = x_img.dtype, w1.shape[1]
-    xf = x_img.float()
-    xn = F.layer_norm(xf, (xf.shape[-1],), lns.float(), lnb.float(), eps)
-    gelu = lambda t: F.gelu(t, approximate="tanh")
-    hdn = gelu(torch.matmul(xn.to(dtype), w1.to(dtype)).float() + b1.float())
-    hdn = hdn.to(dtype).float()
-    hdn = F.conv2d(hdn.permute(0, 3, 1, 2), wd.float().permute(2, 0, 1)[:, None],
-                   padding=1, groups=Hd)
-    hdn = gelu(hdn.permute(0, 2, 3, 1) + bd.float())
-    y = torch.matmul(hdn.to(dtype), w2.to(dtype)).float() + b2.float()
-    if dps is not None:
-        y = y * dps.float()[:, None, None, None]
-    return (xf + y).to(dtype)
-
-
-def f2_ffn_weights(C, rnd):
-    """LeFF weights under which a bf16 rounding of the hidden shows."""
-    Hd = 4 * C
-    wd = torch.full((3, 3, Hd), -0.125, device="cuda")
-    wd[1, 1] = 1.0
-    return [rnd(C, Hd, scale=0.02), torch.full((Hd,), 100.0, device="cuda"),
-            wd, torch.zeros(Hd, device="cuda"), rnd(Hd, C, scale=Hd ** -0.5),
-            rnd(C, scale=0.1)]
 
 
 def f2_check(lb, windows, card: str):
     """Phase 3f: F2 at every stage of the kernels that keep the LeFF's
     hidden in device memory (bf16, B = 4): K2's passes, K13, K4 at the
-    stages the default route merges, K5 at two encoder stages. Each is
-    held against its plain twin and against a twin that rounds the hidden
-    after fc1 (:func:`ffn_rounded_hidden_plain`) away from the image's
-    rim: the kernel must be F2_FACTOR times closer to the plain twin."""
+    shifted decoder stages it serves (F2_MERGED), K5 at two encoder
+    stages. Each is held against its plain twin and against a twin that
+    rounds the hidden after fc1 (``lewin_block.ffn_rounded_hidden_plain``)
+    away from the image's rim: the kernel must be F2_FACTOR times closer to
+    the plain twin."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     dt, B, n = torch.bfloat16, SMALL_BATCH, 64
 
@@ -1066,27 +1043,27 @@ def f2_check(lb, windows, card: str):
     rows = []   # (kernel, label, run, plain, faulty)
     for res, C, bands in F2_FFN:
         args = [rnd(bands * B, res, res, C, scale=0.5).to(dt), *ln(C),
-                *f2_ffn_weights(C, rnd), 1e-6, None]
+                *lb.f2_ffn_weights(C, rnd), 1e-6, None]
         rows.append(("lewin_ffn", f"block_ffn res{res} C{C} images{bands * B}",
                      lb.block_ffn, lb.block_ffn_plain, args,
-                     ffn_rounded_hidden_plain))
+                     lb.ffn_rounded_hidden_plain))
     for res, C in F2_SPLIT:
         args = [rnd(B, res, res, C, scale=0.5).to(dt), *ln(C),
-                *f2_ffn_weights(C, rnd), 1e-6, None]
+                *lb.f2_ffn_weights(C, rnd), 1e-6, None]
         rows.append(("lewin_ffn_split", f"block_ffn_split res{res} C{C}",
                      lb.block_ffn_split, lb.lewin_ffn_split_plain, args,
-                     ffn_rounded_hidden_plain))
+                     lb.ffn_rounded_hidden_plain))
     heads = {C: h for _, C, h in DECODER_STAGES}
-    for res, C, *_ in DEFAULT_MERGED_STAGES:
+    for res, C in F2_MERGED:
         h = heads[C]
         mask = torch.from_numpy(windows.shift_attn_mask(res, res, 8, 4)).cuda()
         args = ([rnd(B, res, res, C, scale=0.5).to(dt), *ln(C), *attn(C, h),
                  rnd(h, n, n, scale=0.05), mask, rnd(B, h, scale=0.3), *ln(C),
-                 *f2_ffn_weights(C, rnd), 8, 4, 1e-6, None, None])
+                 *lb.f2_ffn_weights(C, rnd), 8, 4, 1e-6, None, None])
         rows.append(("lewin_merged", f"block_merged res{res} C{C} shift4",
                      lb.block_merged, lb.block_merged_plain, args,
                      functools.partial(lb.merged_chain, lb.block_attention_plain,
-                                       ffn_rounded_hidden_plain)))
+                                       lb.ffn_rounded_hidden_plain)))
     L = K3_BANDS
     for res, C, h, shift in F2_FREQ:
         mask = (torch.from_numpy(windows.shift_attn_mask(res, res, 8, shift))
@@ -1094,12 +1071,12 @@ def f2_check(lb, windows, card: str):
         args = ([rnd(L * B, res, res, C, scale=0.5).to(dt), *ln(C), *attn(C, h),
                  rnd(L, h, n, n, scale=0.05), *attn(C, h),
                  rnd(h, L * n, L * n, scale=0.05), mask, *ln(C),
-                 *f2_ffn_weights(C, rnd), L, 8, shift, 1e-6, None, None])
+                 *lb.f2_ffn_weights(C, rnd), L, 8, shift, 1e-6, None, None])
         rows.append(("freq_merged", f"block_freq_merged res{res} C{C} shift{shift}",
                      lb.block_freq_merged, lb.block_freq_merged_plain, args,
                      functools.partial(lb.freq_merged_chain, lb.freq_intra_plain,
                                        lb.freq_inter_plain,
-                                       ffn_rounded_hidden_plain)))
+                                       lb.ffn_rounded_hidden_plain)))
     print(f"F2 check (bf16, B={B}): max |. - plain| away from the rim, the "
           f"kernel's and the hidden-rounded twin's ({card}):", flush=True)
     for kernel, label, run, plain, args, faulty in rows:
@@ -1126,8 +1103,9 @@ def f2_check(lb, windows, card: str):
 def dcn_cases(dc, B, dtype=torch.bfloat16, stages=None):
     """K11 at ``stages`` ((res, C) with Cout = C; default
     :data:`DCN_STAGES`) on ``B`` images, exact (no clamp), offsets up to
-    +-3.5 pixels: a BwdCase each (``run`` the launch, ``plain``
-    ``dcn_plain``; ``dims`` (rows M, C, Cout)). Operations: the
+    +-3.5 pixels: a BwdCase for each route K11 has in ``dtype`` (``run``
+    the launch by that route, ``plain`` ``dcn_plain``; ``dims`` (rows M, C,
+    Cout)), the route ``dcn_path`` chooses first. Operations: the
     contraction, 2 M 9C Cout; bytes: x, offsets, mask and weight read once,
     the output written once."""
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1142,12 +1120,15 @@ def dcn_cases(dc, B, dtype=torch.bfloat16, stages=None):
              * (9 * C) ** -0.5).to(dtype)
         args = (x, off, mask, w, None, 1, 1, None)
         M = B * res * res
-        out.append(BwdCase(
-            "dcn", f"dcn res{res} C{C} exact B{B}",
-            lambda a=args: dc.dcn_kernel(*a), lambda a=args: dc.dcn_plain(*a),
-            2.0 * M * 9 * C * C,
-            sum(t.numel() * t.element_size() for t in (x, off, mask, w))
-            + x.numel() * x.element_size(), (M, C, C)))
+        paths = ["implicit", "columns"] if dtype == torch.bfloat16 else ["columns"]
+        paths.sort(key=lambda p: p != dc.dcn_path(C, C, dtype))
+        for path in paths:
+            out.append(BwdCase(
+                "dcn", f"dcn res{res} C{C} exact B{B} {path}",
+                lambda a=args, p=path: dc.dcn_kernel(*a, p),
+                lambda a=args: dc.dcn_plain(*a), 2.0 * M * 9 * C * C,
+                sum(t.numel() * t.element_size() for t in (x, off, mask, w))
+                + x.numel() * x.element_size(), (M, C, C)))
     return out
 
 
@@ -1790,7 +1771,11 @@ def function_checks(lb, windows, dtype):
     g = rnd(LB, res, res, C, grad=False).to(dtype)
     ln1, ln2, fw = ln(C), ln(C), ffn_weights(C)
     awA, biasA = attn_weights(C, h), rnd(L, h, n, n, scale=0.05)
-    awB, biasB = attn_weights(C, h), rnd(h, L * n, L * n, scale=0.05)
+    # K3 reads the per-pair tables the grouped bias is made from; the
+    # gradient is taken at the bias
+    awB, pairsB = attn_weights(C, h), rnd(L * L, 225, h, scale=0.05,
+                                          grad=False)
+    biasB = lb.inter_bias(pairsB, L, 8).requires_grad_()
     d1, d2 = dps_of(LB), dps_of(LB)
     ins = [x, *ln1, *awA, biasA, *awB, biasB, *ln2, *fw]
     args = [x, *ln1, *awA, biasA, *awB, biasB, mask, *ln2, *fw, L, 8, shift,
@@ -1800,8 +1785,8 @@ def function_checks(lb, windows, dtype):
     compare_all(f"BlockFreqMerged {name_dt} res{res} C{C}", got, want, tol)
     img = lb.roll(x, shift)
     y1 = lb.FreqIntra.apply(img, *ln1, *awA, biasA, mask, L, 8, 1e-6)
-    u = lb.roll(lb.FreqInter.apply(y1, img, *awB, biasB, mask, L, 8, 1e-6, d1),
-                -shift)
+    u = lb.roll(lb.FreqInter.apply(y1, img, *awB, biasB, mask, L, 8, 1e-6, d1,
+                                   pairsB), -shift)
     got = torch.autograd.grad(lb.BlockFFN.apply(u, *ln2, *fw, 1e-6, d2), ins, g)
     compare_all(f"FreqIntra + FreqInter + BlockFFN {name_dt} res{res} C{C}", got,
                 want, tol)
@@ -2470,11 +2455,12 @@ def check_window_function(wa, windows, dtype):
 
 def check_dcn(dc, stats, card: str):
     """K11 against ``dcn_plain`` at every deform_conv stage shape and DGRN's
-    (res 128, C = 64), bf16 at B=32 and fp32 at B=4, exact and with offsets
-    clamped to 2; offsets up to +-3.5 pixels, past every edge of the image;
-    each row with the device memory of its column matrix (none in bf16, the
-    implicit GEMM); then ``DCNFn``'s gradients against autograd of the
-    plain version at res 32."""
+    (res 128, C = 64), bf16 at B=32 by both routes (the one ``dcn_path``
+    chooses first) and fp32 at B=4, exact and with offsets clamped to 2;
+    offsets up to +-3.5 pixels, past every edge of the image; each row with
+    the device memory a launch takes beyond its output (none for the
+    implicit GEMM, a column matrix for the column route); then ``DCNFn``'s
+    gradients against autograd of the plain version at res 32."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     for dtype, B in ((torch.bfloat16, BATCH), (torch.float32, TRAIN_BATCH)):
         name_dt = str(dtype)[6:]
@@ -2488,10 +2474,15 @@ def check_dcn(dc, stats, card: str):
                               device="cuda").to(dtype)
             w = (torch.randn(3, 3, C, C, generator=gen, device="cuda")
                  * (9 * C) ** -0.5).to(dtype)
-            for clamp in (None, 2.0):
+            default = dc.dcn_path(C, C, dtype)
+            paths = [default] + [p for p in ("implicit", "columns")
+                                 if p != default and dtype == torch.bfloat16]
+            for clamp, path in itertools.product((None, 2.0), paths):
                 label = (f"dcn res{res} C{C} {'exact' if clamp is None else 'clamp 2'}"
-                         f" {name_dt} B{B}")
-                run = lambda: dc.dcn_kernel(x, off, mask, w, None, 1, 1, clamp)
+                         f" {name_dt} B{B} {path}"
+                         f"{' (default)' if path == default else ''}")
+                run = lambda: dc.dcn_kernel(x, off, mask, w, None, 1, 1, clamp,
+                                            path)
                 torch.cuda.synchronize()
                 base = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
@@ -2499,8 +2490,9 @@ def check_dcn(dc, stats, card: str):
                 torch.cuda.synchronize()
                 # the device memory a launch takes beyond its output and the
                 # launcher's fp32 copies of the offsets and the mask (its
-                # weight operand; in fp32 the column matrix), against the
-                # bytes a column matrix [B res^2, kpad(9C)] takes in x's type
+                # weight operand; on the column route the column matrix),
+                # against the bytes a column matrix [B res^2, kpad(9C)]
+                # takes in x's type
                 extra = (torch.cuda.max_memory_allocated() - base
                          - got.numel() * got.element_size()
                          - 4 * (off.numel() + mask.numel()))
@@ -2520,12 +2512,13 @@ def check_dcn(dc, stats, card: str):
                       f"{bound:.4f} ms by {by} (no PyTorch call computes a DCN)"
                       f"; memory beyond the output {extra / 2 ** 20:.2f} MiB "
                       f"(a column matrix {cols / 2 ** 20:.2f})", flush=True)
-                if dtype == torch.bfloat16 and extra >= cols:
+                if path == "implicit" and extra >= cols:
                     raise Failed(f"{label}: {extra} bytes beyond the output: "
-                                 "bf16 allocates no column matrix")
+                                 "the implicit GEMM allocates no column matrix")
                 st = stats["dcn"]
                 st["max_abs_err"] = max(st["max_abs_err"], err)
-                if dtype == torch.bfloat16 and clamp is None and st["ms"] is None:
+                if dtype == torch.bfloat16 and clamp is None \
+                        and path == default and st["ms"] is None:
                     st.update(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by)
         B, res, C = TRAIN_BATCH, 32, 448
         ins = [(torch.randn(B, res, res, C, generator=gen, device="cuda") * 0.5),

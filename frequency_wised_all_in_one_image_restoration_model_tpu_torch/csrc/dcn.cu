@@ -24,8 +24,13 @@
 // and a GEMM costs about 12x the kernel's bytes (604 MB at DGRN's B = 32,
 // C = 64).
 //
-// What the design does about it, in bf16: one implicit GEMM, no column
-// matrix. A CTA of sixteen warps owns 8 x 16 output pixels of one image x
+// Two routes, which the caller chooses by width (ops/deform_conv.py::
+// dcn_path, from the A/B on an H100 in PERF.md section 6): the column route
+// (the column pass of dcn.cuh into a column matrix in x's type, then the
+// GEMM of gemm.cuh: wgmma in bf16 where K >= 192 and N > 64, FMA in fp32),
+// and in bf16 the implicit GEMM, which stages no column matrix.
+//
+// The implicit GEMM: a CTA of sixteen warps owns 8 x 16 output pixels of one image x
 // BN output channels (BN = 64 for Cout <= 64, else 128; a warp 32 x BN / 4
 // of it on mma.sync m16n8k16 with fp32 accumulators). It computes the footing
 // of each of its pixels' K samples once (dcn.cuh::footing: the base corner,
@@ -43,13 +48,12 @@
 // ring of IG_SB stages. The bias goes in the epilogue, staged through
 // shared memory so that the output is written in whole rows. Single
 // channels (C % 8 != 0) walk the columns t C + c in k-tiles of 32, their
-// corners read from x. fp32 keeps the column pass (dcn.cuh) and the FMA
-// GEMM (gemm.cuh) in full precision, as K14 keeps the column pass for its
-// weight gradient.
+// corners read from x.
 //
-// Measured on an H100 (PERF.md section 6): at DGRN's C = 64 a little faster
-// than the column pass + GEMM it replaces, at the deformable LeFF's widths
-// (C = 112 ... 896) 1.5-4x slower. Its products alone (the A build
+// Measured on an H100 (PERF.md section 6): at DGRN's C = 64 (and C = 3) a
+// little faster than the column route, at the deformable LeFF's widths
+// (C = 112 ... 896) 1.5-4x slower, so those keep the column route. Its
+// products alone (the A build
 // left out) take about the parent's whole time at res 128, C = 112 (mma.sync
 // at some 100 TFLOP/s against the wgmma tile's 290), and the A build about
 // as much again, the two serialised in the same warps; sixteen warps a CTA
@@ -389,10 +393,12 @@ cudaError_t dcn_implicit(const ColArgs& c, const void* wt, const float* bias,
              : igemm_launch<128, 1>(c, wt, bias, out, Cout, st);
 }
 
-// fp32: the column pass into cols, then the FMA GEMM
+// the column route: the column pass into cols, then the GEMM (bf16 with
+// K >= 192 and N > 64 on the wgmma tile of gemm.cuh, else mma.sync; fp32 FMA)
+template <typename T>
 cudaError_t dcn_columns(const ColArgs& c, const void* wt, const float* bias,
                         void* out, int Cout, cudaStream_t st) {
-  cudaError_t err = launch_cols<float>(c, st);
+  cudaError_t err = launch_cols<T>(c, st);
   if (err != cudaSuccess) return err;
   GemmArgs g{};
   g.A = c.cols;
@@ -404,12 +410,13 @@ cudaError_t dcn_columns(const ColArgs& c, const void* wt, const float* bias,
   g.cmap = identity_map();
   g.M = (long long)c.B * c.Ho * c.Wo;
   g.N = Cout;
-  return launch_gemm<float>(g, st);
+  return launch_gemm<T>(g, st);
 }
 
 }  // namespace
 
-// cols: [B Ho Wo, kpad(K C)] fp32 for the fp32 column pass; null in bf16
+// cols: [B Ho Wo, kpad(K C)] in x's type for the column route; null for the
+// implicit GEMM (bf16 only)
 extern "C" int fairm_dcn(const void* x, const void* off, const void* mask,
                          const void* wt, const void* bias, void* cols, void* out,
                          int B, int H, int W, int C, int Ho, int Wo, int Cout,
@@ -418,9 +425,14 @@ extern "C" int fairm_dcn(const void* x, const void* off, const void* mask,
   const ColArgs c{x, (const float*)off, (const float*)mask, cols, B, H, W, C,
                   Ho, Wo, kh, kw, pad, dil, kpad(kh * kw * C), clamp};
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err =
-      is_bf16 ? dcn_implicit(c, wt, (const float*)bias, out, Cout, st)
-              : dcn_columns(c, wt, (const float*)bias, out, Cout, st);
+  cudaError_t err;
+  if (!cols)
+    err = is_bf16 ? dcn_implicit(c, wt, (const float*)bias, out, Cout, st)
+                  : cudaErrorInvalidValue;
+  else if (is_bf16)
+    err = dcn_columns<bf16_t>(c, wt, (const float*)bias, out, Cout, st);
+  else
+    err = dcn_columns<float>(c, wt, (const float*)bias, out, Cout, st);
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;
 }

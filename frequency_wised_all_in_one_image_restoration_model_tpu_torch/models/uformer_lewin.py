@@ -76,17 +76,18 @@ IMPLS = ("default", "kernel", "merged", "split", "plain")
 # with K4's products on the TMA / wgmma tile and, up to C = 224, its
 # attention half fused on the SM, the merged kernel is ahead for the
 # shifted bf16 decoder blocks at res 32 (C = 224 at every batch, merged /
-# chain 0.74-0.92; C = 448 from B = 16, 0.87-0.97), res 64 (C = 112 and 224,
-# 0.84-0.98) and res 128 at C = 112 (0.95-0.99). It is behind at res 128
-# C = 56 (1.14), for every unshifted block (no roll to absorb: 1.03-1.57)
-# and near even at res 16. In float32 it is behind at every stage
-# (1.01-1.39), so float32 keeps the chain.
+# chain 0.74-0.92; C = 448 from B = 16, 0.87-0.97). Once the LeFF's hidden
+# is kept in fp32 (it doubles the merged kernel's hidden bytes, not the
+# chain's), the chain is ahead at res 64 and res 128, C = 112, at every
+# batch (1.06-1.09), and at res 64, C = 224, below B = 32 (1.02-1.03 at
+# B = 4 and 16, 0.96 at B = 32). It is behind at res 128 C = 56 (1.14), for
+# every unshifted block (no roll to absorb: 1.03-1.57) and near even at
+# res 16. In float32 it is behind at every stage (1.01-1.39), so float32
+# keeps the chain.
 DEFAULT_MERGED = {
     ("origin", 32, True, torch.bfloat16, 224): 4096,
     ("origin", 32, True, torch.bfloat16, 448): 16384,
-    ("origin", 64, True, torch.bfloat16, 112): 16384,
-    ("origin", 64, True, torch.bfloat16, 224): 16384,
-    ("origin", 128, True, torch.bfloat16, 112): 65536,
+    ("origin", 64, True, torch.bfloat16, 224): 131072,
 }
 
 # The origin-MSA blocks ``impl='default'`` runs as K12 -> K13: (width C,

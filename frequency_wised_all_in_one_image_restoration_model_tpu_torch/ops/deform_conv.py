@@ -19,9 +19,9 @@ sigmoided modulation scalar of the tap, enters a contraction over
 * :func:`dcn` launches K11 on a CUDA tensor: a gather DCNv2 with the exact
   semantics, not the TPU's gather-free shift decomposition, which was a
   workaround for Mosaic's gather limits (``dcn.py:5-10``) and costs about
-  six times the arithmetic. In bf16 it is one implicit GEMM that builds
-  the modulated columns on the SM; in fp32 a column pass into device
-  memory and a GEMM.
+  six times the arithmetic, by the route :func:`dcn_path` names: in bf16
+  at C, Cout <= 64 one implicit GEMM that builds the modulated columns on
+  the SM, else a column pass into device memory and a GEMM.
 * :class:`DCNFn` is the autograd Function: forward K11, backward
   :func:`dcn_bwd`: :func:`dcn_bwd_plain` on a CPU tensor, K14
   (``csrc/dcn_bwd.cu``) on a CUDA tensor. The JAX package's backward is
@@ -144,9 +144,33 @@ def dcn_plain(x, offset, mask, weight, bias=None, padding: int = 1,
     return out.reshape(b, ho, wo, cout)
 
 
+# The widest input and output channels at which K11 in bf16 runs as the
+# implicit GEMM. From the A/B of the two routes on an H100 at B = 4 and 32
+# (``tools/bwd_kernel_profile.py --k11``, ``chip_smoke.py`` phase 10;
+# PERF.md section 6): the implicit GEMM is ahead at DGRN's C = Cout = 64
+# (0.91 of the column route's device time at B = 32, 0.82 at B = 4) and at
+# C = 3 (0.98, 0.80), behind at every width of the deformable LeFF,
+# C = 112 ... 896 (1.4-4.8x).
+DCN_IMPLICIT_MAX_C = 64
+
+
+def dcn_path(cin: int, cout: int, dtype) -> str:
+    """How K11 runs a DCN of ``cin`` -> ``cout`` channels: ``'implicit'``,
+    one launch that builds the modulated columns on the SM (bf16, both
+    widths at most DCN_IMPLICIT_MAX_C), else ``'columns'``, the column pass
+    into a column matrix ``[B Ho Wo, kpad(K cin)]`` in device memory and a
+    GEMM."""
+    if dtype == torch.bfloat16 and max(cin, cout) <= DCN_IMPLICIT_MAX_C:
+        return "implicit"
+    return "columns"
+
+
 def dcn_kernel(x, offset, mask, weight, bias=None, padding: int = 1,
-               dilation: int = 1, clamp: Optional[float] = None):
-    """Launch K11 on CUDA tensors (arguments as :func:`dcn_plain`)."""
+               dilation: int = 1, clamp: Optional[float] = None,
+               path: Optional[str] = None):
+    """Launch K11 on CUDA tensors (arguments as :func:`dcn_plain`) by
+    :func:`dcn_path` (``path`` names the route instead: the two are
+    compared by ``chip_smoke.py``; fp32 has the column route only)."""
     from .kernels.build import load
 
     b, h, w, cin = x.shape
@@ -165,10 +189,14 @@ def dcn_kernel(x, offset, mask, weight, bias=None, padding: int = 1,
     with torch.no_grad():  # the GEMM operand [Cout, kpad(K * Cin)]
         wt = _nk(weight.reshape(k * cin, cout).t(), dt)
     bias = _f32(bias, (cout,))
-    # fp32 stages the modulated columns through device memory for its GEMM;
-    # bf16 builds them on the SM (an implicit GEMM), no column matrix
+    path = path or dcn_path(cin, cout, dt)
+    if path not in ("implicit", "columns") or (
+            path == "implicit" and dt != torch.bfloat16):
+        raise ValueError(f"K11 has no route {path!r} in {dt}")
+    # the column route stages the modulated columns through device memory
+    # for its GEMM; the implicit GEMM builds them on the SM
     cols = None
-    if dt == torch.float32:
+    if path == "columns":
         cols = torch.empty((b * ho * wo, wt.shape[1]), dtype=dt,
                            device=x.device)
     out = torch.empty((b, ho, wo, cout), dtype=dt, device=x.device)

@@ -234,13 +234,14 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def block_ffn_plain(x_img, lns, lnb, w1, b1, wd, bd, w2, b2,
-                    eps: float = 1e-6, dps=None):
-    """Plain twin of :func:`block_ffn` (JAX ``_xla_block_ffn``)."""
+def _ffn_plain(x_img, lns, lnb, w1, b1, wd, bd, w2, b2, eps, dps,
+               round_hidden: bool):
     dtype = x_img.dtype
     Hd = w1.shape[1]
     xf, xn = _layer_norm(x_img, lns, lnb, eps)
     hdn = _gelu(torch.matmul(xn.to(dtype), w1.to(dtype)).float() + b1.float())
+    if round_hidden:
+        hdn = hdn.to(dtype).float()
     hdn = F.conv2d(hdn.permute(0, 3, 1, 2),
                    wd.float().permute(2, 0, 1)[:, None], padding=1, groups=Hd)
     hdn = _gelu(hdn.permute(0, 2, 3, 1) + bd.float())
@@ -248,6 +249,42 @@ def block_ffn_plain(x_img, lns, lnb, w1, b1, wd, bd, w2, b2,
     if dps is not None:
         y = y * dps.float()[:, None, None, None]
     return (xf + y).to(dtype)
+
+
+def block_ffn_plain(x_img, lns, lnb, w1, b1, wd, bd, w2, b2,
+                    eps: float = 1e-6, dps=None):
+    """Plain twin of :func:`block_ffn` (JAX ``_xla_block_ffn``): the hidden
+    in fp32 from fc1 through the conv, rounded once for fc2."""
+    return _ffn_plain(x_img, lns, lnb, w1, b1, wd, bd, w2, b2, eps, dps,
+                      False)
+
+
+def ffn_rounded_hidden_plain(x_img, lns, lnb, w1, b1, wd, bd, w2, b2,
+                             eps: float = 1e-6, dps=None):
+    """:func:`block_ffn_plain` with the hidden rounded to the compute dtype
+    after fc1 + GELU: the rounding points that K2's passes, K13, K4 and K5
+    had before they kept the hidden in fp32 as JAX does. ``chip_smoke.py``
+    and the card tests hold those kernels closer to :func:`block_ffn_plain`
+    than to this twin, on :func:`f2_ffn_weights`."""
+    return _ffn_plain(x_img, lns, lnb, w1, b1, wd, bd, w2, b2, eps, dps,
+                      True)
+
+
+def f2_ffn_weights(C: int, randn):
+    """LeFF weights ``[w1, b1, wd, bd, w2, b2]`` (hidden 4 C) under which a
+    bf16 rounding of the hidden after fc1 shows: fc1's outputs sit near 100
+    (bf16 spacing 0.5) and vary by less than 1, and the conv's taps cancel
+    (centre 1, the eight others -1/8), so the conv's output away from the
+    image's rim is a small difference of large values. ``randn(*shape,
+    scale=...)`` draws w1, w2 and b2 in that order, on its device."""
+    Hd = 4 * C
+    w1 = randn(C, Hd, scale=0.02)
+    dev = w1.device
+    wd = torch.full((3, 3, Hd), -0.125, device=dev)
+    wd[1, 1] = 1.0
+    return [w1, torch.full((Hd,), 100.0, device=dev), wd,
+            torch.zeros(Hd, device=dev), randn(Hd, C, scale=Hd ** -0.5),
+            randn(C, scale=0.1)]
 
 
 def lewin_attn_split_plain(x_img, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3, wp3,
@@ -387,8 +424,9 @@ class AttnOperands(NamedTuple):
     wp: torch.Tensor     # [C, kpad(C)] compute dtype
     bp: torch.Tensor     # [C] fp32
     bias: torch.Tensor   # fp32 [h, n, n], [L, h, n, n] or [h, L*n, L*n]
-    # K3: the per-pair tables [L*L, (2 win - 1)^2, h] fp32 that ``bias`` was
-    # made from (:func:`inter_bias`), which the fused K3 reads instead of it
+    # K3 (required there, None for K1): the per-pair tables
+    # [L*L, (2 win - 1)^2, h] fp32 that ``bias`` was made from
+    # (:func:`inter_bias`), which the fused K3 reads instead of it
     pairs: Optional[torch.Tensor] = None
 
 
@@ -510,10 +548,13 @@ def attention_kernel(x_img, lns, lnb, op: AttnOperands, mask, lam, win: int,
 
 
 # The fused K3's least launch in 192-token groups, by kpad(C), where it
-# does not take every launch: at C = 112 a launch of 64 groups (B = 4 at
-# res 32) ran slower fused than in passes on an H100, one of 512 faster
-# (chip_smoke.py phase 3's K3 table, PERF.md section 6)
-FREQ_INTER_MIN_GROUPS = {128: 256}
+# does not take every launch. At res 32, C = 112 on an H100 (device ms,
+# fused against passes; tools/bwd_kernel_profile.py --k3, PERF.md section
+# 6): 64 groups (B = 4) 0.1094 against 0.0971, 128 groups (B = 8) 0.1089
+# against 0.1914, 256 (B = 16) 0.2197 against 0.3150, 512 (B = 32) 0.4443
+# against 0.6167. Launches between 64 and 128 groups were not timed and
+# keep the passes.
+FREQ_INTER_MIN_GROUPS = {128: 128}
 
 
 def freq_inter_path(C: int, heads: int, win: int, dtype, L: int = 3,
@@ -538,8 +579,9 @@ def freq_inter_kernel(y_img, res_img, op: AttnOperands, mask, L: int,
                       win: int, dps, path: Optional[str] = None):
     """Launch K3 (:func:`freq_inter`) on CUDA tensors with prepared
     operands, by :func:`freq_inter_path` (``path`` names the form instead:
-    the two are compared by ``chip_smoke.py``). The fused form reads the
-    per-pair tables ``op.pairs``: operands without them run the passes."""
+    the two are compared by ``chip_smoke.py``). The operands carry the
+    per-pair tables ``op.pairs`` beside the grouped bias: the fused form
+    reads the tables, the passes the bias."""
     from .build import load
 
     LB, H, W, C = y_img.shape
@@ -553,17 +595,15 @@ def freq_inter_kernel(y_img, res_img, op: AttnOperands, mask, L: int,
     if H % win or W % win or C % h or LB % L:
         raise ValueError(f"unsupported shape {tuple(y_img.shape)}, h={h}, L={L}")
     _check_attn_operands(op, y_img, (h, L * n, L * n))
-    if op.pairs is not None:
-        _operand(op.pairs, (L * L, (2 * win - 1) ** 2, h), torch.float32,
-                 y_img)
+    if op.pairs is None:
+        raise ValueError("K3's operands carry the per-pair tables: "
+                         "attn_operands(..., pairs)")
+    _operand(op.pairs, (L * L, (2 * win - 1) ** 2, h), torch.float32, y_img)
     mask = _f32(mask, (nW, n, n))
     dps = _f32(dps, (LB,))
     dt = y_img.dtype
     groups = LB // L * nW
-    if path == "fused" and op.pairs is None:
-        raise ValueError("the fused K3 reads the per-pair tables: op.pairs")
-    fused = op.pairs is not None and (
-        path or freq_inter_path(C, h, win, dt, L, groups)) == "fused"
+    fused = (path or freq_inter_path(C, h, win, dt, L, groups)) == "fused"
     zo = qkv = None
     if not fused:
         # the passes' buffers: the regrouped rows, then the attention rows;
@@ -898,16 +938,18 @@ def freq_inter(y_img, res_img, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp, biasB,
     tiled (L, L). ``dps [L*B]`` is indexed by the folded sample ``l*B + b``.
     ``eps`` is unused (no LayerNorm), kept for the Pallas signature.
     ``pairs``: the per-pair tables ``biasB`` was made from
-    (:func:`inter_bias`), or None; the fused K3 reads them in place of
-    ``biasB`` (bit for bit the same bias) and runs only where they are
-    given."""
+    (:func:`inter_bias`), which K3 needs on a CUDA tensor (its fused form
+    reads them in place of ``biasB``, bit for bit the same bias); the plain
+    twin reads ``biasB`` only."""
     if y_img.device.type == "cpu":
         return freq_inter_plain(y_img, res_img, wq3, bq3, wk3, bk3, wv3, bv3,
                                 wp3, bp, biasB, mask, L, win, eps, dps)
+    if pairs is None:
+        raise ValueError("K3 needs the per-pair tables biasB was made from")
     _check(y_img, pairs)
     op = _kernel_operands(y_img, attn_operands, wq3, bq3, wk3, bk3, wv3, bv3,
                           wp3, bp, biasB)._replace(
-        pairs=None if pairs is None else pairs.float().contiguous())
+        pairs=pairs.float().contiguous())
     return freq_inter_kernel(y_img, res_img, op, mask, L, win, dps)
 
 
@@ -1555,7 +1597,8 @@ class FreqIntra(torch.autograd.Function):
 
 
 class FreqInter(torch.autograd.Function):
-    """:func:`freq_inter` with the backward of K8."""
+    """:func:`freq_inter` with the backward of K8 (``pairs`` as there:
+    needed on a CUDA tensor)."""
 
     @staticmethod
     def forward(ctx, y_img, res_img, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp,

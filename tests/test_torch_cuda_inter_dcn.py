@@ -1,5 +1,5 @@
-"""The fused cross-band attention K3 and the implicit-GEMM DCN K11, on the
-card.
+"""The fused cross-band attention K3 and K11's two DCN routes in bf16, on
+the card.
 
 Every test here is marked ``cuda`` and skips where there is no NVIDIA GPU.
 The file imports neither JAX nor the JAX package:
@@ -13,9 +13,9 @@ grouped bias from device memory where the fused form forms it from the
 per-pair tables (the two share their rounding points and their products'
 order; the DropPath scales here, 0 and 2, are exact), shifted and not,
 with and without DropPath, one image and a batch that leaves a partial
-wave of CTAs (140 groups on 132 SMs). K11 (bf16)
-against ``dcn_plain`` at 2e-2, exact and clamped, at DGRN's and the
-deform LeFF's widths and off them. ``chip_smoke.py`` checks the main path's
+wave of CTAs (140 groups on 132 SMs). K11 (bf16, the implicit GEMM and
+the column route) against ``dcn_plain`` at 2e-2, exact and clamped, at
+DGRN's and the deform LeFF's widths and off them. ``chip_smoke.py`` checks the main path's
 shapes (phases 3 and 10).
 """
 
@@ -93,9 +93,11 @@ def test_fused_inter(card, C, heads, shift, dropped, batch):
                                     dps))
     passes = lb.freq_inter_kernel(y, res, op, mask, L, WIN, dps, "passes")
     assert torch.equal(got, passes)
-    # operands without the tables run the passes
-    assert torch.equal(got, lb.freq_inter_kernel(
-        y, res, op._replace(pairs=None), mask, L, WIN, dps))
+    # operands without the tables are refused, whatever the form
+    for path in (None, "passes"):
+        with pytest.raises(ValueError, match="per-pair tables"):
+            lb.freq_inter_kernel(y, res, op._replace(pairs=None), mask, L,
+                                 WIN, dps, path)
     assert torch.equal(got, lb.freq_inter(y, res, *w, bias, mask, L, WIN,
                                           1e-6, dps, pairs))
     assert torch.equal(got, lb.freq_inter_kernel(y, res, op, mask, L, WIN,
@@ -105,8 +107,8 @@ def test_fused_inter(card, C, heads, shift, dropped, batch):
 @pytest.mark.cuda
 def test_fused_inter_refuses_what_it_does_not_take(card):
     """The fused form is a route: asked for at a shape it cannot take
-    (head dims above 32, fp32) the launch raises, and so does asking for
-    it without the per-pair tables."""
+    (head dims above 32, fp32) the launch raises, and so does K3 without
+    the per-pair tables."""
     C, heads = 224, 4
     x = _t(card, L, RES, RES, C, dtype=torch.bfloat16)
     w = [_t(card, heads, C, C // heads) if i % 2 == 0 else
@@ -124,6 +126,8 @@ def test_fused_inter_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="per-pair tables"):
         lb.freq_inter_kernel(x, x, op._replace(pairs=None), None, L, WIN,
                              None, "fused")
+    with pytest.raises(ValueError, match="per-pair tables"):
+        lb.freq_inter(x, x, *w, bias, None, L, WIN, 1e-6, None)
 
 
 @pytest.mark.cuda
@@ -138,9 +142,10 @@ def test_fused_inter_refuses_what_it_does_not_take(card):
     (10, 3, 3, 1),        # single channels (the gather without vectors)
 ])
 def test_dcn_implicit_gemm(card, monkeypatch, res, C, cout, dil, clamp):
-    """K11 in bf16 against dcn_plain, with offsets past every edge of the
-    image (up to res + 4 pixels) and the bias; the launcher hands the
-    kernel no column matrix."""
+    """K11 in bf16 by both routes against dcn_plain, with offsets past every
+    edge of the image (up to res + 4 pixels) and the bias: the launcher
+    hands the implicit GEMM no column matrix and the column route one; the
+    wrapper takes the route dcn_path names."""
     B = 3
     x = _t(card, B, res, res, C, scale=0.5, dtype=torch.bfloat16)
     off = torch.from_numpy(((card.random((B, res, res, 18)) * 2 - 1)
@@ -152,10 +157,19 @@ def test_dcn_implicit_gemm(card, monkeypatch, res, C, cout, dil, clamp):
     run, calls = dc._run, []
     monkeypatch.setattr(dc, "_run", lambda fn, *a: (calls.append(a),
                                                     run(fn, *a)))
-    dc.reset_launches()
-    got = dc.dcn(x, off, mask, w, bias, dil, dil, clamp)
-    torch.cuda.synchronize()
-    assert dc.LAUNCHES["dcn"] == 1
-    assert len(calls) == 1 and calls[0][5] is None   # the cols pointer
-    _check(got, dc.dcn_plain(x, off, mask, w, bias, dil, dil, clamp))
-    assert torch.equal(got, dc.dcn(x, off, mask, w, bias, dil, dil, clamp))
+    want = dc.dcn_plain(x, off, mask, w, bias, dil, dil, clamp)
+    outs = {}
+    for path in ("implicit", "columns"):
+        calls.clear()
+        dc.reset_launches()
+        outs[path] = dc.dcn_kernel(x, off, mask, w, bias, dil, dil, clamp,
+                                   path)
+        torch.cuda.synchronize()
+        assert dc.LAUNCHES["dcn"] == 1
+        # the cols pointer
+        assert len(calls) == 1 and (calls[0][5] is None) == (path == "implicit")
+        _check(outs[path], want)
+    path = dc.dcn_path(C, cout, torch.bfloat16)
+    assert path == ("implicit" if max(C, cout) <= 64 else "columns")
+    assert torch.equal(outs[path], dc.dcn(x, off, mask, w, bias, dil, dil,
+                                          clamp))

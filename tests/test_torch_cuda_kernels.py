@@ -14,6 +14,8 @@ and the autograd Functions against ``torch.autograd.grad`` of the forward
 twins; K8 and the fused K2 also at the edges of their tiles and chunks.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -57,6 +59,13 @@ def _attn(rng, batch, dtype, groups=1):
             + [_t(rng, H, d, C, scale=0.2), _t(rng, C, scale=0.1), bias])
 
 
+def _inter_bias(rng, heads):
+    """The grouped 'inter' bias [h, L*n, L*n] and the per-pair tables it was
+    made from, which K3 reads."""
+    pairs = _t(rng, L * L, (2 * WIN - 1) ** 2, heads, scale=0.05)
+    return lb.inter_bias(pairs, L, WIN), pairs
+
+
 def _mask():
     return torch.from_numpy(windows.shift_attn_mask(RES, RES, WIN, 4)).cuda()
 
@@ -98,10 +107,10 @@ def test_freq_intra_kernel(card, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_freq_inter_kernel(card, dtype):
     a = _attn(card, L * B, dtype)
+    biasB, pairs = _inter_bias(card, H)
     args = ([a[0], _t(card, L * B, RES, RES, C, dtype=dtype)] + a[3:11]
-            + [_t(card, H, L * N, L * N, scale=0.05), _mask(), L, WIN, 1e-6,
-               _dps(card, L * B)])
-    _check(lb.freq_inter(*args), lb.freq_inter_plain(*args), dtype)
+            + [biasB, _mask(), L, WIN, 1e-6, _dps(card, L * B)])
+    _check(lb.freq_inter(*args, pairs), lb.freq_inter_plain(*args), dtype)
 
 
 @pytest.mark.cuda
@@ -188,33 +197,9 @@ def _check_chain(got, chain, dtype):
 F2_FACTOR = 4.0
 
 
-def _ffn_rounded_hidden_plain(x_img, lns, lnb, w1, b1, wd, bd, w2, b2,
-                              eps=1e-6, dps=None):
-    """block_ffn_plain with the hidden rounded to the model dtype after
-    fc1 + GELU (the rounding points before the repair)."""
-    import torch.nn.functional as F
-    dtype, hd = x_img.dtype, w1.shape[1]
-    xf = x_img.float()
-    xn = F.layer_norm(xf, (xf.shape[-1],), lns.float(), lnb.float(), eps)
-    gelu = lambda t: F.gelu(t, approximate="tanh")
-    hdn = gelu(torch.matmul(xn.to(dtype), w1.to(dtype)).float() + b1.float())
-    hdn = hdn.to(dtype).float()
-    hdn = F.conv2d(hdn.permute(0, 3, 1, 2), wd.float().permute(2, 0, 1)[:, None],
-                   padding=1, groups=hd)
-    hdn = gelu(hdn.permute(0, 2, 3, 1) + bd.float())
-    y = torch.matmul(hdn.to(dtype), w2.to(dtype)).float() + b2.float()
-    if dps is not None:
-        y = y * dps.float()[:, None, None, None]
-    return (xf + y).to(dtype)
-
-
 def _f2_ffn_w(rng, c):
-    hd = 4 * c
-    wd = torch.full((3, 3, hd), -0.125).cuda()
-    wd[1, 1] = 1.0
-    return [_t(rng, c, hd, scale=0.02), torch.full((hd,), 100.0).cuda(), wd,
-            torch.zeros(hd).cuda(), _t(rng, hd, c, scale=hd ** -0.5),
-            _t(rng, c, scale=0.1)]
+    return lb.f2_ffn_weights(c, lambda *shape, scale=1.0: _t(rng, *shape,
+                                                               scale=scale))
 
 
 def _f2_args(rng, kernel):
@@ -228,29 +213,30 @@ def _f2_args(rng, kernel):
                 + ones(c) + _f2_ffn_w(rng, c) + [1e-6, _dps(rng, B)])
         if kernel == "passes":
             return (lb.block_ffn, lb.block_ffn_plain,
-                    _ffn_rounded_hidden_plain, None, args, "lewin_ffn")
+                    lb.ffn_rounded_hidden_plain, None, args, "lewin_ffn")
         return (lb.block_ffn_split, lb.lewin_ffn_split_plain,
-                _ffn_rounded_hidden_plain, None, args, "lewin_ffn_split")
+                lb.ffn_rounded_hidden_plain, None, args, "lewin_ffn_split")
     if kernel == "merged":
         a = _attn(rng, B, bf)
         args = (a[:1] + ones(C) + a[3:] + [_mask(), _t(rng, B, H, scale=0.3)]
                 + ones(C) + _f2_ffn_w(rng, C) + [WIN, 4, 1e-6, None, None])
         return (lb.block_merged, lb.block_merged_plain,
                 lambda *x: lb.merged_chain(lb.block_attention_plain,
-                                           _ffn_rounded_hidden_plain, *x),
+                                           lb.ffn_rounded_hidden_plain, *x),
                 lambda *x: lb.merged_chain(lb.block_attention, lb.block_ffn,
                                            *x), args, "lewin_merged")
     a = _attn(rng, L * B, bf, groups=L)
     b = _attn(rng, L * B, bf)
-    args = (a[:1] + ones(C) + a[3:] + b[3:11]
-            + [_t(rng, H, L * N, L * N, scale=0.05), _mask()] + ones(C)
+    biasB, pairs = _inter_bias(rng, H)
+    args = (a[:1] + ones(C) + a[3:] + b[3:11] + [biasB, _mask()] + ones(C)
             + _f2_ffn_w(rng, C) + [L, WIN, 4, 1e-6, None, None])
     return (lb.block_freq_merged, lb.block_freq_merged_plain,
             lambda *x: lb.freq_merged_chain(lb.freq_intra_plain,
                                             lb.freq_inter_plain,
-                                            _ffn_rounded_hidden_plain, *x),
-            lambda *x: lb.freq_merged_chain(lb.freq_intra, lb.freq_inter,
-                                            lb.block_ffn, *x),
+                                            lb.ffn_rounded_hidden_plain, *x),
+            lambda *x: lb.freq_merged_chain(
+                lb.freq_intra, functools.partial(lb.freq_inter, pairs=pairs),
+                lb.block_ffn, *x),
             args, "freq_merged")
 
 
@@ -302,16 +288,17 @@ def test_block_freq_merged_kernel(card, dtype, shift):
     K3 and K2 around torch.roll (:func:`_check_chain`)."""
     a = _attn(card, L * B, dtype, groups=L)
     b = _attn(card, L * B, dtype)
-    args = (a + b[3:11] + [_t(card, H, L * N, L * N, scale=0.05),
-                           _mask() if shift else None]
+    biasB, pairs = _inter_bias(card, H)
+    args = (a + b[3:11] + [biasB, _mask() if shift else None]
             + _ln(card) + _ffn_w(card)
             + [L, WIN, shift, 1e-6, _dps(card, L * B), _dps(card, L * B)])
     lb.reset_launches()
     got = lb.block_freq_merged(*args)
     assert lb.LAUNCHES["freq_merged"] == 1 and sum(lb.LAUNCHES.values()) == 1
     _check(got, lb.block_freq_merged_plain(*args), dtype)
-    chain = lb.freq_merged_chain(lb.freq_intra, lb.freq_inter, lb.block_ffn,
-                                 *args)
+    chain = lb.freq_merged_chain(
+        lb.freq_intra, functools.partial(lb.freq_inter, pairs=pairs),
+        lb.block_ffn, *args)
     _check_chain(got, chain, dtype)
 
 
@@ -358,13 +345,14 @@ def test_merged_kernels_at_widths_off_the_vector_paths(card, monkeypatch,
                                       *args), dtype)
     a = _attn(card, L * B, dtype, groups=L)
     b = _attn(card, L * B, dtype)
-    args = (a + b[3:11] + [_t(card, 1, L * N, L * N, scale=0.05), _mask()]
-            + _ln(card) + _ffn_w(card)
+    biasB, pairs = _inter_bias(card, 1)
+    args = (a + b[3:11] + [biasB, _mask()] + _ln(card) + _ffn_w(card)
             + [L, WIN, 4, 1e-6, _dps(card, L * B), _dps(card, L * B)])
     got = lb.block_freq_merged(*args)
     _check(got, lb.block_freq_merged_plain(*args), dtype)
     _check_chain(got, lb.freq_merged_chain(
-        lb.freq_intra, lb.freq_inter, lb.block_ffn, *args), dtype)
+        lb.freq_intra, functools.partial(lb.freq_inter, pairs=pairs),
+        lb.block_ffn, *args), dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -122,6 +122,23 @@ def test_dcn_function_without_bias():
         torch.testing.assert_close(a, r, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("cin,cout,dtype,want", [
+    (64, 64, torch.bfloat16, "implicit"),   # DGRN's DCNs
+    (3, 3, torch.bfloat16, "implicit"),
+    (48, 64, torch.bfloat16, "implicit"),
+    (64, 112, torch.bfloat16, "columns"),   # Cout above the limit
+    (112, 112, torch.bfloat16, "columns"),  # the deformable LeFF at res 128
+    (896, 896, torch.bfloat16, "columns"),  # ... and at res 8 / 16
+    (64, 64, torch.float32, "columns"),     # fp32 has the column route only
+])
+def test_dcn_path_chooser(cin, cout, dtype, want):
+    """dcn_path: K11 in bf16 as the implicit GEMM where both widths are at
+    most DCN_IMPLICIT_MAX_C (where it measured ahead), the column route
+    elsewhere."""
+    assert tdcn.DCN_IMPLICIT_MAX_C == 64
+    assert tdcn.dcn_path(cin, cout, dtype) == want
+
+
 def test_dcn_launcher_rejects_cpu_tensors():
     x, off, mask, w, b = (_t(a) for a in _inputs())
     with pytest.raises(ValueError, match="CUDA"):

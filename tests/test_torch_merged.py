@@ -237,7 +237,7 @@ def test_lewin_block_routes_agree_on_the_cpu(msa_type, impl):
     # the batch: merged from 32768 tokens (images x res^2) up
     ("origin", 128, 4, torch.bfloat16, 2, "kernel"),
     ("origin", 128, 4, torch.bfloat16, 1, "kernel"),
-    ("origin", 64, 4, torch.bfloat16, 8, "merged"),
+    ("origin", 64, 4, torch.bfloat16, 8, "kernel"),  # C = 112: the chain
     ("origin", 32, 4, torch.bfloat16, 33, "merged"),
     ("origin", 32, 4, torch.bfloat16, 31, "merged"),
     ("origin", 32, 4, torch.bfloat16, 16, "merged"),
@@ -247,9 +247,9 @@ def test_default_route_follows_the_measured_table(msa_type, res, shift, dtype,
                                                   batch, want):
     """impl='default' takes the merged kernel exactly for the blocks in
     DEFAULT_MERGED (shifted origin blocks in bf16, keyed by width) on a
-    batch of at least the entry's tokens (res 32 at C = 224: 4096, res 64
-    at C = 112: 16384); a fixed impl is its own route whatever the block and
-    the batch."""
+    batch of at least the entry's tokens (res 32 at C = 224: 4096, at
+    C = 448: 16384; res 64 at C = 224: 131072, B = 32); a fixed impl is its
+    own route whatever the block and the batch."""
     kw = dict(msa_type=msa_type, L=L, all_bands_dc=msa_type == "origin",
               encoder_embed_dim=2, shift_size=shift)
     dim = FLAGSHIP_WIDTH[res]   # the table is keyed by the block's width
@@ -269,8 +269,12 @@ def test_default_route_follows_the_measured_table(msa_type, res, shift, dtype,
     (448, 32, 16, "merged"),     # the up path's, from 16384 tokens
     (448, 32, 8, "kernel"),
     (112, 32, 32, "kernel"),     # a width the table does not name
-    (224, 64, 4, "merged"),      # the up path at res 64
-    (112, 128, 4, "merged"),
+    (224, 64, 4, "kernel"),      # the up path at res 64: from B = 32
+    (224, 64, 31, "kernel"),
+    (224, 64, 32, "merged"),
+    (112, 64, 32, "kernel"),     # C = 112: the chain at every batch
+    (112, 128, 4, "kernel"),
+    (112, 128, 32, "kernel"),
     (56, 128, 32, "kernel"),     # the down path at res 128
 ])
 def test_default_merged_table_is_keyed_by_width(dim, res, batch, want):
@@ -314,6 +318,8 @@ def test_k1_path_chooser(dim, heads, win, dtype, want):
     (56, 2, 8, 3, torch.bfloat16, 256, "fused"),    # res 64, B=4
     (112, 4, 8, 3, torch.bfloat16, 512, "fused"),   # res 32, B=32
     (112, 4, 8, 3, torch.bfloat16, 256, "fused"),
+    (112, 4, 8, 3, torch.bfloat16, 128, "fused"),   # res 32, B=8
+    (112, 4, 8, 3, torch.bfloat16, 112, "passes"),  # not timed: the passes
     (112, 4, 8, 3, torch.bfloat16, 64, "passes"),   # res 32, B=4
     (112, 4, 8, 3, torch.bfloat16, None, "fused"),  # any launch
     (16, 2, 8, 3, torch.bfloat16, 8, "fused"),
@@ -361,6 +367,29 @@ def test_inter_bias_from_pairs_is_the_grouped_bias():
     op = port.kernel_operands(torch.float32)
     assert torch.equal(op.pairs, torch.from_numpy(tables))
     assert torch.equal(op.bias, assembled)
+
+
+def test_rounded_hidden_twin_shows_on_the_f2_weights():
+    """ffn_rounded_hidden_plain (the LeFF's rounding points before the
+    hidden was kept in fp32) equals block_ffn_plain bit for bit in fp32; in
+    bf16, on f2_ffn_weights, it misses block_ffn_plain away from the rim
+    by far more than the output's own bf16 spacing at its size (2^-6 below
+    4), which is what lets the card check tell the two roundings apart."""
+    g = torch.Generator().manual_seed(0)
+    randn = lambda *shape, scale=1.0: torch.randn(*shape, generator=g) * scale
+    w = tlb.f2_ffn_weights(C, randn)
+    assert [t.shape for t in w] == [(C, 4 * C), (4 * C,), (3, 3, 4 * C),
+                                    (4 * C,), (4 * C, C), (C,)]
+    x = randn(2, 8, 8, C, scale=0.5)
+    ln = [torch.ones(C), torch.zeros(C)]
+    assert torch.equal(tlb.ffn_rounded_hidden_plain(x, *ln, *w),
+                       tlb.block_ffn_plain(x, *ln, *w))
+    xb = x.bfloat16()
+    inner = (slice(None), slice(1, -1), slice(1, -1))
+    want = tlb.block_ffn_plain(xb, *ln, *w).float()[inner]
+    bad = tlb.ffn_rounded_hidden_plain(xb, *ln, *w).float()[inner]
+    assert want.abs().max() < 4
+    assert (bad - want).abs().max() >= 4 * 2.0 ** -6
 
 
 def test_lewin_block_rejects_unknown_impl():

@@ -13,9 +13,10 @@ table (``chip_smoke.py::K1_STAGES``); with ``--k4``, the merged block K4
 (bf16) at the res-32 stages the default route runs it (C = 224 and 448),
 also the device clock at each of its phases' grid barriers; with ``--k3``,
 the cross-band attention K3 (bf16) at every encoder stage
-(``chip_smoke.py::K3_STAGES``), as ``freq_inter_path`` runs it and in its
-four passes; with ``--k11``, the DCN K11 (bf16) at
-``chip_smoke.py::DCN_STAGES``; with ``--f2``, the launches that hold the
+(``chip_smoke.py::K3_STAGES``), as ``freq_inter_path`` runs it, in its
+four passes and fused where the form fits but the launch is too small for
+the chooser; with ``--k11``, the DCN K11 (bf16) at
+``chip_smoke.py::DCN_STAGES`` by both routes; with ``--f2``, the launches that hold the
 LeFF's hidden in device memory (K2's passes, K4, K5, K13) at every stage
 each serves.
 
@@ -120,10 +121,14 @@ def main(argv=None) -> int:
     elif args.k10:
         cases = [k10_case(wa, c) for c in chip_smoke.window_cases(
             windows, dtype, args.batch) if "res128" in c.label]
-    elif args.k3:  # the launch by freq_inter_path, then the four passes
-        cases = []
-        for c, _, passes in chip_smoke.k3_cases(lb, windows, args.batch):
+    elif args.k3:  # the launch by freq_inter_path, then the four passes,
+        cases = []  # and the fused form where it fits but is not chosen
+        for c, _, passes, fused in chip_smoke.k3_cases(lb, windows, args.batch):
+            M, C, h, keys = c.dims
             cases += [c, passes]
+            if lb.freq_inter_path(C, h, 8, torch.bfloat16) != lb.freq_inter_path(
+                    C, h, 8, torch.bfloat16, 3, M // keys):
+                cases.append(fused)
     elif args.f2:
         cases = f2_cases(chip_smoke, lb, windows, args.batch)
     elif args.k11:
@@ -161,14 +166,14 @@ def main(argv=None) -> int:
 def f2_cases(chip_smoke, lb, windows, batch):
     """The launches that hold the LeFF's hidden in device memory, bf16 on
     ``batch`` tiles: K2 where it runs its passes (C = 448 and 896), K4 at
-    the shifted decoder stages the default route merges, K5 at every
+    the shifted decoder stages of the F2 check, K5 at every
     encoder stage, K13 at the C = 896 stages."""
     from chip_smoke import BwdCase
 
     def as_case(c):
         return BwdCase(c.kernel, c.label, c.timed, lambda: None, c.flops, 0)
     cases = [c for c, _ in chip_smoke.k2_cases(lb, batch) if c.dims[1] >= 448]
-    merged = {(res, C) for res, C, *_ in chip_smoke.DEFAULT_MERGED_STAGES}
+    merged = set(chip_smoke.F2_MERGED)
     for c in chip_smoke.kernel_cases(lb, windows, torch.bfloat16, batch):
         if c.kernel == "freq_merged" or (
                 c.kernel == "lewin_merged" and c.stage[2]
