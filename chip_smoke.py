@@ -70,8 +70,11 @@ Phases, each fatal on failure:
 10. the kernels of the decoder's injection methods: the window attention
     K9 and its backward K10 against their plain versions at the main
     path's three window shapes ((n, nk, d) = (64, 64, 56), (64, 192, 56),
-    (192, 192, 28)) at res 128, shifted and not, and at res 8, in bf16 and
-    fp32 (K10: every output, equal bits on a second launch), beside
+    (192, 192, 28)) at res 128, shifted and not, and at res 8, in bf16
+    (B=32 and B=4) and fp32 (B=4); K9 on the strided views and the one
+    window's tables the unfused blocks hand it, with its launches in a
+    per-scale-set forward x (time - bound); K10 on the joined operands,
+    every output, equal bits on a second launch; beside
     ``scaled_dot_product_attention`` with the same additive bias and mask
     (K10 over the library's backward printed for each case);
     ``WindowAttentionFn`` against autograd of the plain forward; the DCN
@@ -113,8 +116,9 @@ Phases, each fatal on failure:
     joint step of the DGRN families by both routes (1 x 2 DGRN blocks), and
     its time at full depth by the default route; first, K14 (the DCN's
     backward) against ``dcn_bwd_plain`` at DGRN's and the deform LeFF's
-    shapes, bf16 and fp32, every output, equal bits on a second launch,
-    with times and bounds;
+    shapes and with every sample of an image sent to one pixel, bf16 and
+    fp32, every output, equal bits on a second launch, with times, bounds
+    and launches a ``resnet_dgrn`` step x (time - bound);
 15. reproducible steps: three joint steps of the flagship, of the per-scale
     set (a ``deform_conv`` user) and of ``resnet_dgrn`` (bf16, B=4, full
     width and depth, the default route) twice from one saved state on a
@@ -2278,6 +2282,15 @@ WINDOW_SHAPES = (
     (64, 192, 56, 2, 16, "decoder block, attention_kv"),
     (192, 192, 28, 1, 16, "encoder need_kv block, 3 bands"),
 )
+# K9's launches in one eval forward of the per-scale set, by the phase-10
+# case they match ((n, nk, res, shift); counted on its forward): the decoder
+# runs attention_kv's (64, 192) in every unfused block, the encoder (192,
+# 192) in its need_kv blocks (the shifted last block of each stage)
+K9_PER_SCALE_LAUNCHES = {(64, 64, 128, 0): 0, (64, 64, 128, 4): 0,
+                         (64, 64, 8, 0): 0, (64, 192, 128, 0): 1,
+                         (64, 192, 128, 4): 1, (64, 192, 8, 0): 6,
+                         (192, 192, 128, 0): 0, (192, 192, 128, 4): 2,
+                         (192, 192, 8, 0): 2}
 # the deform_conv LeFF's DCN at every stage it runs, then DGRN's behind the
 # ResNet encoder (C = 64) and behind the ViT (C = 3): (res, C)
 DCN_STAGES = ((128, 112), (64, 224), (32, 448), (16, 896), (8, 896),
@@ -2295,10 +2308,16 @@ class AttnCase(NamedTuple):
     nW: int
 
 
-def window_cases(windows, dtype, B):
+def window_cases(windows, dtype, B, strided=False):
     """K9 / K10 at the main path's shapes: each (n, nk, d) at res 128,
-    shifted (the SW-MSA mask tiled along the keys as the model tiles it)
-    and not, and at res 8; B images, so B * (res / 8)^2 windows."""
+    shifted and not, and at res 8; B images, so B * (res / 8)^2 windows.
+    With ``strided``, the operands as the unfused blocks hand them to K9:
+    q / k / v views of the projections' outputs (the decoder's ``to_q`` /
+    ``to_kv`` or ``attention_kv``'s ``to_k`` / ``to_v`` ``[B', n, h d]``, the
+    encoder's band-major ``[L, B'/L, 64, h d]``), the bias one window's
+    ``[h, n, 64]`` (the encoder's grouped ``[h, 192, 192]``), the SW-MSA mask
+    one window's ``[nW, 64, 64]``; else contiguous ``[W, h, n, d]`` operands
+    and the tables tiled to ``[n, nk]``, the form every K9 takes."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     rnd = lambda *shape, scale=1.0: torch.randn(
         *shape, generator=gen, device="cuda") * scale
@@ -2306,24 +2325,55 @@ def window_cases(windows, dtype, B):
     for n, nk, d, h128, h8, what in WINDOW_SHAPES:
         for res, h, shift in ((128, h128, 0), (128, h128, 4), (8, h8, 0)):
             nW = (res // 8) ** 2
-            W = B * nW
+            W, C = B * nW, h * d
             mask = None
             if shift:
-                m = torch.from_numpy(windows.shift_attn_mask(res, res, 8, shift))
-                mask = m.repeat(1, n // 64, nk // 64).cuda()
-            cases.append(AttnCase(
-                f"window_attn n{n} nk{nk} d{d} h{h} res{res} shift{shift} "
-                f"({what})", rnd(W, h, n, d).to(dtype), rnd(W, h, nk, d).to(dtype),
-                rnd(W, h, nk, d).to(dtype), rnd(h, n, nk, scale=0.5), mask,
-                d ** -0.5, nW))
+                mask = torch.from_numpy(
+                    windows.shift_attn_mask(res, res, 8, shift)).cuda()
+            bias = rnd(h, n, nk if n == 192 else 64, scale=0.5)
+            label = (f"window_attn n{n} nk{nk} d{d} h{h} res{res} shift{shift} "
+                     f"({what}; {'strided' if strided else 'contiguous'})")
+            if not strided:
+                tile = lambda t: None if t is None else t.repeat(
+                    1, n // t.shape[1], nk // t.shape[2])
+                cases.append(AttnCase(
+                    label, rnd(W, h, n, d).to(dtype), rnd(W, h, nk, d).to(dtype),
+                    rnd(W, h, nk, d).to(dtype), tile(bias), tile(mask),
+                    d ** -0.5, nW))
+                continue
+            split = lambda t: t.reshape(W, t.shape[1], h, d).permute(0, 2, 1, 3)
+            if n == 192:  # the encoder: bands major, 64 tokens a band
+                L = n // 64
+                band = lambda t: t.reshape(L, W, 64, h, d).permute(1, 3, 0, 2, 4)
+                xq, xkv = rnd(L, W, 64, C).to(dtype), rnd(L, W, 64, 2 * C).to(dtype)
+                q, k, v = band(xq), band(xkv[..., :C]), band(xkv[..., C:])
+            elif nk == n:  # to_q and to_kv
+                xq, xkv = rnd(W, n, C).to(dtype), rnd(W, n, 2 * C).to(dtype)
+                q, k, v = split(xq), split(xkv[..., :C]), split(xkv[..., C:])
+            else:  # attention_kv: to_k and to_v on the encoder's K / V
+                q = split(rnd(W, n, C).to(dtype))
+                k, v = split(rnd(W, nk, C).to(dtype)), split(rnd(W, nk, C).to(dtype))
+            cases.append(AttnCase(label, q, k, v, bias, mask, d ** -0.5, nW))
     return cases
+
+
+def joined(c: AttnCase) -> AttnCase:
+    """The case as K10 and ``scaled_dot_product_attention`` take it:
+    contiguous ``[W, h, n, d]`` operands, the tables tiled to ``[n, nk]``."""
+    flat = lambda t: t.reshape(t.shape[0], t.shape[1], -1, t.shape[-1]).contiguous()
+    q, k, v = flat(c.q), flat(c.k), flat(c.v)
+    n, nk = q.shape[2], k.shape[2]
+    tile = lambda t: None if t is None else t.repeat(
+        1, n // t.shape[1], nk // t.shape[2])
+    return c._replace(q=q, k=k, v=v, bias=tile(c.bias), mask=tile(c.mask))
 
 
 def attn_bound(c: AttnCase, dtype, backward: bool):
     """Bytes: q, k, v (and g) read, bias and mask read, the outputs written
     once; operations: the two products forward, five backward."""
-    W, h, n, d = c.q.shape
-    nk = c.k.shape[2]
+    W, h, d = c.q.shape[0], c.q.shape[1], c.q.shape[-1]
+    n = c.q.numel() // (W * h * d)
+    nk = c.k.numel() // (W * h * d)
     size = c.q.element_size()
     qkv = (W * h * n * d + 2 * W * h * nk * d) * size
     tables = c.bias.numel() * 4 + (0 if c.mask is None else c.mask.numel() * 4)
@@ -2340,6 +2390,7 @@ def attn_bound(c: AttnCase, dtype, backward: bool):
 def sdpa_inputs(c: AttnCase):
     """The case as ``scaled_dot_product_attention`` takes it: windows split
     into (images, windows per image), the additive bias + mask broadcast."""
+    c = joined(c)
     W, h, n, d = c.q.shape
     split = lambda t: t.reshape(W // c.nW, c.nW, h, t.shape[2], d)
     add = c.bias[None, None]
@@ -2358,6 +2409,7 @@ def library_attention_ms(c: AttnCase, backward: bool):
         if not backward:
             return time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=add, scale=c.scale), iters=5)
+        c = joined(c)
         ins = [t.detach().requires_grad_() for t in (q, k, v)]
         bias = c.bias.detach().requires_grad_()
         add = bias[None, None] + (0 if c.mask is None else c.mask[None, :, None])
@@ -2372,17 +2424,20 @@ def library_attention_ms(c: AttnCase, backward: bool):
 
 
 def check_window_attention(wa, windows, stats, card: str):
-    """K9 against ``window_attention_plain`` and K10 against
-    ``window_attention_bwd_plain`` at every case, bf16 at the eval batch
-    (B=32) and the training batch (B=4) and fp32 at B=4 (the kernels line
-    takes K10 at B=4); K10's dbias on the
-    floor rule of the backward checks, and equal bits on a second launch."""
+    """K9 against ``window_attention_plain`` on the strided operands and the
+    untiled tables the unfused blocks hand it, and K10 against
+    ``window_attention_bwd_plain`` on the joined, tiled ones, at every case,
+    bf16 at the eval batch (B=32) and the training batch (B=4) and fp32 at
+    B=4 (the kernels line takes K10 at B=4); K9's time beside the plain
+    version's, SDPA's, the bound and its launches in a per-scale-set eval
+    forward x (time - bound); K10's dbias on the floor rule of the backward
+    checks, and equal bits on a second launch."""
     for dtype, B, fwd, bwd in ((torch.bfloat16, BATCH, True, True),
-                               (torch.bfloat16, TRAIN_BATCH, False, True),
+                               (torch.bfloat16, TRAIN_BATCH, True, True),
                                (torch.float32, TRAIN_BATCH, True, True)):
         name_dt = str(dtype)[6:]
         print(f"window attention checks, {name_dt}, B={B} ({card}):", flush=True)
-        for c in window_cases(windows, dtype, B):
+        for c in window_cases(windows, dtype, B, strided=True):
             label = f"{c.label} {name_dt} B{B}"
             args = (c.q, c.k, c.v, c.bias, c.mask, c.scale, c.nW)
             if fwd:
@@ -2394,10 +2449,17 @@ def check_window_attention(wa, windows, stats, card: str):
                 pms = time_ms(lambda: wa.window_attention_plain(*args), iters=3)
                 lms = library_attention_ms(c, False)
                 bound, by = attn_bound(c, dtype, False)
+                n = c.q.numel() // (c.q.shape[0] * c.q.shape[1] * c.q.shape[-1])
+                nk = c.k.numel() // (c.k.shape[0] * c.k.shape[1] * c.k.shape[-1])
+                res = 8 * int(round(c.nW ** 0.5))
+                runs = K9_PER_SCALE_LAUNCHES[(n, nk, res, 0 if c.mask is None
+                                              else 4)]
                 print(f"    time: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
                       f"scaled_dot_product_attention "
                       f"{'-' if lms is None else f'{lms:.4f}'} ms, bound "
-                      f"{bound:.4f} ms by {by}", flush=True)
+                      f"{bound:.4f} ms by {by}; {runs} launches a per-scale-set "
+                      f"forward x (time - bound) {runs * (ms - bound):.3f} ms",
+                      flush=True)
                 st = stats["window_attn"]
                 st["max_abs_err"] = max(st["max_abs_err"], err)
                 if dtype == torch.bfloat16 and st["ms"] is None:
@@ -2405,6 +2467,7 @@ def check_window_attention(wa, windows, stats, card: str):
                               library_ms=lms)
                 del got
             if bwd:
+                c = joined(c)
                 g = torch.randn(c.q.shape, device="cuda", generator=torch.Generator(
                     device="cuda").manual_seed(4)).to(dtype)
                 bargs = (c.q, c.k, c.v, c.bias, c.mask, g, c.scale, c.nW)
@@ -2440,7 +2503,7 @@ def check_window_attention(wa, windows, stats, card: str):
 def check_window_function(wa, windows, dtype):
     """``WindowAttentionFn`` (K9 forward, K10 backward) against autograd of
     the plain forward, at the attention_kv shape of res 128, shifted (B=4)."""
-    c = [c for c in window_cases(windows, dtype, TRAIN_BATCH)
+    c = [c for c in window_cases(windows, dtype, TRAIN_BATCH, strided=True)
          if c.k.shape[2] == 192 and c.q.shape[2] == 64][1]
     ins = [t.detach().requires_grad_() for t in (c.q, c.k, c.v, c.bias)]
     g = torch.randn(c.q.shape, device="cuda", generator=torch.Generator(
@@ -3139,54 +3202,87 @@ def families(config, airnet, port_test, port_train, ckpt, train_state,
 DCN_BWD_SHAPES = (("DGRN", 128, 64), ("deform LeFF", 128, 112))
 
 
-def check_dcn_bwd(dc, stats, card: str):
-    """Phase 14a: K14 against ``dcn_bwd_plain`` at DGRN's and the deform
-    LeFF's shapes, bf16 and fp32, B=4, offsets up to +-3.5 (past every
-    edge, some on integer coordinates), the modulation in [0.1, 0.9]; every
-    output, equal bits on a second launch, time, plain time and bound (the
-    bytes of x, offset, mask, weight and g read once and of the four
-    gradients written once; the operations of the dcol and dW products)."""
+def convergent_offsets(B, res, dtype):
+    """Offsets ``[B, res, res, 18]`` that send every sample of an image to
+    the point (res / 2 + 0.5, res / 2 + 0.5): one base corner, so one bucket
+    of ``res^2 * 9`` samples. Each offset is a half-integer below 128 in
+    magnitude, exact in bf16."""
+    i = torch.arange(res, device="cuda", dtype=torch.float32)
+    t = torch.arange(3, device="cuda", dtype=torch.float32)
+    c = res / 2 + 0.5
+    dy = c - (i[:, None, None, None] - 1 + t[None, None, :, None])  # [res, 1, 3, 1]
+    dx = c - (i[None, :, None, None] - 1 + t[None, None, None, :])  # [1, res, 1, 3]
+    dy = dy.expand(res, res, 3, 3).reshape(res, res, 9)
+    dx = dx.expand(res, res, 3, 3).reshape(res, res, 9)
+    return torch.cat([dy, dx], -1)[None].expand(B, res, res, 18).to(dtype)
+
+
+def dcn_bwd_cases(dc, dtype, B=TRAIN_BATCH, convergent=True):
+    """K14 at ``DCN_BWD_SHAPES`` (offsets up to +-3.5, past every edge, some
+    on integer coordinates, the modulation in [0.1, 0.9]), then DGRN's shape
+    with the offsets of :func:`convergent_offsets`. ``nbytes``: x, offset,
+    mask, weight and g read once, the four gradients written once;
+    ``flops``: the dcol and dW products."""
     gen = torch.Generator(device="cuda").manual_seed(9)
-    B = TRAIN_BATCH
-    for dtype in (torch.bfloat16, torch.float32):
-        name_dt = str(dtype)[6:]
-        print(f"K14 (DCN backward) checks, {name_dt}, B={B} ({card}):",
-              flush=True)
-        for where, res, C in DCN_BWD_SHAPES:
-            rnd = lambda *shape: torch.rand(*shape, generator=gen, device="cuda")
-            x = (torch.randn(B, res, res, C, generator=gen, device="cuda")
-                 * 0.5).to(dtype)
+    shapes = [(where, res, C, False) for where, res, C in DCN_BWD_SHAPES]
+    if convergent:
+        shapes.append(("DGRN, offsets to one pixel", 128, 64, True))
+    cases = []
+    for where, res, C, conv in shapes:
+        rnd = lambda *shape: torch.rand(*shape, generator=gen, device="cuda")
+        x = (torch.randn(B, res, res, C, generator=gen, device="cuda")
+             * 0.5).to(dtype)
+        if conv:
+            off = convergent_offsets(B, res, dtype)
+        else:
             off = rnd(B, res, res, 18) * 7 - 3.5
             off[:, ::3, ::2] = off[:, ::3, ::2].round()
-            off, mask = off.to(dtype), (0.1 + 0.8 * rnd(B, res, res, 9)).to(dtype)
-            w = (torch.randn(3, 3, C, C, generator=gen, device="cuda")
-                 * (9 * C) ** -0.5).to(dtype)
-            g = torch.randn(B, res, res, C, generator=gen, device="cuda").to(dtype)
-            args = (x, off, mask, w, None, g, 1, 1)
-            label = f"dcn_bwd {where} res{res} C{C} {name_dt} B{B}"
-            got = dc.dcn_bwd_kernel(*args)
+            off = off.to(dtype)
+        mask = (0.1 + 0.8 * rnd(B, res, res, 9)).to(dtype)
+        w = (torch.randn(3, 3, C, C, generator=gen, device="cuda")
+             * (9 * C) ** -0.5).to(dtype)
+        g = torch.randn(B, res, res, C, generator=gen, device="cuda").to(dtype)
+        args = (x, off, mask, w, None, g, 1, 1)
+        nbytes = (sum(t.numel() * t.element_size() for t in (x, off, mask, w, g))
+                  + x.numel() * x.element_size()
+                  + 4 * (off.numel() + mask.numel() + w.numel()))
+        cases.append(BwdCase(
+            "dcn_bwd", f"dcn_bwd {where} res{res} C{C} {str(dtype)[6:]} B{B}",
+            functools.partial(dc.dcn_bwd_kernel, *args),
+            functools.partial(dc.dcn_bwd_plain, *args),
+            2 * 2.0 * B * res * res * 9 * C * C, nbytes, (B * res * res, C)))
+    return cases
+
+
+def check_dcn_bwd(dc, stats, card: str):
+    """Phase 14a: K14 against ``dcn_bwd_plain`` at the cases of
+    :func:`dcn_bwd_cases`, bf16 and fp32, B=4: every output, equal bits on a
+    second launch, time, plain time, bound and launches x (time - bound) a
+    ``resnet_dgrn`` step (DGRN_DCNS launches)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        name_dt = str(dtype)[6:]
+        print(f"K14 (DCN backward) checks, {name_dt}, B={TRAIN_BATCH} "
+              f"({card}):", flush=True)
+        for case in dcn_bwd_cases(dc, dtype):
+            got = case.run()
             torch.cuda.synchronize()
-            err = compare_all(label, got, dc.dcn_bwd_plain(*args),
-                              BWD_TOL[dtype])
-            again = dc.dcn_bwd_kernel(*args)
+            err = compare_all(case.label, got, case.plain(), BWD_TOL[dtype])
+            again = case.run()
             if not all(torch.equal(a, b) for a, b in zip(got, again)
                        if a is not None):
-                raise Failed(f"{label}: two launches give different bits")
+                raise Failed(f"{case.label}: two launches give different bits")
             del got, again
-            ms = time_ms(lambda: dc.dcn_bwd_kernel(*args), iters=5)
-            pms = time_ms(lambda: dc.dcn_bwd_plain(*args), iters=3, warmup=1)
-            nbytes = (sum(t.numel() * t.element_size()
-                          for t in (x, off, mask, w, g))
-                      + x.numel() * x.element_size()
-                      + 4 * (off.numel() + mask.numel() + w.numel()))
-            t_bytes = nbytes / PEAK_BYTES * 1e3
-            t_flops = (2 * 2.0 * B * res * res * 9 * C * C
-                       / PEAK_FLOPS[dtype] * 1e3)
+            ms = time_ms(case.run, iters=5)
+            pms = time_ms(case.plain, iters=3, warmup=1)
+            t_bytes = case.nbytes / PEAK_BYTES * 1e3
+            t_flops = case.flops / PEAK_FLOPS[dtype] * 1e3
             bound, by = max(t_bytes, t_flops), (
                 "bytes" if t_bytes >= t_flops else "operations")
             print(f"    time: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
-                  f"{bound:.4f} ms by {by}; equal bits on a second launch "
-                  "(no PyTorch call computes a DCN's backward)", flush=True)
+                  f"{bound:.4f} ms by {by}; {DGRN_DCNS} launches x (time - "
+                  f"bound) {DGRN_DCNS * (ms - bound):.2f} ms; equal bits on a "
+                  "second launch (no PyTorch call computes a DCN's backward)",
+                  flush=True)
             st = stats["dcn_bwd"]
             st["max_abs_err"] = max(st["max_abs_err"], err)
             if dtype == torch.bfloat16 and st["ms"] is None:

@@ -160,7 +160,7 @@ __global__ void __launch_bounds__(IG_NT, 1)
       F.w[1] = (1.f - f.fy) * f.fx;
       F.w[2] = f.fy * (1.f - f.fx);
       F.w[3] = f.fy * f.fx;
-      F.m = c.mask[pix * K + t];
+      F.m = om_at(c, c.mask, pix * K + t);
       if (F.ok) {
         y0 = min(y0, r0 ? f.iy : f.iy + 1);
         y1 = max(y1, r1 ? f.iy + 1 : f.iy);

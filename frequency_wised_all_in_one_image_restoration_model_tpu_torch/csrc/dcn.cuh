@@ -23,7 +23,14 @@ struct ColArgs {
   void* cols;
   int B, H, W, C, Ho, Wo, kh, kw, pad, dil, ldc;
   float clamp;
+  int bf16_om;  // offset and mask stored in bf16 (else fp32)
 };
+
+// element i of the offset or the mask
+__device__ __forceinline__ float om_at(const ColArgs& a, const float* p,
+                                       long long i) {
+  return a.bf16_om ? __bfloat162float(reinterpret_cast<const bf16_t*>(p)[i]) : p[i];
+}
 
 // V consecutive channels moved as one access (16 bytes when the rows allow)
 template <typename T, int V>
@@ -41,7 +48,8 @@ struct Footing {
 __device__ __forceinline__ Footing footing(const ColArgs& a, long long pix,
                                            int oy, int ox, int t) {
   const int K = a.kh * a.kw;
-  float dy = a.off[pix * 2 * K + t], dx = a.off[pix * 2 * K + K + t];
+  float dy = om_at(a, a.off, pix * 2 * K + t),
+        dx = om_at(a, a.off, pix * 2 * K + K + t);
   if (a.clamp >= 0.f) {
     dy = fminf(fmaxf(dy, -a.clamp), a.clamp);
     dx = fminf(fmaxf(dx, -a.clamp), a.clamp);
@@ -87,7 +95,7 @@ __global__ void __launch_bounds__(256) cols_kernel(const ColArgs a) {
   for (int e = lane; e < K * cv; e += 32) {
     const int t = e / cv, c = (e - t * cv) * V;
     const Footing f = footing(a, pix, oy, ox, t);
-    const float m = a.mask[pix * K + t];
+    const float m = om_at(a, a.mask, pix * K + t);
     const float fy = f.fy, fx = f.fx;
     const int iy = f.iy, ix = f.ix;
     const bool r0 = iy >= 0, r1 = iy + 1 < a.H, c0 = ix >= 0, c1 = ix + 1 < a.W;

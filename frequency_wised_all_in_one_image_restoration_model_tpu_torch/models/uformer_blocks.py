@@ -134,17 +134,20 @@ class LinearProjection(nn.Module):
 
 def _core(q, k, v, bias, mask, nW: int, plain: bool) -> torch.Tensor:
     """The window-attention core on ``q [B', h, n, d]``, ``k, v [B', h, nk,
-    d]``: K9 through its autograd Function (the plain function on a CPU
-    tensor), or the plain function for ``plain``. ``[B', n, h * d]`` in q's
-    dtype."""
-    b_, h, n, d = q.shape
-    scale = d ** -0.5
+    d]`` (views; or banded ``[B', h, L, n / L, d]``), the bias and the mask
+    as one window's tables: K9 through its autograd Function (the plain
+    function on a CPU tensor), or the plain function for ``plain``.
+    ``[L B', n / L, h d]`` in q's dtype, the bands major: on the card K9's
+    own output, no copy."""
+    scale = q.shape[-1] ** -0.5
     if plain:
         out = wa.window_attention_plain(q, k, v, bias, mask, scale, nW)
     else:
-        out = wa.WindowAttentionFn.apply(q.contiguous(), k.contiguous(),
-                                         v.contiguous(), bias, mask, scale, nW)
-    return out.permute(0, 2, 1, 3).reshape(b_, n, h * d)
+        out = wa.WindowAttentionFn.apply(q, k, v, bias, mask, scale, nW)
+    if out.dim() == 4:
+        out = out.unsqueeze(2)
+    b_, h, L, n, d = out.shape
+    return out.permute(2, 0, 3, 1, 4).reshape(L * b_, n, h * d)
 
 
 def _reapply(attn: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -235,12 +238,9 @@ class WindowAttention(KernelParams):
         nk = k.shape[2]
         bias = windows.gather_relative_bias(self.relative_position_bias_table,
                                             self.relative_position_index)
-        ratio = nk // bias.shape[-1]
+        # keys longer than the window (encoder_Uformer.py:161-162): the
+        # window's bias and mask stand for their tiling along the keys
         nW = mask.shape[0] if mask is not None else 1
-        if ratio > 1:  # keys longer than the window (encoder_Uformer.py:161-162)
-            bias = bias.repeat(1, 1, ratio)
-            if mask is not None:
-                mask = mask.repeat(1, 1, ratio)
         nb = self.all_bands_num
         dc_fast = self.all_bands_dc and n == nk
         if self.lamb_bands_num is None and (nb is None or dc_fast):
@@ -339,24 +339,25 @@ class FrequencyWindowAttention(KernelParams):
         return (per_pair.reshape(L, L, h, n, n).permute(2, 0, 3, 1, 4)
                 .reshape(h, L * n, L * n)) + self.band_mask
 
-    def attend(self, xw, mask=None, plain: bool = False):
+    def attend(self, xw, mask=None, plain: bool = False, kv: bool = True):
         """The unfused attention (JAX ``FrequencyWindowAttention.__call__``,
         :431-459) on the band-folded windows ``xw [L*B*nW, n, C]``: q / k / v
-        regrouped to ``[B*nW, h, L*n, d]`` (bands major within a window),
-        the band-masked grouped bias and the SW-MSA mask tiled (L, L), the
-        core K9. ``(out [L*B*nW, n, C], (k, v))`` with the regrouped k, v."""
+        taken band by band within a window (views ``[B*nW, h, L, n, d]``,
+        bands major), the band-masked grouped bias, the SW-MSA mask of one
+        window standing for its (L, L) tiling, the core K9, whose output is
+        already band-folded. ``(out [L*B*nW, n, C], (k, v))`` with k, v
+        regrouped to ``[B*nW, h, L*n, d]`` (``kv``; else None)."""
         b_, n, c = xw.shape
         h, L, dt = self.num_heads, self.L, xw.dtype
         q, k, v = self.qkv(xw, h, dt)
-        regroup = lambda t: (t.reshape(L, b_ // L, h, n, -1)
-                             .permute(1, 2, 0, 3, 4).reshape(b_ // L, h, L * n, -1))
-        q, k, v = regroup(q), regroup(k), regroup(v)
+        band = lambda t: (t.reshape(L, b_ // L, h, n, -1)
+                          .permute(1, 2, 0, 3, 4))
+        q, k, v = band(q), band(k), band(v)
         bias = self._grouped(self._per_pair())
         nW = 1 if mask is None else mask.shape[0]
-        full = None if mask is None else mask.repeat(1, L, L)
-        out = _core(q, k, v, bias, full, nW, plain)
-        out = out.reshape(b_ // L, L, n, c).transpose(0, 1).reshape(b_, n, c)
-        return _linear(self.proj, out, dt), (k, v)
+        out = _core(q, k, v, bias, mask, nW, plain)
+        return (_linear(self.proj, out, dt),
+                (wa.grouped(k), wa.grouped(v)) if kv else None)
 
 
 class LeFF(KernelParams):

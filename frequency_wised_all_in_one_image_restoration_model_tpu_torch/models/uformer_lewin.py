@@ -342,8 +342,8 @@ class LeWinBlock(nn.Module):
             xw = _linear(self.degradation_modulator_embed, xw, dt).reshape(
                 -1, win * win, c)
         if self.msa_type == "freq":
-            xw, _ = self.attn_intra.attend(xw, mask, plain)
-            xw, kv = self.attn_inter.attend(xw, mask, plain)
+            xw, _ = self.attn_intra.attend(xw, mask, plain, kv=False)
+            xw, kv = self.attn_inter.attend(xw, mask, plain, kv=self.need_kv)
         else:
             attn_kv = None
             if "attention_residual" in self.injection:

@@ -294,8 +294,19 @@ def dcn_bwd_kernel(x, offset, mask, weight, bias, g, padding: int = 1,
         raise ValueError(f"{b * ho * wo * k} samples: K14 numbers them in int32")
     dt = x.dtype
     g = g.to(dt).contiguous()
-    off = _f32(offset, (b, ho, wo, 2 * k))
-    msk = _f32(mask, (b, ho, wo, k))
+    # a bf16 step's offset and mask are read as they are (their fp32 values
+    # are exact), other dtypes as fp32 copies
+    om_bf16 = offset.dtype == mask.dtype == torch.bfloat16
+    if om_bf16:
+        off, msk = offset.contiguous(), mask.contiguous()
+        if (tuple(off.shape) != (b, ho, wo, 2 * k)
+                or tuple(msk.shape) != (b, ho, wo, k)):
+            raise ValueError(f"offset {tuple(off.shape)}, mask "
+                             f"{tuple(msk.shape)}: expected {(b, ho, wo, 2 * k)}"
+                             f", {(b, ho, wo, k)}")
+    else:
+        off = _f32(offset, (b, ho, wo, 2 * k))
+        msk = _f32(mask, (b, ho, wo, k))
     with torch.no_grad():  # the dcol product's operand [K * Cin, kpad(Cout)]
         wkn = _nk(weight.reshape(k * cin, cout), dt)
     f32 = lambda *shape: torch.empty(shape, dtype=torch.float32,
@@ -311,7 +322,7 @@ def dcn_bwd_kernel(x, offset, mask, weight, bias, g, padding: int = 1,
     _run(lib.fairm_dcn_bwd, _ptr(x), _ptr(off), _ptr(msk), _ptr(wkn), _ptr(g),
          _ptr(ws), _ptr(dx), _ptr(doff), _ptr(dmask), _ptr(dweight),
          _ptr(dbias), nbytes, b, h, w, cin, ho, wo, cout, kh, kw, padding,
-         dilation, _DTYPES[dt], _stream(x))
+         dilation, _DTYPES[dt], int(om_bf16), _stream(x))
     LAUNCHES["dcn_bwd"] += 1
     return dx, doff, dmask, dweight, dbias
 

@@ -75,6 +75,9 @@ SIGNATURES = {
     # y, g, wqkv, bqkv, wp, wqkvn, wpn, bias, mask, ws, dy, dwqkv, dbqkv, dwp,
     # dbp, dbias, ws_bytes, LB, H, W, C, h, win, L, bf16, stream
     "fairm_freq_inter_bwd": [_P] * 16 + [_Q] + [_I] * 8 + [_P],
+    # q, k, v, out, bias, mask, desc (20 strides), W, h, n, nk, d, nW, bc,
+    # mr, mc, scale, stream
+    "fairm_window_attn_mma": [_P] * 7 + [_Q] + [_I] * 8 + [_F, _P],
     # q, k, v, bias, mask, out, W, h, n, nk, d, nW, scale, bf16, stream
     "fairm_window_attn": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
     # q, k, v, bias, mask, g, ws, dq, dk, dv, dbias, ws_bytes, W, h, n, nk,
@@ -84,8 +87,9 @@ SIGNATURES = {
     # pad, dil, clamp, bf16, stream
     "fairm_dcn": [_P] * 7 + [_I] * 11 + [_F, _I, _P],
     # x, offset, mask, wkn, g, ws, dx, doffset, dmask, dweight, dbias,
-    # ws_bytes, B, H, W, C, Ho, Wo, Cout, kh, kw, pad, dil, bf16, stream
-    "fairm_dcn_bwd": [_P] * 11 + [_Q] + [_I] * 12 + [_P],
+    # ws_bytes, B, H, W, C, Ho, Wo, Cout, kh, kw, pad, dil, bf16,
+    # offset and mask in bf16, stream
+    "fairm_dcn_bwd": [_P] * 11 + [_Q] + [_I] * 13 + [_P],
 }
 # the backward kernels' workspace sizes in bytes (they return a long long)
 WORKSPACE_SIGNATURES = {

@@ -83,6 +83,8 @@ def _dcn_inputs(gen, B, res, C, Cout, dtype, bias, dilation=1):
     (4, 16, 896, 896, 1, False),   # the deform LeFF at res 16
     (2, 20, 10, 6, 2, True),       # dilation 2, C off the vector path
     (3, 12, 3, 3, 1, True),        # ViT + DGRN's three features
+    (3, 20, 16, 32, 1, True),      # the fused route, a short last tile
+    (1, 12, 112, 48, 1, False),    # the passes in bf16, one tile of pixels
 ])
 def test_dcn_bwd_kernel_matches_plain(card, dtype, B, res, C, Cout, dil, bias):
     """K14 against ``dcn_bwd_plain``, every output, and equal bits on a
@@ -95,6 +97,51 @@ def test_dcn_bwd_kernel_matches_plain(card, dtype, B, res, C, Cout, dil, bias):
     assert dc.LAUNCHES["dcn_bwd"] == 2
     assert all(torch.equal(p, q) for p, q in zip(got, again) if p is not None)
     _check_all(got, dc.dcn_bwd_plain(x, off, mask, w, b, g, dil, dil), dtype)
+
+
+def _edge_offsets(B, res, where):
+    """Offsets [B, res, res, 18] that send every sample of an image to the
+    point (res / 2 + 0.5, res / 2 + 0.5) (one bucket of res^2 * 9 samples:
+    half-integers, exact in bf16), onto integer coordinates, or beyond the
+    rim (no sample reads a pixel)."""
+    if where == "integer":
+        g = torch.Generator(device="cuda").manual_seed(1)
+        return torch.randint(-3, 4, (B, res, res, 18), generator=g,
+                             device="cuda").float()
+    if where == "beyond the rim":
+        sign = torch.ones(B, res, res, 18, device="cuda")
+        sign[..., 1::2] = -1.0
+        return sign * (res + 5.0)
+    i = torch.arange(res, device="cuda", dtype=torch.float32)
+    t = torch.arange(3, device="cuda", dtype=torch.float32)
+    c = res / 2 + 0.5
+    dy = (c - (i[:, None, None, None] - 1 + t[None, None, :, None])).expand(
+        res, res, 3, 3).reshape(res, res, 9)
+    dx = (c - (i[None, :, None, None] - 1 + t[None, None, None, :])).expand(
+        res, res, 3, 3).reshape(res, res, 9)
+    return torch.cat([dy, dx], -1)[None].expand(B, res, res, 18).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("where", ["one pixel", "integer", "beyond the rim"])
+@pytest.mark.parametrize("C", [64, 24])
+def test_dcn_bwd_kernel_at_the_edges_of_its_grouping(card, dtype, where, C):
+    """K14 against ``dcn_bwd_plain`` where the grouping by pixel is at its
+    edges: every sample of an image in one bucket, every sample on integer
+    coordinates, every sample beyond the rim; equal bits on a second
+    launch."""
+    B, res = 2, 24
+    x, _, mask, w, b, g = _dcn_inputs(card, B, res, C, C, dtype, True)
+    off = _edge_offsets(B, res, where).to(dtype)
+    got = dc.dcn_bwd(x, off, mask, w, b, g)
+    again = dc.dcn_bwd(x, off, mask, w, b, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(got, again) if p is not None)
+    want = dc.dcn_bwd_plain(x, off, mask, w, b, g)
+    if where == "beyond the rim":
+        assert not want[0].float().abs().max()
+    _check_all(got, want, dtype)
 
 
 @pytest.mark.cuda

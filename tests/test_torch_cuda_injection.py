@@ -76,6 +76,81 @@ def test_window_attention_kernel(card, dtype, shape, masked):
     _check(got, wa.window_attention_plain(*args), TOL[dtype])
 
 
+def _strided_inputs(gen, source, dtype, W, masked, nW=4):
+    """K9's operands as the unfused blocks hand them over: q / k / v views
+    of the projections' outputs and one window's bias and SW-MSA mask.
+    ``source``: the decoder's ``to_q`` / ``to_kv`` (None), ``to_kv`` on the
+    degradation map (``attention_residual``: the same layout),
+    ``attention_kv``'s ``to_k`` / ``to_v`` (192 keys), or the encoder's
+    band-major projections at L = 3 (``encoder``, d = 28)."""
+    h, d = (1, 28) if source == "encoder" else (2, 56)
+    C = h * d
+    split = lambda t: t.reshape(W, t.shape[1], h, d).permute(0, 2, 1, 3)
+    if source == "encoder":
+        band = lambda t: t.reshape(3, W, 64, h, d).permute(1, 3, 0, 2, 4)
+        xq, xkv = _rnd(gen, 3, W, 64, C, dtype=dtype), _rnd(gen, 3, W, 64, 2 * C,
+                                                            dtype=dtype)
+        q, k, v = band(xq), band(xkv[..., :C]), band(xkv[..., C:])
+        bias = _rnd(gen, h, 192, 192, scale=0.5)
+    elif source == "attention_kv":
+        q = split(_rnd(gen, W, 64, C, dtype=dtype))
+        k, v = (split(_rnd(gen, W, 192, C, dtype=dtype)) for _ in range(2))
+        bias = _rnd(gen, h, 64, 64, scale=0.5)
+    else:
+        xq, xkv = _rnd(gen, W, 64, C, dtype=dtype), _rnd(gen, W, 64, 2 * C,
+                                                         dtype=dtype)
+        q, k, v = split(xq), split(xkv[..., :C]), split(xkv[..., C:])
+        bias = _rnd(gen, h, 64, 64, scale=0.5)
+    mask = None
+    if masked:  # the SW-MSA mask of one window: 0 or -100
+        mask = (torch.rand(nW, 64, 64, generator=gen, device="cuda") < 0.3
+                ).float() * -100.0
+    return q, k, v, bias, mask, d ** -0.5, nW
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("source", [None, "attention_residual",
+                                    "attention_kv", "encoder"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_window_attention_reads_the_projections_in_place(card, dtype, source,
+                                                         masked):
+    """K9 on the views the unfused blocks hand it (the decoder's, the
+    ``attention_kv`` and ``attention_residual`` projections, the encoder's
+    band regroup) and one window's tables (the mask untiled at ratio 3 and
+    at L = 3) against the plain twin on the same operands; on the tensor
+    cores (bf16) the output is a view of one token-major buffer, ``[L B',
+    n / L, h d]`` as the projection after it reads it."""
+    q, k, v, bias, mask, scale, nW = _strided_inputs(card, source, dtype, 8,
+                                                     masked)
+    path = wa.window_path(q, k, v, bias, mask)
+    assert path == ("mma" if dtype == torch.bfloat16 else "cores")
+    wa.reset_launches()
+    got = wa.window_attention(q, k, v, bias, mask, scale, nW)
+    assert wa.LAUNCHES["window_attn"] == 1
+    assert got.shape == q.shape
+    rows = got.permute(2, 0, 3, 1, 4) if got.dim() == 5 else got.permute(0, 2, 1, 3)
+    assert rows.is_contiguous() == (path == "mma")
+    _check(got, wa.window_attention_plain(q, k, v, bias, mask, scale, nW),
+           TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("windows", [1, 31, 997])
+@pytest.mark.parametrize("source", [None, "attention_kv", "encoder"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_window_attention_image_chunks(card, dtype, source, windows):
+    """K9's chunks of windows at their edges: 1, 31 and 997 windows (a
+    prime: the last chunk is short whatever its size), masked with one
+    mask index (every window of it in one CTA's walk) and unmasked."""
+    for masked, nW in ((True, 1), (False, 1)):
+        q, k, v, bias, mask, scale, nW = _strided_inputs(
+            card, source, dtype, windows, masked, nW)
+        got = wa.window_attention(q, k, v, bias, mask, scale, nW)
+        _check(got, wa.window_attention_plain(q, k, v, bias, mask, scale, nW),
+               TOL[dtype])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("shape", SHAPES)

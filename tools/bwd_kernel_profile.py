@@ -18,13 +18,19 @@ four passes and fused where the form fits but the launch is too small for
 the chooser; with ``--k11``, the DCN K11 (bf16) at
 ``chip_smoke.py::DCN_STAGES`` by both routes; with ``--f2``, the launches that hold the
 LeFF's hidden in device memory (K2's passes, K4, K5, K13) at every stage
-each serves.
+each serves; with ``--k14``, the DCN backward K14 at the cases of
+``chip_smoke.py::dcn_bwd_cases`` (``DCN_BWD_SHAPES`` and the convergent
+offsets, B=4); with ``--k9``, the window attention K9 at every case of
+``chip_smoke.py::window_cases`` (each of ``WINDOW_SHAPES`` at res 128,
+shifted and not, and res 8), at B=32 and B=4, on contiguous q / k / v and
+the tables tiled to the window, which every K9 takes (``--strided``: the
+views and the untiled tables the unfused blocks hand it).
 
 Run on a machine with an NVIDIA GPU, from the root of the checkout:
 
     python3 tools/bwd_kernel_profile.py [--dtype bfloat16] [--batch 4]
         [--k7 | --k6 | --k8 | --k10 | --k2 | --k1 | --k4 | --k3 | --k11
-         | --f2]
+         | --f2 | --k14 | --k9 [--strided]]
 
 Prints the card's name and power limit, then per kernel the passes in order
 of device time; for K1's, K2's and K3's passes and K11's column GEMM
@@ -55,6 +61,18 @@ def k10_case(wa, c):
                    lambda: wa.window_attention_bwd_plain(*args), 0.0, 0)
 
 
+def k9_case(wa, c, attn_bound):
+    """A phase-10 case of ``chip_smoke.py`` as a launch of K9, its bound in
+    the label."""
+    from chip_smoke import BwdCase
+    args = (c.q, c.k, c.v, c.bias, c.mask, c.scale, c.nW)
+    bound, by = attn_bound(c, c.q.dtype, False)
+    return BwdCase("window_attn", f"{c.label} B{c.q.shape[0] // c.nW} (bound "
+                   f"{bound:.4f} ms by {by})",
+                   lambda: wa.window_attention_kernel(*args), lambda: None,
+                   0.0, 0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"])
@@ -80,6 +98,14 @@ def main(argv=None) -> int:
                        "chip_smoke.py's K3_STAGES")
     which.add_argument("--k11", action="store_true",
                        help="K11 (bf16) at chip_smoke.py's DCN_STAGES")
+    which.add_argument("--k14", action="store_true",
+                       help="K14 at chip_smoke.py's dcn_bwd_cases (B=4)")
+    which.add_argument("--k9", action="store_true",
+                       help="K9 at every case of chip_smoke.py's window_cases, "
+                       "B=32 and B=4")
+    ap.add_argument("--strided", action="store_true",
+                    help="with --k9: the operands as the unfused blocks hand "
+                    "them to K9")
     which.add_argument("--f2", action="store_true",
                        help="the kernels that keep the LeFF's hidden in a "
                        "buffer (bf16): K2's passes, K4, K5 and K13 at every "
@@ -135,6 +161,14 @@ def main(argv=None) -> int:
         from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops import (
             deform_conv as dc)
         cases = chip_smoke.dcn_cases(dc, args.batch)
+    elif args.k14:
+        from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops import (
+            deform_conv as dc)
+        cases = chip_smoke.dcn_bwd_cases(dc, dtype, args.batch)
+    elif args.k9:
+        cases = [k9_case(wa, c, chip_smoke.attn_bound) for B in (32, 4)
+                 for c in chip_smoke.window_cases(windows, dtype, B,
+                                                  strided=args.strided)]
     else:
         cases = [c for c in chip_smoke.bwd_cases(lb, windows, dtype, args.batch)
                  if "res128" in c.label]
@@ -154,7 +188,8 @@ def main(argv=None) -> int:
             total += us
             if "gemm" in e.name:
                 gemms.append((e.time_range.start, us, e.name))
-        print(f"{case.label} {args.dtype} B={args.batch}: {ms:.4f} ms by CUDA "
+        batch = "" if args.k9 else f" B={args.batch}"
+        print(f"{case.label} {args.dtype}{batch}: {ms:.4f} ms by CUDA "
               f"events, {total / 1e3:.4f} ms of device time in "
               f"{sum(n for n, _ in by_name.values())} passes")
         for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):

@@ -12,10 +12,12 @@ script measures any checkout that has them: run it from the root of each
 checkout in turn, in one call on one card (parent, change, change,
 parent):
 
-    python3 tools/e2e_ab.py [--no-steps]
+    python3 tools/e2e_ab.py [--no-steps] [--configs NAME ...] [--trace-steps]
 
-Prints the card's name and power limit first. Imports the PyTorch port
-only.
+``--configs`` takes a subset of the three; ``--trace-steps`` traces each
+one's joint step at its batch (each port kernel's device time over all of
+its passes) in place of the flagship's B=32 one. Prints the card's name
+and power limit first. Imports the PyTorch port only.
 """
 
 from __future__ import annotations
@@ -37,6 +39,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--no-steps", action="store_true",
                     help="the eval forwards only")
+    ap.add_argument("--configs", nargs="+", choices=CONFIGS, default=CONFIGS,
+                    help="the configurations to run (default: all three)")
+    ap.add_argument("--trace-steps", action="store_true",
+                    help="trace each configuration's joint step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -65,7 +71,7 @@ def main(argv=None) -> int:
                  "resnet_dgrn": cs.FAMILIES["resnet_dgrn"]}
     x = torch.from_numpy(np.random.default_rng(2).random(
         (BATCH, cs.P, cs.P, 3), dtype=np.float32)).cuda()
-    for name in CONFIGS:
+    for name in args.configs:
         cfg = cs.flagship_config(config, "bfloat16", **fields_of[name])
         bundle = airnet.build_models(cfg, "cuda", "default")
         cs.liven(bundle)
@@ -81,13 +87,18 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if args.no_steps:
         return 0
-    for name, batch in (("flagship", BATCH), ("per_scale_set", cs.TRAIN_BATCH),
-                        ("resnet_dgrn", cs.TRAIN_BATCH)):
+    batch_of = {"flagship": BATCH, "per_scale_set": cs.TRAIN_BATCH,
+                "resnet_dgrn": cs.TRAIN_BATCH}
+    for name in args.configs:
         cs.step_times(config, airnet, train_state, steps_lib, synthetic, card,
                       name, fields_of[name] or None,
-                      (("bfloat16", "default", batch),))
-    cs.profile_step(config, airnet, train_state, steps_lib, synthetic, card,
-                    None, "flagship", BATCH)
+                      (("bfloat16", "default", batch_of[name]),))
+        if args.trace_steps:
+            cs.profile_step(config, airnet, train_state, steps_lib, synthetic,
+                            card, fields_of[name] or None, name, batch_of[name])
+    if not args.trace_steps:
+        cs.profile_step(config, airnet, train_state, steps_lib, synthetic, card,
+                        None, "flagship", BATCH)
     return 0
 
 
