@@ -100,11 +100,13 @@ Phases, each fatal on failure:
     blocks, the projection's reduction in fp32 partials) and K13 (FFN, a sum
     over hidden blocks) against their plain versions and against K1 / K2 at
     the flagship decoder's C = 896 stages (res 8 and 16, shifted and not,
-    with lam and DropPath), fp32 and bf16, B = 4 and 32, a second launch
-    giving equal bits, beside K1 / K2's time, the plain version's and the
-    bound; the per-block table split against chain; then the float32
-    flagship eval forward at B = 4 and 32 by the split, chain, default and
-    plain routes, each against plain, launch counts and MP/s;
+    with lam and DropPath), fp32 and bf16, B = 1, 4, 8 (res 16), 16 and 32, a
+    second launch giving equal bits, the shifted K12 also on the true
+    layout with the roll folded in, beside K1 / K2's time, the plain
+    version's and the bound; the per-block table split against chain at
+    64 ... 8192 tokens; then the float32 flagship eval forward at B = 4,
+    16 and 32 by the split, chain, default and plain routes, each against
+    plain, launch counts and MP/s;
 14. the other model families: the eval entry point and the training entry
     point (one phase-A step, one joint step, one eval, the checkpoints) for
     ``resnet_dgrn`` (``--encoder_type ResNet --decoder_type ResNet``) and
@@ -228,18 +230,31 @@ MERGED_COUNTS = {**ZERO, "lewin_merged": 44, "freq_merged": 10}
 # blocks the chain
 SPLIT_COUNTS = {**ZERO, "lewin_attn": 10, "lewin_ffn": 10, "freq_inter": 10,
                 "lewin_attn_split": 44, "lewin_ffn_split": 44}
-# the default route runs the split kernels for the decoder's C = 896 blocks
-# (in both dtypes) on batches of at most this many tokens per stage; the
-# stages hold (res, fused blocks): bottleneck_0 and bottleneck_1 at res 8,
-# decoderlayer_3 at res 16
-SPLIT_MAX_TOKENS = 1024
-SPLIT_STAGE_BLOCKS = ((8, 4), (16, 8))
+# the default route runs the split kernels for the decoder's C = 896 blocks,
+# held apart from the model's own table (DEFAULT_SPLIT): (res, dtype, fused
+# blocks of the stage, least tokens of a batch); res 8 holds bottleneck_0
+# and bottleneck_1, res 16 decoderlayer_3
+DEFAULT_SPLIT_STAGES = ((8, "float32", 4, 64), (16, "float32", 8, 256),
+                        (16, "bfloat16", 8, 4096))
 
 
-def split_blocks(B: int, stages=SPLIT_STAGE_BLOCKS) -> int:
-    """Decoder blocks of a default-route forward of ``B`` tiles that run
-    K12 -> K13, held apart from the model's own route table."""
-    return sum(n for res, n in stages if B * res * res <= SPLIT_MAX_TOKENS)
+def runs_split(res: int, dtype: str, tokens: int) -> bool:
+    """Whether the default route runs a C = 896 block at ``res`` in
+    ``dtype`` on a batch of ``tokens`` (tiles x res^2) through K12 -> K13."""
+    return any(r == res and dt == dtype and tokens >= least
+               for r, dt, _, least in DEFAULT_SPLIT_STAGES)
+
+
+def split_blocks(B: int, dtype: str, blocks=None) -> int:
+    """Decoder blocks of a default-route forward of ``B`` tiles in ``dtype``
+    that run K12 -> K13 (``blocks``: res -> fused blocks counted, by default
+    the stages' own)."""
+    return sum((blocks or {}).get(res, n)
+               for res, dt, n, least in DEFAULT_SPLIT_STAGES
+               if dt == dtype and B * res * res >= least
+               and (blocks is None or res in blocks))
+
+
 # the default route in bf16, held apart from the model's own table
 # (DEFAULT_MERGED): (res, C, shifted blocks, least tokens of a batch, path)
 # of the decoder stages whose shifted blocks run merged from that many tokens
@@ -264,7 +279,7 @@ def default_counts(dtype: str, B: int) -> dict:
     """Launches of one default-route forward of ``B`` tiles, held apart from
     the model's own route table."""
     k4 = DEFAULT_MERGED_BLOCKS[B] if dtype == "bfloat16" else 0
-    k12 = split_blocks(B)
+    k12 = split_blocks(B, dtype)
     return {**ZERO, "lewin_attn": 54 - k4 - k12, "lewin_ffn": 54 - k4 - k12,
             "freq_inter": 10, "lewin_merged": k4, "lewin_attn_split": k12,
             "lewin_ffn_split": k12}
@@ -672,9 +687,8 @@ def check_kernels(lb, windows, default_merged, stats, card: str):
 # K2's table: (res, C, band copies) of every flagship stage whose blocks K2
 # serves: the decoder's (C = 56 * 2^s on the way down, twice that on the
 # way up, C = 896 at res 8 and 16) and the encoder's (C = 28 * 2^s, its
-# three FFT bands folded into the batch). The C = 896 stages go to K13 on
-# batches of at most SPLIT_MAX_TOKENS tokens, so they stand in the table
-# only above that
+# three FFT bands folded into the batch). The C = 896 stages stand in the
+# table where the bf16 default route runs them on K2 (runs_split)
 K2_STAGES = ((128, 56, 1), (64, 112, 1), (32, 224, 1), (16, 448, 1),
              (8, 896, 1), (16, 896, 1), (32, 448, 1), (64, 224, 1),
              (128, 112, 1), (128, 28, 3), (64, 56, 3), (32, 112, 3),
@@ -698,7 +712,7 @@ def k2_cases(lb, B):
     for res, C, bands in K2_STAGES:
         images, Hd = bands * B, 4 * C
         M = images * res * res
-        if C == 896 and M <= SPLIT_MAX_TOKENS:
+        if C == 896 and runs_split(res, "bfloat16", M):
             continue
         x = rnd(images, res, res, C).to(dt)
         ln2 = [1 + rnd(C, scale=0.1), rnd(C, scale=0.1)]
@@ -766,7 +780,8 @@ def k2_table(lb, card: str):
 # attention K1 serves: the decoder's (C = 56 * 2^s on the way down, the up
 # path's 112 * 2^s, d = 56), the encoder's intra attention (C = 28 * 2^s,
 # d = 28, its three FFT bands folded into the batch, one bias table a band).
-# The C = 896 stages go to K12 on batches of at most SPLIT_MAX_TOKENS tokens
+# The C = 896 stages stand in the table where the bf16 default route runs
+# them on K1 (runs_split)
 K1_STAGES = ((128, 56, 1, 1), (64, 112, 2, 1), (32, 224, 4, 1),
              (16, 448, 8, 1), (8, 896, 16, 1), (16, 896, 16, 1),
              (32, 448, 8, 1), (64, 224, 4, 1), (128, 112, 2, 1),
@@ -793,7 +808,7 @@ def k1_cases(lb, windows, B, dtype=torch.bfloat16):
     for res, C, h, bands in K1_STAGES:
         images, d = bands * B, C // h
         M = images * res * res
-        if C == 896 and M <= SPLIT_MAX_TOKENS:
+        if C == 896 and runs_split(res, str(dtype)[6:], M):
             continue
         shift = 4 if res > 8 else 0
         x = rnd(images, res, res, C).to(dtype)
@@ -2628,7 +2643,7 @@ def injection_counts(name: str, dtype: str, B: int) -> dict:
     attention probabilities are modulated (all_3_bands, lamb) the core is
     the plain one, as in JAX. attention_kv makes the encoder's last block
     of each stage unfused (need_kv): K9 for intra and inter. bottleneck_0's
-    two blocks (C = 896, res 8) run split up to SPLIT_MAX_TOKENS."""
+    two blocks (C = 896, res 8) run split where DEFAULT_SPLIT_STAGES say."""
     merged = merged_blocks(B, ("down",)) if dtype == "bfloat16" else 0
     c = dict(ZERO)
     if name == "all_3_bands_DC":       # every decoder block unfused
@@ -2640,7 +2655,7 @@ def injection_counts(name: str, dtype: str, B: int) -> dict:
         fused_dec, enc_fused, k9 = 22, 10, 22
     merged = merged if fused_dec else 0
     # of the fused decoder blocks, bottleneck_0's two at res 8 (C = 896)
-    k12 = split_blocks(B, ((8, 2),)) if fused_dec else 0
+    k12 = split_blocks(B, dtype, {8: 2}) if fused_dec else 0
     c["lewin_attn_split"] = c["lewin_ffn_split"] = k12
     c["lewin_attn"] = c["lewin_ffn"] = fused_dec - merged - k12 + enc_fused
     c["freq_inter"] = enc_fused
@@ -2840,10 +2855,13 @@ SPLIT_STAGES = ((8, 16), (16, 16))
 SPLIT_C = 896
 
 
-def split_cases(lb, windows, dtype, B):
+def split_cases(lb, windows, dtype, B, stages=SPLIT_STAGES):
     """K12 and K13 at the C = 896 stages, shifted and not, with the all_DC
     ``lam`` and DropPath; each with the chain kernel it equals (K1 / K2)
-    and the number of parts its launch takes by default."""
+    and the number of parts its launch takes by default. The shifted K12
+    cases take the image as the block has rolled it (the Pallas kernel's
+    input); ``check_split_kernels`` also runs them on the true layout with
+    the roll folded into K12."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     C, n = SPLIT_C, 64
 
@@ -2851,7 +2869,7 @@ def split_cases(lb, windows, dtype, B):
         return torch.randn(*shape, generator=gen, device="cuda") * scale
 
     cases = []
-    for res, h in SPLIT_STAGES:
+    for res, h in stages:
         d, M = C // h, B * res * res
         x = rnd(B, res, res, C).to(dtype)
         ln1 = [1 + rnd(C, scale=0.1), rnd(C, scale=0.1)]
@@ -2897,19 +2915,27 @@ def split_cases(lb, windows, dtype, B):
     return cases
 
 
+# phase 13's batches: with the stages' resolutions, the split-against-chain
+# table's 64, 256, 1024, 2048, 4096 and 8192 tokens; res 16 alone at B = 8
+SPLIT_BATCHES = (1, 4, 8, 16, 32)
+
+
 def check_split_kernels(lb, windows, stats, card: str):
     """Phase 13a: K12 / K13 against their plain versions and against K1 /
-    K2, a second launch giving equal bits, their times beside K1 / K2's, the
-    plain version's and the bound, in fp32 and bf16 at B = 4 and 32. The
-    kernels line takes fp32 at B = 4, res 8: the eval entry point's dtype
-    and a batch of one image's tiles. Then the per-block table, split
-    against chain, that sets the default route's DEFAULT_SPLIT."""
+    K2, a second launch giving equal bits, the shifted K12 on the true
+    layout with the roll folded in against the rolled result, their times
+    beside K1 / K2's, the plain version's and the bound, in fp32 and bf16 at
+    SPLIT_BATCHES. The kernels line takes fp32 at B = 4, res 8: the eval
+    entry point's dtype and a batch of one image's tiles. Then the
+    per-block table, split against chain, that sets the default route's
+    DEFAULT_SPLIT."""
     blocks = {}
     for dtype in (torch.float32, torch.bfloat16):
         name_dt = str(dtype)[6:]
-        for B in (4, BATCH):
+        for B in SPLIT_BATCHES:
             print(f"split kernel checks, {dtype}, B={B}:", flush=True)
-            for case in split_cases(lb, windows, dtype, B):
+            stages = SPLIT_STAGES if B != 8 else SPLIT_STAGES[1:]
+            for case in split_cases(lb, windows, dtype, B, stages):
                 label = f"{case.label} {name_dt} B{B}"
                 got = case.wrapper(*case.args)
                 torch.cuda.synchronize()
@@ -2920,6 +2946,21 @@ def check_split_kernels(lb, windows, stats, card: str):
                 first, second = case.timed(), case.timed()
                 if not (torch.equal(first, got) and torch.equal(second, got)):
                     raise Failed(f"{label}: a second launch gives other bits")
+                _, res, shift = case.stage
+                if case.kernel == "lewin_attn_split" and shift:
+                    x, ln1s, ln1b = case.args[:3]
+                    op = lb.attn_operands(*case.args[3:12], dtype)
+                    mask, lam, dps, kb = (case.args[12], case.args[13],
+                                          case.args[16], case.args[17])
+                    folded = lb.attention_split_kernel(
+                        torch.roll(x, (shift, shift), dims=(1, 2)), ln1s,
+                        ln1b, op, mask, lam, 8, 1e-6, dps, kb, shift=shift)
+                    rolled = torch.roll(got, (shift, shift), dims=(1, 2))
+                    compare(f"{label} on the true layout, roll folded in, "
+                            f"vs rolled (equal bits: "
+                            f"{torch.equal(folded, rolled)})", folded, rolled,
+                            KERNEL_TOL[dtype])
+                    del folded, rolled
                 ms = time_ms(case.timed)
                 cms = time_ms(case.chain_timed)
                 pms = time_ms(lambda: case.plain(*case.args), iters=3)
@@ -2931,7 +2972,6 @@ def check_split_kernels(lb, windows, stats, card: str):
                 st["max_abs_err"] = max(st["max_abs_err"], err)
                 if dtype == torch.float32 and B == 4 and st["ms"] is None:
                     st.update(ms=ms, plain_ms=pms, bound_ms=bound, bound_by=by)
-                _, res, shift = case.stage
                 blocks.setdefault((res, name_dt, B), {})[
                     case.kernel, shift] = (ms, cms)
                 del got, want, first, second
@@ -2943,20 +2983,20 @@ def check_split_kernels(lb, windows, stats, card: str):
             ms = t["lewin_attn_split", shift][0] + ffn[0]
             cms = t["lewin_attn_split", shift][1] + ffn[1]
             print(f"  origin res {res:2d} C {SPLIT_C} shift {shift} {name_dt} "
-                  f"B={B}: split {ms:.4f}, chain {cms:.4f}, split/chain "
-                  f"{ms / cms:.3f}", flush=True)
+                  f"B={B} ({B * res * res} tokens): split {ms:.4f}, chain "
+                  f"{cms:.4f}, split/chain {ms / cms:.3f}", flush=True)
 
 
 def split_forward(config, airnet, uformer_lewin, card: str, stats):
     """Phase 13b: the flagship eval forward in float32 (the eval entry
-    point's dtype) at B = 4 and 32 by the split, chain, default and plain
-    routes, each against plain, with the launch counts and MP/s, the
+    point's dtype) at B = 4, 16 and 32 by the split, chain, default and
+    plain routes, each against plain, with the launch counts and MP/s, the
     routes timed in turns (plain, split, kernel, default and back). The
     split and default forwards are main paths of the kernels line."""
     order = ("plain", "split", "kernel", "default")
     bundles = {impl: airnet.build_models(
         flagship_config(config, "float32"), "cuda", impl) for impl in order}
-    for B in (4, BATCH):
+    for B in (4, 16, BATCH):
         x = torch.from_numpy(np.random.default_rng(3).random(
             (B, P, P, 3), dtype=np.float32)).cuda()
         want = airnet.eval_forward(bundles["plain"], x)
@@ -3025,7 +3065,7 @@ def family_counts(name: str, B: int) -> dict:
     C = 896 blocks that the default route runs split)."""
     if name in ("resnet_dgrn", "vit_freq"):
         return {**ZERO, "dcn": DGRN_DCNS}
-    k12 = split_blocks(B)
+    k12 = split_blocks(B, "float32")
     blocks = 44 + (10 if name == "origin_l1_uformer" else 0) - k12
     return {**ZERO, "lewin_attn": blocks, "lewin_ffn": blocks,
             "lewin_attn_split": k12, "lewin_ffn_split": k12}

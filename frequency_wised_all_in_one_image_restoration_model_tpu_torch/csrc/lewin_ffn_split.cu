@@ -11,19 +11,25 @@
 // kernel sums them in an fp32 scratch over a sequential grid axis because
 // the fp32 weights at C = 896 do not fit its VMEM at once.
 //
-// What bounds it on the H100: at the deep stages the two products (2 M C
-// Hd operations each) on the CUDA cores in fp32; with few rows (M = 64 B at
-// res 8) linear2 has few output tiles over a long reduction (Hd = 3584).
-// What the design does about it: LN2, linear1 + b1 + GELU (into fp32) and
-// the depthwise conv + bd + GELU are K2's passes (gemm.cuh, dwconv.cuh); linear2 runs as
-// kb parts, grid (row tiles, column tiles, kb), each over its hidden block's
-// k-tiles into an fp32 partial [M, C] (split.cuh), kb times K2's CTAs; a
-// fixed-order pass adds the parts, b2, dps and the residual (no atomics: a
-// second launch gives equal bits). The blocks are kpad(Hd) / kb columns
-// (Hd / kb at the deep stages, where Hd / kb is a multiple of 32). The
-// hidden slab of a block still makes two round trips through device
-// memory, as in K2; keeping a row tile's slab (with its one-row halo) on
-// the SM from linear1 to its rows of W2 is the next step.
+// What bounds it on the H100: the two products (2 M C Hd operations each):
+// in fp32 on the CUDA cores (67 TFLOP/s, TF32 off), in bf16 the weights'
+// bytes at M = 256 (res 8, B = 4: 12.8 MB) and the tensor cores above. With
+// few rows (M = 64 B at res 8) the products cannot fill 132 SMs by their
+// output tiles, and fc2's reduction is long (Hd = 3584).
+// What the design does about it: four passes. LN2; fc1 + b1 + GELU over
+// every hidden block at once into fp32 (JAX keeps the hidden in fp32
+// through the conv); the depthwise conv + bd + GELU (dwconv.cuh), rounded
+// once for fc2; fc2 as kb parts, one per hidden block, each an fp32
+// partial, and the fixed-order reduction that adds the parts, b2, dps and
+// the residual (no atomics: a second launch gives equal bits), or one
+// product with that epilogue where it fills the card alone (kb = 1). The
+// products run on split.cuh's FMA core in fp32 (register tiles fed by
+// float4 reads of cp.async double-buffered k-tiles) and on the TMA / wgmma
+// tile in bf16 (gemm_wgmma.cuh; fc2's parts in one launch, a block a tile
+// and hidden block). A form that kept a block's hidden rows on the SM (a
+// block per image and hidden block, fc1, conv and fc2 in one launch, the
+// fp32 partials reduced after) measured no faster in fp32 and slower in
+// bf16 (PERF.md, PR 13) and was taken out.
 
 #include "dwconv.cuh"
 #include "gemm.cuh"
@@ -39,14 +45,15 @@ static cudaError_t lewin_ffn_split(const void* x, const float* lns,
                                    const float* b2, const float* dps, void* xn,
                                    void* hid1, void* hid2, float* parts,
                                    void* out, int B, int H, int W, int C,
-                                   int Hd, int kb, float eps, cudaStream_t st) {
+                                   int Hd, int kb, float eps,
+                                   cudaStream_t st) {
   const long long M = (long long)B * H * W;
 
   // LN2 -> xn [M, kpad(C)]
   launch_prep<T>(x, C, identity_map(), M, lns, lnb, eps, xn, st);
 
-  // linear1 + b1 + GELU over every hidden block at once: its columns are
-  // the blocks' columns, and no sum crosses a block
+  // linear1 + b1 + GELU over every hidden block at once (its columns are
+  // the blocks' columns, and no sum crosses a block), kept in fp32
   GemmArgs g1{};
   g1.A = xn;
   g1.Wt = w1t;
@@ -58,19 +65,21 @@ static cudaError_t lewin_ffn_split(const void* x, const float* lns,
   g1.M = M;
   g1.N = Hd;
   g1.act = 1;
-  g1.c_f32 = 1;  // the hidden stays fp32 until the conv's GELU, as in JAX
-  cudaError_t err = launch_gemm<T>(g1, st);
+  g1.c_f32 = 1;
+  cudaError_t err;
+  if constexpr (std::is_same<T, float>::value)
+    err = launch_fma_gemm(g1, 1, st);
+  else
+    err = launch_gemm<T>(g1, st);
   if (err != cudaSuccess) return err;
 
   launch_dwconv<T>(static_cast<const float*>(hid1), wd, bd, hid2,
                    (long long)B * H, H, W, Hd, st);
 
-  // linear2, one fp32 partial per hidden block
-  err = launch_splitk<T>(hid2, w2t, kpad(Hd), M, C, kb, parts, st);
-  if (err != cudaSuccess) return err;
-  launch_split_reduce<T>(parts, kb, M, C, b2, dps, (long long)H * W, x, out,
-                         identity_map(), st);
-  return cudaSuccess;
+  // linear2 + b2, x dps, + the residual: one product, or one fp32 part per
+  // hidden block and the fixed-order reduction
+  return split_product<T>(hid2, w2t, kpad(Hd), M, C, b2, dps, (long long)H * W,
+                          x, out, identity_map(), kb, parts, st);
 }
 
 extern "C" int fairm_lewin_ffn_split(

@@ -20,8 +20,7 @@ plain twins on the CPU:
   lewin_block.py:341-372).
 
 The JAX package picks the route per stage from gates measured on the TPU;
-here :data:`DEFAULT_MERGED`, :data:`DEFAULT_SPLIT` and
-:data:`SPLIT_MAX_TOKENS` hold what an H100
+here :data:`DEFAULT_MERGED` and :data:`DEFAULT_SPLIT` hold what an H100
 measured (``chip_smoke.py`` phases 3 and 13, PERF.md section 6).
 
 With gradients enabled a block goes through the autograd Functions of
@@ -91,15 +90,20 @@ DEFAULT_MERGED = {
 }
 
 # The origin-MSA blocks ``impl='default'`` runs as K12 -> K13: (width C,
-# compute dtype), on a batch of at most SPLIT_MAX_TOKENS tokens (images x
-# res^2). From the per-block A/B of the split kernels against the chain on
-# an H100 at the C = 896 stages (res 8 and 16), B = 4 and 32, fp32 and bf16
-# (``chip_smoke.py`` phase 13; PERF.md section 6, "split against chain"):
-# the split kernels are ahead where the chain's products leave SMs idle, at
-# 256 and 1024 tokens (fp32 0.45 and 0.70 of the chain's time, bf16 0.82 and
-# 0.88); from 2048 tokens up they tie or lose (0.97-1.11).
-DEFAULT_SPLIT = frozenset((896, dt) for dt in (torch.float32, torch.bfloat16))
-SPLIT_MAX_TOKENS = 1024
+# compute dtype, stage resolution) -> the least batch in tokens (images x
+# res^2) that takes them; a smaller batch, and every other block, takes the
+# chain. From the per-block A/B of the split kernels against the chain on
+# an H100 at the C = 896 stages, res 8 and 16, 64 ... 8192 tokens, fp32 and
+# bf16 (``chip_smoke.py`` phase 13; PERF.md section 6, "split against
+# chain", PR 13): in fp32 the split kernels (on their FMA core) are ahead
+# at every batch measured (0.16-0.68 of the chain's time, from one image);
+# in bf16 they are ahead at res 16 from 4096 tokens (0.91-0.95) and behind
+# at res 16 below that (1.01-1.17) and at res 8 (1.13-1.42).
+DEFAULT_SPLIT = {
+    (896, torch.float32, 8): 64,
+    (896, torch.float32, 16): 256,
+    (896, torch.bfloat16, 16): 4096,
+}
 
 
 class LeWinBlock(nn.Module):
@@ -107,7 +111,7 @@ class LeWinBlock(nn.Module):
     kernels on a CUDA tensor, with each module's cached kernel operands,
     ``'merged'`` the one merged kernel, ``'split'`` K12 -> K13 (origin
     MSA), ``'default'`` what :data:`DEFAULT_MERGED` and
-    :data:`DEFAULT_SPLIT` (with their token limits) name for the block and
+    :data:`DEFAULT_SPLIT` (with their least batches) name for the block and
     the batch; all four run the plain twins on a CPU tensor, as the kernel
     entry points do.
     ``'plain'`` runs the plain twins everywhere, for comparisons. With
@@ -213,8 +217,8 @@ class LeWinBlock(nn.Module):
         tokens = batch * self.res * self.res
         if key in DEFAULT_MERGED and tokens >= DEFAULT_MERGED[key]:
             return "merged"
-        if (split and (self.dim, dtype) in DEFAULT_SPLIT
-                and batch * self.res * self.res <= SPLIT_MAX_TOKENS):
+        least = DEFAULT_SPLIT.get((self.dim, dtype, self.res))
+        if split and least is not None and tokens >= least:
             return "split"
         return "kernel"
 
@@ -261,6 +265,17 @@ class LeWinBlock(nn.Module):
                                      mask, lam, *n2, ffn, win, shift, 1e-6,
                                      dps1, dps2)
             return to_tokens(y), None
+        if on_card and route == "split":
+            # K12 reads and writes the image through the SW-MSA roll: no
+            # roll around the split kernels
+            lam = None
+            if self.attn.all_bands_dc:
+                lam = self.attn.lam(all_inter, dt)
+            y = lb.attention_split_kernel(img, *n1,
+                                          self.attn.kernel_operands(dt), mask,
+                                          lam, win, 1e-6, dps1, shift=shift)
+            return to_tokens(lb.ffn_split_kernel(
+                y, *n2, self.mlp.kernel_operands(dt), 1e-6, dps2)), None
         if shift > 0:
             img = torch.roll(img, (-shift, -shift), dims=(1, 2))
         if self.msa_type == "freq":
@@ -281,11 +296,7 @@ class LeWinBlock(nn.Module):
             lam = None
             if self.attn.all_bands_dc:
                 lam = self.attn.lam(all_inter, dt)
-            if on_card and route == "split":
-                y = lb.attention_split_kernel(
-                    img, *n1, self.attn.kernel_operands(dt), mask, lam, win,
-                    1e-6, dps1)
-            elif route == "split":
+            if route == "split":
                 y = lb.block_attention_split(img, *n1,
                                              *self.attn.kernel_weights(),
                                              mask, lam, win, 1e-6, dps1)
@@ -297,10 +308,7 @@ class LeWinBlock(nn.Module):
                                              mask, lam, win, 1e-6, dps1)
         if shift > 0:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
-        if on_card and route == "split":
-            y = lb.ffn_split_kernel(y, *n2, self.mlp.kernel_operands(dt), 1e-6,
-                                    dps2)
-        elif route == "split":
+        if route == "split":
             y = lb.block_ffn_split(y, *n2, *self.mlp.kernel_weights(), 1e-6,
                                    dps2)
         elif on_card:

@@ -50,9 +50,9 @@ SIGNATURES = {
     "fairm_lewin_ffn": [_P] * 14 + [_I] * 6 + [_F, _P],
     # C, bf16: 1 if fairm_lewin_ffn runs fused (no xn / hid1 / hid2)
     "fairm_lewin_ffn_fused": [_I] * 2,
-    # x, lns, lnb, wqkv, bqkv, wp, bp, bias, mask, lam, dps, xo, qkv, parts,
-    # out, B, H, W, C, h, win, res, kb, bf16, eps, stream
-    "fairm_lewin_attn_split": [_P] * 15 + [_I] * 9 + [_F, _P],
+    # x, lns, lnb, wqkv, bqkv, wp, bp, bias, mask, lam, dps, xo, qkv, ao,
+    # parts, out, B, H, W, C, h, win, shift, kb, bf16, fused, eps, stream
+    "fairm_lewin_attn_split": [_P] * 16 + [_I] * 10 + [_F, _P],
     # x, lns, lnb, w1t, b1, wd, bd, w2t, b2, dps, xn, hid1, hid2, parts, out,
     # B, H, W, C, Hd, kb, bf16, eps, stream
     "fairm_lewin_ffn_split": [_P] * 15 + [_I] * 7 + [_F, _P],

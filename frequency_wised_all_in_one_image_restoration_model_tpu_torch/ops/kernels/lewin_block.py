@@ -111,13 +111,18 @@ def _softmax_av(q, k, v, bias, mask, groups, nW, dtype):
     return torch.matmul(p.to(dtype), v).float()       # [M, h, n, d]
 
 
-def split_cols(k: int, kb: int):
+def split_cols(k: int, kb: int, dtype=None):
     """The ``kb`` ranges of a reduction of width ``k`` as the split kernels
     (K12, K13) cut it: ``kpad(k) / kb`` columns each, a whole number of
-    32-wide k-tiles, the last range clipped to ``k``."""
+    32-wide k-tiles, the last range clipped to ``k``. In bfloat16 the
+    kernels run the parts in one launch on 64-wide k-tiles, so there each
+    of ``kb > 1`` parts is a whole number of those."""
     if kb < 1 or (kpad(k) // 32) % kb:
         raise ValueError(f"{kb} parts do not divide the {kpad(k) // 32} "
                          f"k-tiles of a width-{k} reduction")
+    if dtype == torch.bfloat16 and kb > 1 and kpad(k) % (64 * kb):
+        raise ValueError(f"{kb} bfloat16 parts of a width-{k} reduction "
+                         f"are not whole 64-wide k-tiles")
     step = kpad(k) // kb
     return [slice(z * step, min((z + 1) * step, k)) for z in range(kb)]
 
@@ -668,25 +673,47 @@ SMS = 132
 
 
 def split_parts(rows: int, cols: int, k: int, dtype) -> int:
-    """How many parts K12 / K13 cut a product's reduction into: the fewest
-    of 1, 2, 4, 8 that gives the ``rows x cols`` output at least one CTA per
-    SM (tiles of 128 x 64 in fp32, 128 x 128 in bf16 past 64 columns), as
-    long as the part divides the k-tiles and keeps at least 4 of them."""
-    bn = 64 if dtype == torch.float32 or cols <= 64 else 128
-    ctas = -(-rows // 128) * -(-cols // bn)
+    """How many parts a split product cuts its reduction into (K12's
+    projection, K13's fc2): the fewest of 1, 2, 4, 8 that gives the ``rows x
+    cols`` output at least one CTA per SM, as long as the part divides the
+    k-tiles and keeps at least 4 of them. fp32 tiles are csrc/split.cuh's
+    FMA core's, 64 x 112 (128 x 112 where those alone fill the card); bf16
+    tiles are the TMA / wgmma tile's 128 x 128, and a part is whole 64-column
+    k-tiles, so that the parts run in one launch."""
+    if dtype == torch.float32:
+        tn = -(-cols // 112)
+        bm, step = (128 if -(-rows // 128) * tn >= SMS else 64), 1
+    else:
+        tn = -(-cols // 128)
+        bm, step = 128, 2
+    ctas = -(-rows // bm) * tn
     kt = kpad(k) // 32
     kb = 1
-    while ctas * kb < SMS and kb < 8 and kt % (2 * kb) == 0 \
+    while ctas * kb < SMS and kb < 8 and kt % (2 * kb * step) == 0 \
             and kt // (2 * kb) >= 4:
         kb *= 2
     return kb
 
 
+def attn_split_path(C: int, heads: int, win: int) -> str:
+    """How K12 runs a block of width ``C``: ``'fused'``, a launch of a block
+    per (window, head) that keeps the head's q / k / v on the SM from the
+    product through the core (8 x 8 windows, head dims up to 64: every
+    C = 896 stage), else ``'passes'`` (the qkv rows in device memory,
+    attention.cuh's core); csrc/lewin_attn_split.cu."""
+    d = C // heads if heads > 0 and C % heads == 0 else 0
+    return "fused" if win == 8 and 0 < d <= 64 else "passes"
+
+
 def attention_split_kernel(x_img, lns, lnb, op: AttnOperands, mask, lam,
-                           win: int, eps: float, dps, kb: Optional[int] = None):
+                           win: int, eps: float, dps, kb: Optional[int] = None,
+                           shift: int = 0):
     """Launch K12 (:func:`block_attention_split`) on ``x_img [B, H, W, C]``
     (CUDA) with K1's operands; ``kb`` parts of the projection's reduction,
-    by default :func:`split_parts`."""
+    by default :func:`split_parts`; by :func:`attn_split_path`. With
+    ``shift`` the image is in its true layout and the kernel reads and
+    writes it through the SW-MSA roll by ``-shift``: the result is
+    ``roll(block_attention_split(roll(x, -shift)), shift)``."""
     from .build import load
 
     B, H, W, C = x_img.shape
@@ -694,27 +721,33 @@ def attention_split_kernel(x_img, lns, lnb, op: AttnOperands, mask, lam,
     n = win * win
     nW = (H // win) * (W // win)
     _check(x_img, lns, mask, lam, dps)
-    if H % win or W % win or C % h:
+    if H % win or W % win or C % h or not 0 <= shift < win:
         raise ValueError(f"unsupported shape {tuple(x_img.shape)}, h={h}, "
-                         f"win={win}")
+                         f"win={win}, shift={shift}")
     _check_attn_operands(op, x_img, (h, n, n))
     M = B * H * W
-    kb = split_parts(M, C, C, x_img.dtype) if kb is None else kb
-    split_cols(C, kb)
+    dt = x_img.dtype
+    kb = split_parts(M, C, C, dt) if kb is None else kb
+    split_cols(C, kb, dt)
     mask = _f32(mask, (nW, n, n))
     lam = _f32(lam, (B, h))
     dps = _f32(dps, (B,))
     lns, lnb = _f32(lns, (C,)), _f32(lnb, (C,))
-    dt = x_img.dtype
-    xo = torch.empty((M, kpad(C)), dtype=dt, device=x_img.device)
-    qkv = torch.empty((M, 3 * C), dtype=dt, device=x_img.device)
-    parts = torch.empty((kb, M, C), dtype=torch.float32, device=x_img.device)
+    fused = attn_split_path(C, h, win) == "fused"
+    dev = x_img.device
+    # the LN'd windows; the passes' qkv rows, the fused form's attention
+    # rows; the projection's fp32 parts
+    xo = torch.empty((M, kpad(C)), dtype=dt, device=dev)
+    qkv = None if fused else torch.empty((M, 3 * C), dtype=dt, device=dev)
+    ao = torch.empty((M, kpad(C)), dtype=dt, device=dev) if fused else None
+    parts = (torch.empty((kb, M, C), dtype=torch.float32, device=dev)
+             if kb > 1 else None)
     out = torch.empty_like(x_img)
     _run(load().fairm_lewin_attn_split, _ptr(x_img), _ptr(lns), _ptr(lnb),
          _ptr(op.wqkv), _ptr(op.bqkv), _ptr(op.wp), _ptr(op.bp),
          _ptr(op.bias), _ptr(mask), _ptr(lam), _ptr(dps), _ptr(xo), _ptr(qkv),
-         _ptr(parts), _ptr(out), B, H, W, C, h, win, 1, kb, _DTYPES[dt],
-         float(eps), _stream(x_img))
+         _ptr(ao), _ptr(parts), _ptr(out), B, H, W, C, h, win, shift, kb,
+         _DTYPES[dt], int(fused), float(eps), _stream(x_img))
     LAUNCHES["lewin_attn_split"] += 1
     return out
 
@@ -722,23 +755,26 @@ def attention_split_kernel(x_img, lns, lnb, op: AttnOperands, mask, lam,
 def ffn_split_kernel(x_img, lns, lnb, op: FfnOperands, eps: float, dps,
                      kb: Optional[int] = None):
     """Launch K13 (:func:`block_ffn_split`) on a CUDA tensor with K2's
-    operands; ``kb`` hidden blocks, by default :func:`split_parts`."""
+    operands; ``kb`` hidden blocks, by default :func:`split_parts` of
+    fc2."""
     from .build import load
 
     B, H, W, C = x_img.shape
     _check(x_img, lns, dps)
     Hd = _check_ffn_operands(op, x_img)
     M = B * H * W
-    kb = split_parts(M, C, Hd, x_img.dtype) if kb is None else kb
-    split_cols(Hd, kb)
+    dt = x_img.dtype
+    kb = split_parts(M, C, Hd, dt) if kb is None else kb
+    split_cols(Hd, kb, dt)
     lns, lnb = _f32(lns, (C,)), _f32(lnb, (C,))
     dps = _f32(dps, (B,))
-    dt = x_img.dtype
-    xn = torch.empty((M, kpad(C)), dtype=dt, device=x_img.device)
-    # fc1's output in fp32, the conv's in the model dtype
-    hid1 = torch.empty((M, Hd), dtype=torch.float32, device=x_img.device)
-    hid2 = torch.empty((M, kpad(Hd)), dtype=dt, device=x_img.device)
-    parts = torch.empty((kb, M, C), dtype=torch.float32, device=x_img.device)
+    dev = x_img.device
+    xn = torch.empty((M, kpad(C)), dtype=dt, device=dev)
+    # fc1's output in fp32, the conv's in the model dtype; fc2's parts
+    hid1 = torch.empty((M, Hd), dtype=torch.float32, device=dev)
+    hid2 = torch.empty((M, kpad(Hd)), dtype=dt, device=dev)
+    parts = (torch.empty((kb, M, C), dtype=torch.float32, device=dev)
+             if kb > 1 else None)
     out = torch.empty_like(x_img)
     _run(load().fairm_lewin_ffn_split, _ptr(x_img), _ptr(lns), _ptr(lnb),
          _ptr(op.w1), _ptr(op.b1), _ptr(op.wd), _ptr(op.bd), _ptr(op.w2),

@@ -115,19 +115,26 @@ def test_ffn_split_plain_matches_pallas_split(rng, monkeypatch, dtype, kb):
 
 
 @pytest.mark.parametrize("rows,cols,k,dtype,kb", [
-    (256, 896, 3584, torch.float32, 8),     # res 8, B = 4: 28 tiles
-    (1024, 896, 3584, torch.float32, 2),    # res 16, B = 4: 112 tiles
-    (2048, 896, 3584, torch.float32, 1),    # res 8, B = 32: 224 tiles
-    (256, 896, 896, torch.float32, 4),      # the projection: 28 k-tiles
+    (256, 896, 896, torch.float32, 4),      # K12's projection, res 8, B = 4
+    (1024, 896, 896, torch.float32, 2),     # res 16, B = 4: 128 tiles
+    (4096, 896, 896, torch.float32, 1),     # 128-row tiles: 256 of them
+    (256, 896, 3584, torch.float32, 8),     # K13's fc2: 32 tiles
+    (1024, 896, 3584, torch.float32, 2),
+    (2048, 896, 3584, torch.float32, 1),    # res 8, B = 32: 256 tiles
     (256, 896, 3584, torch.bfloat16, 8),    # 14 tiles of 128 x 128
+    (1024, 896, 3584, torch.bfloat16, 4),
+    (4096, 896, 3584, torch.bfloat16, 1),
     (8192, 896, 3584, torch.bfloat16, 1),
+    (256, 896, 896, torch.bfloat16, 2),     # 4 parts: not whole 64-col tiles
     (512, 16, 64, torch.float32, 1),        # two k-tiles: no part below 4
 ])
 def test_split_parts_fills_the_card(rows, cols, k, dtype, kb):
     """The fewest parts that put a CTA on each of the 132 SMs, dividing the
-    k-tiles, each part at least 4 of them."""
+    k-tiles, each part at least 4 of them (fp32 tiles of 64 x 112, 128 x
+    112 where those alone fill the card; bf16 tiles of 128 x 128 and parts
+    of whole 64-column k-tiles)."""
     assert tlb.split_parts(rows, cols, k, dtype) == kb
-    tlb.split_cols(k, kb)
+    tlb.split_cols(k, kb, dtype)
 
 
 def test_split_cols_refuses_an_uneven_cut():
@@ -135,19 +142,50 @@ def test_split_cols_refuses_an_uneven_cut():
         tlb.split_cols(896, 8)   # 28 k-tiles
 
 
+@pytest.mark.parametrize("k,kb,ok", [
+    (896, 2, True), (896, 4, False), (3584, 8, True), (64, 2, False),
+    (96, 3, False), (96, 1, True), (192, 3, True)])
+def test_split_cols_bf16_parts_are_whole_wgmma_tiles(k, kb, ok):
+    """In bfloat16 the kernels run kb > 1 parts in one launch on 64-wide
+    k-tiles: a cut into 32-wide halves is refused there, and taken in
+    float32 and by the plain twins."""
+    tlb.split_cols(k, kb)
+    tlb.split_cols(k, kb, torch.float32)
+    if ok:
+        tlb.split_cols(k, kb, torch.bfloat16)
+    else:
+        with pytest.raises(ValueError, match="64-wide"):
+            tlb.split_cols(k, kb, torch.bfloat16)
+
+
+@pytest.mark.parametrize("C,h,win,path", [
+    (896, 16, 8, "fused"), (56, 1, 8, "fused"), (28, 1, 8, "fused"),
+    (896, 16, 4, "passes"), (128, 1, 8, "passes"), (896, 8, 8, "passes")])
+def test_attn_split_path(C, h, win, path):
+    """K12's fused form: 8 x 8 windows, head dims up to 64."""
+    assert tlb.attn_split_path(C, h, win) == path
+
+
 @pytest.mark.parametrize("dim,res,dtype,batch,want", [
+    (896, 8, torch.float32, 1, "split"),        # 64 tokens
     (896, 8, torch.float32, 4, "split"),
+    (896, 16, torch.float32, 1, "split"),       # 256 tokens
     (896, 16, torch.float32, 4, "split"),
-    (896, 8, torch.bfloat16, 16, "split"),      # 1024 tokens
-    (896, 8, torch.float32, 32, "kernel"),      # 2048 tokens
-    (896, 16, torch.bfloat16, 16, "kernel"),
+    (896, 8, torch.float32, 32, "split"),       # 2048 tokens
+    (896, 16, torch.float32, 32, "split"),      # 8192 tokens
+    (896, 8, torch.bfloat16, 16, "kernel"),     # bf16 res 8: the chain
+    (896, 8, torch.bfloat16, 32, "kernel"),
+    (896, 16, torch.bfloat16, 4, "kernel"),     # 1024 tokens
+    (896, 16, torch.bfloat16, 8, "kernel"),     # 2048 tokens
+    (896, 16, torch.bfloat16, 16, "split"),     # 4096 tokens
+    (896, 16, torch.bfloat16, 32, "split"),
     (448, 16, torch.float32, 4, "kernel"),      # not in the table
 ])
 def test_default_route_takes_the_split_table(dim, res, dtype, batch, want):
     """impl='default' runs K12 -> K13 exactly for the blocks of
-    DEFAULT_SPLIT (the C = 896 stages, fp32 and bf16) on a batch of at most
-    SPLIT_MAX_TOKENS tokens; impl='split' takes every origin block and no
-    frequency block."""
+    DEFAULT_SPLIT (the C = 896 stages: fp32 at res 8 and 16, bf16 at res 16)
+    on a batch of at least the entry's tokens; impl='split' takes every
+    origin block and no frequency block."""
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch.models import (
         uformer_lewin)
 
@@ -159,4 +197,6 @@ def test_default_route_takes_the_split_table(dim, res, dtype, batch, want):
     freq = uformer_lewin.LeWinBlock(8, res, 2, impl="split", msa_type="freq",
                                     L=3)
     assert freq.route(dtype, batch) == "kernel"
-    assert uformer_lewin.SPLIT_MAX_TOKENS == 1024
+    assert uformer_lewin.DEFAULT_SPLIT == {
+        (896, torch.float32, 8): 64, (896, torch.float32, 16): 256,
+        (896, torch.bfloat16, 16): 4096}

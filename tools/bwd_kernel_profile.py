@@ -30,10 +30,11 @@ Run on a machine with an NVIDIA GPU, from the root of the checkout:
 
     python3 tools/bwd_kernel_profile.py [--dtype bfloat16] [--batch 4]
         [--k7 | --k6 | --k8 | --k10 | --k2 | --k1 | --k4 | --k3 | --k11
-         | --f2 | --k14 | --k9 [--strided]]
+         | --f2 | --k14 | --k9 [--strided] | --k12 | --k13]
 
-Prints the card's name and power limit, then per kernel the passes in order
-of device time; for K1's, K2's and K3's passes and K11's column GEMM
+Prints the card's name and power limit, then per kernel its ms by CUDA
+events, its device time, the host's time to issue a call, and the passes in
+order of device time; for K1's, K2's and K3's passes and K11's column GEMM
 also each product's rate. Imports
 the PyTorch port only.
 """
@@ -44,6 +45,7 @@ import argparse
 import os
 import subprocess
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -110,6 +112,12 @@ def main(argv=None) -> int:
                        help="the kernels that keep the LeFF's hidden in a "
                        "buffer (bf16): K2's passes, K4, K5 and K13 at every "
                        "stage each serves")
+    which.add_argument("--k12", action="store_true",
+                       help="K12 at chip_smoke.py's split_cases, fp32 and "
+                       "bf16, B = 4 and 16")
+    which.add_argument("--k13", action="store_true",
+                       help="K13 at chip_smoke.py's split_cases, fp32 and "
+                       "bf16, B = 4 and 16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -127,6 +135,11 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip())
     dtype = getattr(torch, args.dtype)
+    if args.k12 or args.k13:
+        split_profile(chip_smoke, lb, windows, "lewin_attn_split" if args.k12
+                      else "lewin_ffn_split",
+                      (4, 16) if args.batch == 4 else (args.batch,))
+        return 0
     if args.k7:
         cases = [c for c, _ in chip_smoke.k7_cases(lb, dtype, args.batch)]
     elif args.k6:
@@ -173,29 +186,110 @@ def main(argv=None) -> int:
         cases = [c for c in chip_smoke.bwd_cases(lb, windows, dtype, args.batch)
                  if "res128" in c.label]
     for case in cases:
-        case.run()
-        ms = chip_smoke.time_ms(case.run, iters=5, warmup=1)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            case.run()
-            torch.cuda.synchronize()
-        by_name, total, gemms = {}, 0.0, []
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            us = e.time_range.end - e.time_range.start
-            n, t = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, t + us)
-            total += us
-            if "gemm" in e.name:
-                gemms.append((e.time_range.start, us, e.name))
         batch = "" if args.k9 else f" B={args.batch}"
-        print(f"{case.label} {args.dtype}{batch}: {ms:.4f} ms by CUDA "
-              f"events, {total / 1e3:.4f} ms of device time in "
-              f"{sum(n for n, _ in by_name.values())} passes")
-        for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
-            print(f"  {us / 1e3:8.4f} ms x {n:2d}  {name[:100]}")
+        gemms = profile_case(case, f"{case.label} {args.dtype}{batch}")
         print_products(case, sorted(gemms))
     return 0
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """The host's time to issue one call of ``fn`` (its launches, buffers
+    and argument set-up), by the host clock over ``iters`` calls issued
+    back to back with the card idle at the start: where this is above the
+    call's device time, the card waits on the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e3
+
+
+def profile_case(case, label):
+    """Time ``case.run`` by CUDA events and by the host clock
+    (:func:`host_ms`), then trace one launch and print its passes by device
+    time and the rate of ``case.flops`` over them; returns the passes whose
+    name holds ``gemm`` or ``splitk`` as (start, us, name)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+
+    case.run()
+    ms = chip_smoke.time_ms(case.run, iters=5, warmup=1)
+    host = host_ms(case.run)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        case.run()
+        torch.cuda.synchronize()
+    by_name, total, gemms = {}, 0.0, []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.end - e.time_range.start
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + us)
+        total += us
+        if "gemm" in e.name or "splitk" in e.name:
+            gemms.append((e.time_range.start, us, e.name))
+    print(f"{label}: {ms:.4f} ms by CUDA events, {total / 1e3:.4f} ms of "
+          f"device time in {sum(n for n, _ in by_name.values())} passes, "
+          f"{host:.4f} ms a call to issue on the host")
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
+        print(f"  {us / 1e3:8.4f} ms x {n:2d}  {name[:100]}")
+    print(f"  the launch's operations over its device time: "
+          f"{case.flops / total / 1e6:.1f} TFLOP/s")
+    return gemms
+
+
+def split_products(kernel, M, C):
+    """(label, m, n, k) of the products of one K12 or K13 launch."""
+    if kernel == "lewin_attn_split":
+        return (("qkv", M, 3 * C, C), ("proj", M, C, C))
+    return (("fc1", M, 4 * C, C), ("fc2", M, C, 4 * C))
+
+
+def split_profile(chip_smoke, lb, windows, kernel, batches) -> None:
+    """K12 or K13 at every case of ``chip_smoke.split_cases`` in float32
+    and bfloat16 at ``batches``: the passes by device time, the bound, a
+    ``torch.matmul`` yardstick of the launch's products on their shapes
+    (same dtype, TF32 off) and each product's rate, where a pass is one
+    product, else the rate of the launch's operations over its passes."""
+    from chip_smoke import BwdCase
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dtype in (torch.float32, torch.bfloat16):
+        name_dt = str(dtype)[6:]
+        for B in batches:
+            for c in chip_smoke.split_cases(lb, windows, dtype, B):
+                if c.kernel != kernel:
+                    continue
+                x = c.args[0]
+                M, C = x.numel() // x.shape[-1], x.shape[-1]
+                shapes = split_products(kernel, M, C)
+                ops = [(torch.randn(m, k, device="cuda").to(dtype),
+                        torch.randn(k, n, device="cuda").to(dtype))
+                       for _, m, n, k in shapes]
+                yard = [chip_smoke.time_ms(lambda a=a, b=b: torch.matmul(a, b),
+                                           iters=20, warmup=3)
+                        for a, b in ops]
+                bound, by = chip_smoke.bound_of(c, dtype)
+                label = f"{c.label} {name_dt} B={B}"
+                gemms = profile_case(BwdCase(c.kernel, label, c.timed,
+                                             lambda: None, c.flops, 0), label)
+                print(f"  bound {bound:.4f} ms by {by}; yardstick "
+                      f"torch.matmul {sum(yard):.4f} ms (" + ", ".join(
+                          f"{lab} {ms:.4f}" for (lab, *_), ms in
+                          zip(shapes, yard)) + ")")
+                gemms.sort()
+                if len(gemms) == len(shapes):
+                    for (lab, m, n, k), (_, us, name) in zip(shapes, gemms):
+                        print(f"  product {lab} [{m} x {k}] x [{k} x {n}]: "
+                              f"{us / 1e3:.4f} ms, "
+                              f"{2.0 * m * n * k / us / 1e6:.1f} TFLOP/s "
+                              f"({name.split('(')[0]})")
+                del ops
 
 
 def f2_cases(chip_smoke, lb, windows, batch):

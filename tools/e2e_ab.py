@@ -13,11 +13,14 @@ checkout in turn, in one call on one card (parent, change, change,
 parent):
 
     python3 tools/e2e_ab.py [--no-steps] [--configs NAME ...] [--trace-steps]
+        [--dtype float32] [--batch B ...]
 
 ``--configs`` takes a subset of the three; ``--trace-steps`` traces each
 one's joint step at its batch (each port kernel's device time over all of
-its passes) in place of the flagship's B=32 one. Prints the card's name
-and power limit first. Imports the PyTorch port only.
+its passes) in place of the flagship's B=32 one; ``--dtype`` and
+``--batch`` set the eval forwards' dtype (the eval entry point's float32,
+say) and batches. Prints the card's name and power limit first. Imports
+the PyTorch port only.
 """
 
 from __future__ import annotations
@@ -43,6 +46,11 @@ def main(argv=None) -> int:
                     help="the configurations to run (default: all three)")
     ap.add_argument("--trace-steps", action="store_true",
                     help="trace each configuration's joint step")
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"],
+                    help="the eval forwards' dtype")
+    ap.add_argument("--batch", type=int, nargs="+", default=[BATCH],
+                    help="the eval forwards' batches")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -69,21 +77,23 @@ def main(argv=None) -> int:
     fields_of = {"flagship": {},
                  "per_scale_set": cs.INJECTION_CONFIGS["per_scale_set"],
                  "resnet_dgrn": cs.FAMILIES["resnet_dgrn"]}
-    x = torch.from_numpy(np.random.default_rng(2).random(
-        (BATCH, cs.P, cs.P, 3), dtype=np.float32)).cuda()
     for name in args.configs:
-        cfg = cs.flagship_config(config, "bfloat16", **fields_of[name])
+        cfg = cs.flagship_config(config, args.dtype, **fields_of[name])
         bundle = airnet.build_models(cfg, "cuda", "default")
         cs.liven(bundle)
-        fwd = lambda: airnet.eval_forward(bundle, x)
-        ms = [cs.time_ms(fwd, iters=5) for _ in range(2)]
-        print(f"{name} eval forward bf16 B={BATCH} default route ({card}): "
-              + " / ".join(f"{t:.3f}" for t in ms) + " ms, "
-              + " / ".join(f"{BATCH * cs.P * cs.P / t / 1e3:.4f}" for t in ms)
-              + " MP/s", flush=True)
-        cs.profile_call(fwd, f"{name} eval forward (bf16, B={BATCH}; {card})",
-                        top=12)
-        del bundle, fwd
+        for B in args.batch:
+            x = torch.from_numpy(np.random.default_rng(2).random(
+                (B, cs.P, cs.P, 3), dtype=np.float32)).cuda()
+            fwd = lambda: airnet.eval_forward(bundle, x)
+            ms = [cs.time_ms(fwd, iters=5) for _ in range(2)]
+            print(f"{name} eval forward {args.dtype} B={B} default route "
+                  f"({card}): " + " / ".join(f"{t:.3f}" for t in ms) + " ms, "
+                  + " / ".join(f"{B * cs.P * cs.P / t / 1e3:.4f}" for t in ms)
+                  + " MP/s", flush=True)
+            cs.profile_call(fwd, f"{name} eval forward ({args.dtype}, B={B}; "
+                            f"{card})", top=12)
+            del fwd, x
+        del bundle
         torch.cuda.empty_cache()
     if args.no_steps:
         return 0
