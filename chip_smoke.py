@@ -21,7 +21,10 @@ Phases, each fatal on failure:
    K4 at every decoder stage, the up path included (the merged-against-
    chain A/B the route table is set from); for K4 / K5 at res 128, 32 and
    16, where one launch spends its time (the device clock at each of its
-   grid barriers); then K2's table: bf16 at B = 4 and 32 at every flagship
+   grid barriers); K5 at res 128 / 64 / 32 in bf16 by both forms (the band
+   groups the route takes, equal to the chain bit for bit at B = 4, 16 and
+   32, and the twelve phases against them; each form's time and phases);
+   then K2's table: bf16 at B = 4 and 32 at every flagship
    stage K2 serves, against its twin, its time beside the plain version's,
    the bound, a ``torch.matmul`` yardstick of fc1 and fc2, and the device
    memory one launch takes beyond its output; K1's table likewise at every
@@ -274,26 +277,49 @@ def merged_blocks(B: int, paths=("down", "up")) -> int:
 
 DEFAULT_MERGED_BLOCKS = {B: merged_blocks(B) for B in (4, 6, 12, 16, 32)}
 
+# the default route in bf16 for the encoder's frequency blocks, held apart
+# from the model's own table (DEFAULT_MERGED's "freq" entries): (res,
+# shifted, least tokens of a batch, band images x res^2) of the stages whose
+# blocks (one shifted, one not, a stage) run K5 from that many tokens up;
+# every other frequency block, and float32, takes the chain
+DEFAULT_FREQ_STAGES = ((128, True, 1572864), (64, True, 393216),
+                       (32, False, 98304), (32, True, 98304))
+
+
+def freq_merged_blocks(B: int, dtype: str, shifted=(False, True)) -> int:
+    """Encoder frequency blocks of a default-route forward of ``B`` tiles
+    (``K3_BANDS * B`` band images) in ``dtype`` that run K5, of those whose
+    shift is in ``shifted``."""
+    if dtype != "bfloat16":
+        return 0
+    return sum(1 for res, sh, least in DEFAULT_FREQ_STAGES
+               if sh in shifted and K3_BANDS * B * res * res >= least)
+
 
 def default_counts(dtype: str, B: int) -> dict:
     """Launches of one default-route forward of ``B`` tiles, held apart from
     the model's own route table."""
     k4 = DEFAULT_MERGED_BLOCKS[B] if dtype == "bfloat16" else 0
     k12 = split_blocks(B, dtype)
-    return {**ZERO, "lewin_attn": 54 - k4 - k12, "lewin_ffn": 54 - k4 - k12,
-            "freq_inter": 10, "lewin_merged": k4, "lewin_attn_split": k12,
+    k5 = freq_merged_blocks(B, dtype)
+    return {**ZERO, "lewin_attn": 54 - k4 - k12 - k5,
+            "lewin_ffn": 54 - k4 - k12 - k5, "freq_inter": 10 - k5,
+            "lewin_merged": k4, "freq_merged": k5, "lewin_attn_split": k12,
             "lewin_ffn_split": k12}
 TRAIN_BATCH = 4          # the training CLI's batch: one sample per task
 
 
 def train_step_counts(joint: bool) -> dict:
     """Launches of one training step at B=4 in bf16 on the default route.
-    The encoder's 10 frequency blocks take the chain: forward by the key and
-    by the query encoder (K1 intra, K3, K2 each), backward K6, K8, K7. The
-    joint step adds the decoder's 44 blocks: forward K4 for those that run
-    merged at this batch, K1 / K2 for the others, backward K6 and K7 for
-    every block."""
-    c = {**ZERO, "lewin_attn": 20, "freq_inter": 20, "lewin_ffn": 20,
+    The encoder's 10 frequency blocks, forward by the key and by the query
+    encoder: K5 for those that run merged at this batch, the chain (K1
+    intra, K3, K2) for the others; backward K6, K8, K7 each. The joint step
+    adds the decoder's 44 blocks: forward K4 for those that run merged at
+    this batch, K1 / K2 for the others, backward K6 and K7 for every
+    block."""
+    k5 = freq_merged_blocks(TRAIN_BATCH, "bfloat16")
+    c = {**ZERO, "lewin_attn": 20 - 2 * k5, "freq_inter": 20 - 2 * k5,
+         "lewin_ffn": 20 - 2 * k5, "freq_merged": 2 * k5,
          "lewin_attn_bwd": 10, "freq_inter_bwd": 10, "lewin_ffn_bwd": 10}
     if joint:
         k4 = DEFAULT_MERGED_BLOCKS[TRAIN_BATCH]
@@ -595,11 +621,13 @@ def kernel_cases(lb, windows, dtype, B):
                 "freq_merged", f"block_freq_merged {tag}",
                 [x, *ln1, *awA, biasA, *awB, biasB, mask, *ln2, *fw, L, 8, shift,
                  1e-6, dps1, dps2],
-                lb.block_freq_merged, lb.block_freq_merged_plain,
-                lambda stamps=None, x=x, ln1=ln1, ln2=ln2, opA=opA, opB=opB,
-                fop=fop, mask=mask, dps1=dps1, dps2=dps2, shift=shift:
+                functools.partial(lb.block_freq_merged, pairs=pairsB),
+                lb.block_freq_merged_plain,
+                lambda stamps=None, path=None, x=x, ln1=ln1, ln2=ln2, opA=opA,
+                opB=opB, fop=fop, mask=mask, dps1=dps1, dps2=dps2, shift=shift:
                 lb.freq_merged_kernel(x, *ln1, opA, opB, mask, *ln2, fop, L, 8,
-                                      shift, 1e-6, dps1, dps2, stamps),
+                                      shift, 1e-6, dps1, dps2, stamps,
+                                      path=path),
                 attn_flops(M, C, n) + attn_flops(M, C, L * n) + ffn_flops(M, C),
                 ("freq", res, shift, C),
                 functools.partial(lb.freq_merged_chain, lb.freq_intra,
@@ -607,15 +635,19 @@ def kernel_cases(lb, windows, dtype, B):
     return cases
 
 
-def print_phases(lb, case: Case, label: str):
+def print_phases(lb, case: Case, label: str, path=None):
     """Where one launch of a merged kernel spends its time: the device
     clock at each phase's closing grid barrier (the barrier's wait is in the
-    phase it closes)."""
+    phase it closes); K5 by ``path`` (None: ``freq_merged_path``)."""
     x, wq3 = case.args[0], case.args[3]
-    names = (lb.FREQ_MERGED_PHASES if case.kernel == "freq_merged"
-             else lb.merged_phases(x.shape[-1], wq3.shape[0], 8, x.dtype))
     stamps = torch.zeros(lb.MERGED_STAMPS, dtype=torch.int64, device="cuda")
-    case.timed(stamps)
+    if case.kernel == "freq_merged":
+        names = lb.freq_merged_phases(x.shape[-1], wq3.shape[0], 8, x.dtype,
+                                      K3_BANDS, path)
+        case.timed(stamps, path)
+    else:
+        names = lb.merged_phases(x.shape[-1], wq3.shape[0], 8, x.dtype)
+        case.timed(stamps)
     torch.cuda.synchronize()
     t = stamps.tolist()
     if any(b < a for a, b in zip(t[:len(names)], t[1:len(names) + 1])):
@@ -626,10 +658,19 @@ def print_phases(lb, case: Case, label: str):
         flush=True)
 
 
+def k5_group(lb, case: Case, dtype) -> bool:
+    """Whether ``case`` is K5 at a shape its band-group form takes."""
+    return case.kernel == "freq_merged" and lb.freq_merged_path(
+        case.stage[3], case.args[3].shape[0], 8, dtype) == "group"
+
+
 def check_kernels(lb, windows, default_merged, stats, card: str):
     """Phase 3: each kernel against its plain twin (and K4 / K5 against the
-    chain); times with prepared operands. The kernels line takes each
-    kernel's first (res-128) case in bf16 at B=32. The merged-against-chain
+    chain); times with prepared operands; K5 where it runs its band-group
+    form equal to the chain bit for bit (at every batch of the table), and
+    also by its twelve phases (the parent's form), held to it within
+    CHAIN_TOL. The kernels line takes each kernel's first (res-128) case in
+    bf16 at B=32. The merged-against-chain
     table covers both dtypes at the batches the entry points run and marks
     the blocks that ``default_merged`` (the model's route table, each entry
     from its least batch in tokens) runs merged."""
@@ -653,14 +694,31 @@ def check_kernels(lb, windows, default_merged, stats, card: str):
             line = (f"    time: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
                     f"{bound:.4f} ms by {by}")
             if case.chain is not None:
-                compare(f"{label} vs chain", got, case.chain(*case.args),
-                        CHAIN_TOL[dtype])
+                chain = case.chain(*case.args)
+                compare(f"{label} vs chain", got, chain, CHAIN_TOL[dtype])
+                if k5_group(lb, case, dtype) and not torch.equal(got, chain):
+                    raise Failed(f"{label}: K5's band-group form differs from "
+                                 "the chain in some bits")
+                del chain
                 cms = time_ms(case.chain_timed)
                 ab[(*case.stage, name_dt, B)] = (ms, cms)
                 line += f", chain of kernels {cms:.4f} ms"
             print(line, flush=True)
             if case.stage is not None and case.stage[1] in (128, 32, 16):
                 print_phases(lb, case, label)
+            if k5_group(lb, case, dtype):
+                # the parent's form, twelve phases, beside the band groups
+                # (which equal the chain bit for bit; the phases' LayerNorms
+                # sum in another order, so they are held to CHAIN_TOL)
+                phases = case.timed(path="phases")
+                compare(f"{label} phases form vs band groups", phases, got,
+                        CHAIN_TOL[dtype])
+                print(f"    phases form {time_ms(lambda: case.timed(path='phases')):.4f}"
+                      f" ms (band groups {ms:.4f} ms), bits "
+                      f"{'equal' if torch.equal(phases, got) else 'differ'}",
+                      flush=True)
+                print_phases(lb, case, label, "phases")
+                del phases
             # the kernels line: each kernel's first case in bf16, K4's at a
             # stage the default route runs it
             if dtype == torch.bfloat16 and (
@@ -673,6 +731,10 @@ def check_kernels(lb, windows, default_merged, stats, card: str):
                      (torch.float32, ENTRY_BATCH)):
         for case in kernel_cases(lb, windows, dtype, B):
             if case.chain is not None:
+                if k5_group(lb, case, dtype) and not torch.equal(
+                        case.timed(), case.chain_timed()):
+                    raise Failed(f"{case.label} {str(dtype)[6:]} B{B}: K5's "
+                                 "band-group form differs from the chain")
                 ab[(*case.stage, str(dtype)[6:], B)] = (
                     time_ms(case.timed), time_ms(case.chain_timed))
     print(f"merged against chain, ms per block ({card}):", flush=True)
@@ -1087,12 +1149,14 @@ def f2_check(lb, windows, card: str):
     for res, C, h, shift in F2_FREQ:
         mask = (torch.from_numpy(windows.shift_attn_mask(res, res, 8, shift))
                 .cuda() if shift else None)
+        pairs = rnd(L * L, 225, h, scale=0.05)
         args = ([rnd(L * B, res, res, C, scale=0.5).to(dt), *ln(C), *attn(C, h),
                  rnd(L, h, n, n, scale=0.05), *attn(C, h),
-                 rnd(h, L * n, L * n, scale=0.05), mask, *ln(C),
+                 lb.inter_bias(pairs, L, 8), mask, *ln(C),
                  *lb.f2_ffn_weights(C, rnd), L, 8, shift, 1e-6, None, None])
         rows.append(("freq_merged", f"block_freq_merged res{res} C{C} shift{shift}",
-                     lb.block_freq_merged, lb.block_freq_merged_plain, args,
+                     functools.partial(lb.block_freq_merged, pairs=pairs),
+                     lb.block_freq_merged_plain, args,
                      functools.partial(lb.freq_merged_chain, lb.freq_intra_plain,
                                        lb.freq_inter_plain,
                                        lb.ffn_rounded_hidden_plain)))
@@ -1249,6 +1313,30 @@ def k4_table(lb, windows, card: str):
         torch.cuda.empty_cache()
 
 
+def k5_parts(lb, case: Case, dtype):
+    """The chain K5 equals, as its five launches (the two rolls, K1 intra,
+    K3, K2) with prepared operands, each on its own inputs made once from
+    the case's: [(name, fn)]."""
+    a = case.args
+    x, ln1, mask, ln2 = a[0], a[1:3], a[21], a[22:24]
+    L, shift, dps1, dps2 = a[30], a[32], a[34], a[35]
+    opA = lb.attn_operands(*a[3:12], dtype)
+    opB = lb.attn_operands(*a[12:21], dtype, case.wrapper.keywords["pairs"])
+    fop = lb.ffn_operands(*a[24:30], dtype)
+    img = lb.roll(x, shift)
+    y1 = lb.attention_kernel(img, *ln1, opA, mask, None, 8, 1e-6, False, L,
+                             None)
+    ur = lb.freq_inter_kernel(y1, img, opB, mask, L, 8, dps1)
+    u = lb.roll(ur, -shift)
+    return [("roll x", lambda: lb.roll(x, shift)),
+            ("K1 intra", lambda: lb.attention_kernel(
+                img, *ln1, opA, mask, None, 8, 1e-6, False, L, None)),
+            ("K3 inter", lambda: lb.freq_inter_kernel(y1, img, opB, mask, L, 8,
+                                                      dps1)),
+            ("roll u", lambda: lb.roll(ur, -shift)),
+            ("K2 LeFF", lambda: lb.ffn_kernel(u, *ln2, fop, 1e-6, dps2))]
+
+
 def flagship_config(config, eval_dtype: str, **overrides):
     """The flagship's configuration; ``overrides`` may replace any field,
     the decoder's methods included."""
@@ -1277,7 +1365,8 @@ class Bundles:
 
 def route_counts(bundle, airnet, uformer_lewin, B: int) -> dict:
     """The launches one forward of ``bundle`` on ``B`` tiles makes, from its
-    fused blocks' routes (only origin blocks look at the batch)."""
+    fused blocks' routes (a frequency block sees its L bands folded into the
+    batch)."""
     counts = dict(ZERO)
     dtype = airnet.model_dtype(bundle.cfg)
     for net in (bundle.encoder, bundle.decoder):
@@ -1285,7 +1374,7 @@ def route_counts(bundle, airnet, uformer_lewin, B: int) -> dict:
             if not isinstance(m, uformer_lewin.LeWinBlock) or m.unfused:
                 continue
             freq = m.msa_type == "freq"
-            route = m.route(dtype, B)
+            route = m.route(dtype, B * (m.L if freq else 1))
             if route == "merged":
                 counts["freq_merged" if freq else "lewin_merged"] += 1
             elif route == "split":
@@ -1800,7 +1889,7 @@ def function_checks(lb, windows, dtype):
     args = [x, *ln1, *awA, biasA, *awB, biasB, mask, *ln2, *fw, L, 8, shift,
             1e-6, d1, d2]
     want = torch.autograd.grad(lb.block_freq_merged_plain(*args), ins, g)
-    got = torch.autograd.grad(lb.BlockFreqMerged.apply(*args), ins, g)
+    got = torch.autograd.grad(lb.BlockFreqMerged.apply(*args, pairsB), ins, g)
     compare_all(f"BlockFreqMerged {name_dt} res{res} C{C}", got, want, tol)
     img = lb.roll(x, shift)
     y1 = lb.FreqIntra.apply(img, *ln1, *awA, biasA, mask, L, 8, 1e-6)
@@ -2646,19 +2735,23 @@ def injection_counts(name: str, dtype: str, B: int) -> dict:
     two blocks (C = 896, res 8) run split where DEFAULT_SPLIT_STAGES say."""
     merged = merged_blocks(B, ("down",)) if dtype == "bfloat16" else 0
     c = dict(ZERO)
+    k5 = freq_merged_blocks(B, dtype)
     if name == "all_3_bands_DC":       # every decoder block unfused
         fused_dec, enc_fused, k9 = 0, 10, 0
-    elif name == "per_scale_set":
+    elif name == "per_scale_set":      # the unshifted encoder blocks fused
         fused_dec, enc_fused, k9 = 22, 5, 22 + 2 * 5
         c["dcn"] = 22
+        k5 = freq_merged_blocks(B, dtype, (False,))
     else:
         fused_dec, enc_fused, k9 = 22, 10, 22
     merged = merged if fused_dec else 0
     # of the fused decoder blocks, bottleneck_0's two at res 8 (C = 896)
     k12 = split_blocks(B, dtype, {8: 2}) if fused_dec else 0
     c["lewin_attn_split"] = c["lewin_ffn_split"] = k12
-    c["lewin_attn"] = c["lewin_ffn"] = fused_dec - merged - k12 + enc_fused
-    c["freq_inter"] = enc_fused
+    c["lewin_attn"] = c["lewin_ffn"] = (fused_dec - merged - k12 + enc_fused
+                                        - k5)
+    c["freq_inter"] = enc_fused - k5
+    c["freq_merged"] = k5
     c["lewin_merged"] = merged
     c["window_attn"] = k9
     return c
@@ -2776,11 +2869,14 @@ def per_scale_train_counts(joint: bool) -> dict:
     the default route. Encoder, by the key encoder (no gradients) and the
     query encoder: 5 fused frequency blocks (K1 intra, K3, K2), 5 need_kv
     blocks (K9 for intra and inter); the query encoder's backward K6, K8,
-    K7 and K10 twice per need_kv block. The joint step adds the decoder: 22
-    fused blocks (those of the "down" merged stages forward K4, the others
-    K1 / K2; backward K6 and K7 each); 22 unfused blocks, K9, K11, K10 and
-    K14 each."""
-    c = {**ZERO, "lewin_attn": 10, "freq_inter": 10, "lewin_ffn": 10,
+    K7 and K10 twice per need_kv block; of the fused blocks (the unshifted
+    ones) those that run merged at this batch forward K5. The joint step
+    adds the decoder: 22 fused blocks (those of the "down" merged stages
+    forward K4, the others K1 / K2; backward K6 and K7 each); 22 unfused
+    blocks, K9, K11, K10 and K14 each."""
+    k5 = freq_merged_blocks(TRAIN_BATCH, "bfloat16", (False,))
+    c = {**ZERO, "lewin_attn": 10 - 2 * k5, "freq_inter": 10 - 2 * k5,
+         "lewin_ffn": 10 - 2 * k5, "freq_merged": 2 * k5,
          "lewin_attn_bwd": 5, "freq_inter_bwd": 5, "lewin_ffn_bwd": 5,
          "window_attn": 20, "window_attn_bwd": 10}
     if joint:

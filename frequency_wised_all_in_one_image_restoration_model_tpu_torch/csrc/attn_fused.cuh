@@ -91,6 +91,52 @@ __device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
 }
 
+// LayerNorm in place of ``rows`` bf16 rows of C columns (C a multiple of
+// 4, at most 256) and row stride ld, a warp a row (warp of nwarps), the
+// row's vectors in registers: fp32 statistics, rounded to bf16. K1's and
+// K4's window half and K5's band groups run it.
+__device__ __forceinline__ void ln_rows(bf16_t* xs, int ld, int rows, int C,
+                                        const float* lns, const float* lnb,
+                                        float eps, int warp, int nwarps) {
+  const int lane = threadIdx.x & 31, c4 = C / 4;
+  for (int t = warp; t < rows; t += nwarps) {
+    Vec4<bf16_t>* row = reinterpret_cast<Vec4<bf16_t>*>(xs + t * ld);
+    float v[2][4];
+    float s = 0.f;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = lane + 32 * u;
+      const bool ok = c < c4;
+      Vec4<bf16_t> e;
+      if (ok) e = row[c];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[u][i] = ok ? to_f(e.v[i]) : 0.f;
+        s += v[u][i];
+      }
+    }
+    const float mu = warp_sum(s) / C;
+    float var = 0.f;
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (lane + 32 * u < c4)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) var += (v[u][i] - mu) * (v[u][i] - mu);
+    const float rs = rsqrtf(warp_sum(var) / C + eps);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = lane + 32 * u;
+      if (c >= c4) continue;
+      Vec4<bf16_t> e;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        e.v[i] = from_f<bf16_t>((v[u][i] - mu) * rs * lns[4 * c + i] +
+                                lnb[4 * c + i]);
+      row[c] = e;
+    }
+  }
+}
+
 // the zero pad columns of the LN1 and attention rows, once per block
 template <int DP>
 __device__ __forceinline__ void fused_attn_init(const FusedAttnArgs& a,
@@ -201,43 +247,7 @@ __device__ __forceinline__ void fused_attn_window(const FusedAttnArgs& a,
   asm volatile("cp.async.wait_group %0;\n" ::"n"(FA_STAGES - 1));
   __syncthreads();
 
-  // LN1 in place: a warp a row, the row's vectors in registers
-  for (int t = warp; t < FA_N; t += ANT / 32) {
-    Vec4<bf16_t>* row = reinterpret_cast<Vec4<bf16_t>*>(xs + t * LDX);
-    float v[2][4];
-    float s = 0.f;
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int c = lane + 32 * u;
-      const bool ok = c < c4;
-      Vec4<bf16_t> e;
-      if (ok) e = row[c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        v[u][i] = ok ? to_f(e.v[i]) : 0.f;
-        s += v[u][i];
-      }
-    }
-    const float mu = warp_sum(s) / C;
-    float var = 0.f;
-#pragma unroll
-    for (int u = 0; u < 2; ++u)
-      if (lane + 32 * u < c4)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) var += (v[u][i] - mu) * (v[u][i] - mu);
-    const float rs = rsqrtf(warp_sum(var) / C + a.eps);
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int c = lane + 32 * u;
-      if (c >= c4) continue;
-      Vec4<bf16_t> e;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        e.v[i] = from_f<bf16_t>((v[u][i] - mu) * rs * a.lns[4 * c + i] +
-                                a.lnb[4 * c + i]);
-      row[c] = e;
-    }
-  }
+  ln_rows(xs, LDX, FA_N, C, a.lns, a.lnb, a.eps, warp, ANT / 32);
 
   const float scale = a.dps ? a.dps[b] : 1.f;
   float acc[8][4];

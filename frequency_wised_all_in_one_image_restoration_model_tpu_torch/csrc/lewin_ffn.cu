@@ -15,27 +15,12 @@
 //
 // bf16, C a multiple of 4 and kpad(C) <= 224 (every flagship stage up to
 // C = 224): one fused kernel, as the Pallas body keeps its hidden rows in
-// VMEM. A CTA of eight warps owns 8 x 8 pixels of one image and keeps LN2
-// of the tile and its one-pixel halo (10 x 10 pixels, bf16, zero outside
-// the image) in shared memory (x loaded 8 bytes a thread, all loads in
-// flight at once, then normalised in place); it walks the hidden dimension
-// in blocks of HB = 32:
-//  - fc1 of the 100 halo pixels against the block of W1 on mma.sync
-//    (m16n8k16, fp32 accumulators), + b1, GELU, zero outside the image (the
-//    conv's zero padding; halos never reach into the next image of the
-//    batch), into an fp32 tile in shared memory;
-//  - the depthwise 3 x 3 on the CUDA cores in fp32, + bd, GELU, rounded
-//    once to bf16 as fc2's A operand;
-//  - fc2 against the block's rows of W2 on mma.sync into fp32 output
-//    registers that live across the blocks.
-// One cp.async buffer for each weight slice: W1's next slice loads during
-// the conv and fc2, W2's during fc1 and the conv. The epilogue adds b2,
-// scales by dps[image], adds the residual and writes the output once: the
-// hidden rows never reach device memory. Rounding points are JAX's: LN2(x)
-// in bf16, the hidden in fp32 until it is fc2's operand. The halo costs fc1
-// 1.56x its products; a CTA takes 35-106 KB of shared memory (C = 28 ...
-// 224) and 64-126 registers a thread, so that two to four share an SM and
-// one's barriers hide behind another's work.
+// VMEM: ffn_fused.cuh's tile, a CTA of eight warps an 8 x 8 pixel tile,
+// LN2 of the tile and its halo, the hidden in blocks of 32 columns through
+// fc1, the conv and fc2 on the SM, the output written once. The halo costs
+// fc1 1.56x its products; a CTA takes 35-106 KB of shared memory (C = 28
+// ... 224) and 64-126 registers a thread, so that two to four share an SM
+// and one's barriers hide behind another's work.
 //
 // Other widths and fp32 keep four passes (at C = 448 this kernel, one CTA
 // an SM, took 1.5-4x their time on an H100, PERF.md section 6): LN2 into a
@@ -46,307 +31,20 @@
 // residual as its epilogue (both products on gemm.cuh's GEMM).
 
 #include "dwconv.cuh"
+#include "ffn_fused.cuh"
 #include "gemm.cuh"
 
 using namespace fairm;
 
 namespace {
 
-constexpr int FF_NT = 256;                // eight warps
-constexpr int FF_T = 8;                   // output tile side
-constexpr int FF_HS = FF_T + 2;           // halo tile side
-constexpr int FF_HP = FF_HS * FF_HS;      // 100 halo pixels
-constexpr int FF_HM = 112;                // halo rows padded to 7 m16 tiles
-constexpr int FF_P = FF_T * FF_T;         // 64 output pixels
-
-constexpr int FF_HB = 32;                 // hidden columns a step
-
-// the shared-memory layout for KP = kpad(C) rounded up to 32, 64, 128 or
-// 224 (byte offsets; +8 elements a row keep ldmatrix's rows, and the fp32
-// tile's rows, on distinct banks), and MINB CTAs an SM. One buffer of each
-// weight slice: W1's next slice loads during the conv and fc2, W2's during
-// fc1 and the conv.
-template <int KP_, int MINB_>
-struct FfnShape {
-  static constexpr int KP = KP_, HB = FF_HB, MINB = MINB_;
-  static constexpr int LDX = KP + 8;                     // bf16
-  static constexpr int LDA = HB + 8;                     // bf16
-  static constexpr int LDH = HB + 8;                     // fp32
-  static constexpr size_t OX = 0;                        // [112][LDX] LN2(x)
-  static constexpr size_t OW1 = OX + 2 * FF_HM * LDX;    // [HB][LDX] W1 slice
-  static constexpr size_t OW2 = OW1 + 2 * HB * LDX;      // [KP][LDA] W2 slice
-  static constexpr size_t OH = OW2 + 2 * KP * LDA;       // [100][LDH] hidden
-  static constexpr size_t OA = OH + 4 * FF_HP * LDH;     // [64][LDA] fc2's A
-  static constexpr size_t BYTES = OA + 2 * FF_P * LDA;
-};
-
-struct FfnArgs {
-  const bf16_t* x;      // [B, H, W, C]
-  const float *lns, *lnb;
-  const bf16_t* w1;     // [Hd, kc]: W1^T, k zero-padded to kc = kpad(C)
-  const float* b1;      // [Hd]
-  const float* wd;      // [3, 3, Hd]
-  const float* bd;      // [Hd]
-  const bf16_t* w2;     // [C, ldw2]: W2^T, k zero-padded to ldw2 = kpad(Hd)
-  const float* b2;      // [C]
-  const float* dps;     // [B], or null
-  bf16_t* out;          // [B, H, W, C]
-  int H, W, C, Hd, kc, ldw2;
-  float eps;
-};
-
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
+constexpr int FF_NT = 256;                // eight warps a tile
 
 template <class S>
 __global__ void __launch_bounds__(FF_NT, S::MINB) ffn_fused_kernel(const FfnArgs a) {
-  constexpr int KP = S::KP, HB = S::HB, LDX = S::LDX, LDA = S::LDA;
-  constexpr int LDH = S::LDH, NW = KP / 16;
-  // fc1: NQ groups of 16 hidden columns, MS sets of the 7 m-tiles, MI
-  // m-tiles a warp; the conv: RPG output rows a thread
-  constexpr int NQ = HB / 16, MS = FF_NT / 32 / NQ, MI = (7 + MS - 1) / MS;
-  constexpr int RPG = FF_T * HB / FF_NT;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16_t* sx = reinterpret_cast<bf16_t*>(smem + S::OX);
-  bf16_t* sw1 = reinterpret_cast<bf16_t*>(smem + S::OW1);
-  bf16_t* sw2 = reinterpret_cast<bf16_t*>(smem + S::OW2);
-  float* sh = reinterpret_cast<float*>(smem + S::OH);
-  bf16_t* sa = reinterpret_cast<bf16_t*>(smem + S::OA);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gq = lane >> 2, t4 = lane & 3, li = lane & 7;
-  const int H = a.H, W = a.W, C = a.C, Hd = a.Hd;
-  const int tiles_x = (W + FF_T - 1) / FF_T;
-  const int y0 = (blockIdx.x / tiles_x) * FF_T, x0 = (blockIdx.x % tiles_x) * FF_T;
-  const long long img = blockIdx.y;
-  const bf16_t* x = a.x + img * H * W * C;
-  const int nhb = (Hd + HB - 1) / HB;
-  // halo pixel r (of 10 x 10) inside the image
-  auto inside = [&](int r) {
-    const int y = y0 - 1 + r / FF_HS, xx = x0 - 1 + r % FF_HS;
-    return r < FF_HP && y >= 0 && y < H && xx >= 0 && xx < W;
-  };
-  // W1 rows hb * HB .. + HB - 1 (zero past Hd); the matching HB columns of
-  // W2's rows (zero past C, and past kpad(Hd) where the operand ends)
-  auto load_w1 = [&](int hb) {
-    for (int e = tid; e < HB * (KP / 8); e += FF_NT) {
-      const int r = e / (KP / 8), c = (e - r * (KP / 8)) * 8;
-      const int j = hb * HB + r;
-      const bool ok = j < Hd && c < a.kc;
-      cp_async16(sw1 + r * LDX + c, a.w1 + (ok ? (long long)j * a.kc + c : 0), ok);
-    }
-  };
-  auto load_w2 = [&](int hb) {
-    for (int e = tid; e < KP * (HB / 8); e += FF_NT) {
-      const int r = e / (HB / 8), c = (e - r * (HB / 8)) * 8;
-      const int j = hb * HB + c;
-      const bool ok = r < C && j < a.ldw2;
-      cp_async16(sw2 + r * LDA + c, a.w2 + (ok ? (long long)r * a.ldw2 + j : 0), ok);
-    }
-  };
-  load_w1(0);
-  cp_async_commit();
-
-  // the halo tile's x into sx, 8 bytes a load, every load of the CTA in
-  // flight together (zero outside the image, past C and in the pad rows) ...
-  for (int e = tid; e < FF_HM * (KP / 4); e += FF_NT) {
-    const int r = e / (KP / 4), c = (e - r * (KP / 4)) * 4;
-    uint2 v = make_uint2(0u, 0u);
-    if (c < C && inside(r)) {
-      const int y = y0 - 1 + r / FF_HS, xx = x0 - 1 + r % FF_HS;
-      v = *reinterpret_cast<const uint2*>(x + ((long long)y * W + xx) * C + c);
-    }
-    *reinterpret_cast<uint2*>(sx + r * LDX + c) = v;
-  }
-  __syncthreads();
-  // ... then LN2 in place: a warp a pixel, fp32 statistics in two passes,
-  // rounded to bf16
-  for (int r = warp; r < FF_HP; r += FF_NT / 32) {
-    if (!inside(r)) continue;
-    bf16_t* row = sx + r * LDX;
-    float v[KP / 32];
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < KP / 32; ++i) {
-      v[i] = __bfloat162float(row[lane + 32 * i]);  // zero past C
-      s += v[i];
-    }
-    const float mu = warp_sum(s) / C;
-    float q = 0.f;
-#pragma unroll
-    for (int i = 0; i < KP / 32; ++i) {
-      const float dv = lane + 32 * i < C ? v[i] - mu : 0.f;
-      q += dv * dv;
-    }
-    const float rs = rsqrtf(warp_sum(q) / C + a.eps);
-#pragma unroll
-    for (int i = 0; i < KP / 32; ++i) {
-      const int c = lane + 32 * i;
-      if (c < C) row[c] = __float2bfloat16((v[i] - mu) * rs * a.lns[c] + a.lnb[c]);
-    }
-  }
-
-  const int nq = warp % NQ, mset = warp / NQ;   // fc1
-  const int mq = warp & 3, ch = warp >> 2;      // fc2: rows mq * 16, cols ch * KP / 2
-  // which of the thread's fc1 rows (i, hf) hold a halo pixel inside the image
-  unsigned rows_in = 0;
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-      if (inside((mset + MS * i) * 16 + gq + hf * 8)) rows_in |= 1u << (2 * i + hf);
-  float acc[NW][4];
-#pragma unroll
-  for (int nt = 0; nt < NW; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-
-  for (int hb = 0; hb < nhb; ++hb) {
-    cp_async_wait_all();
-    __syncthreads();  // W1's slice is in, LN2 done; fc2 of hb - 1 done
-    load_w2(hb);
-    cp_async_commit();
-
-    {  // fc1 + b1 + GELU -> the fp32 hidden tile, zero outside the image
-      float c1[MI][2][4];
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c1[i][0][e] = c1[i][1][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KP / 16; ++kk) {
-        uint32_t t[4];
-        ldmatrix_x4(t, sw1 + (nq * 16 + li + ((lane >> 4) << 3)) * LDX + kk * 16 +
-                           ((lane >> 3) & 1) * 8);
-        const uint32_t b0[2] = {t[0], t[1]}, b1[2] = {t[2], t[3]};
-#pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          const int mt = mset + MS * i;
-          if (mt < FF_HM / 16) {
-            uint32_t af[4];
-            ldmatrix_x4(af, sx + (mt * 16 + (lane & 15)) * LDX + kk * 16 + (lane >> 4) * 8);
-            mma_bf16_16816(c1[i][0], af, b0);
-            mma_bf16_16816(c1[i][1], af, b1);
-          }
-        }
-      }
-      float bias[2][2];  // b1 of the thread's four columns (zero past Hd)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int jg = hb * HB + nq * 16 + nt * 8 + t4 * 2 + u;
-          bias[nt][u] = jg < Hd ? a.b1[jg] : 0.f;
-        }
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const int mt = mset + MS * i;
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int r = mt * 16 + gq + hf * 8;
-          if (mt >= FF_HM / 16 || r >= FF_HP) continue;
-          const bool in = rows_in >> (2 * i + hf) & 1u;
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            float2 v = make_float2(0.f, 0.f);
-            if (in) {
-              v.x = gelu_tanh(c1[i][nt][2 * hf] + bias[nt][0]);
-              v.y = gelu_tanh(c1[i][nt][2 * hf + 1] + bias[nt][1]);
-            }
-            *reinterpret_cast<float2*>(sh + r * LDH + nq * 16 + nt * 8 + t4 * 2) = v;
-          }
-        }
-      }
-    }
-    __syncthreads();  // the hidden tile is complete; W1's slice is read out
-    if (hb + 1 < nhb) load_w1(hb + 1);
-    cp_async_commit();
-
-    {  // the depthwise 3 x 3 + bd + GELU -> fc2's bf16 operand: a thread a
-       // channel and RPG output rows, walking the RPG + 2 halo rows it needs
-      const int j = tid % HB, py = (tid / HB) * RPG;
-      const int jg = hb * HB + j;
-      float w[9], bdv = 0.f;
-#pragma unroll
-      for (int t = 0; t < 9; ++t) w[t] = jg < Hd ? a.wd[t * Hd + jg] : 0.f;
-      if (jg < Hd) bdv = a.bd[jg];
-      float c0[RPG + 2], c1[RPG + 2];
-#pragma unroll
-      for (int hx = 0; hx < FF_HS; ++hx) {
-        float c2[RPG + 2];
-#pragma unroll
-        for (int u = 0; u < RPG + 2; ++u) c2[u] = sh[((py + u) * FF_HS + hx) * LDH + j];
-        if (hx >= 2) {
-#pragma unroll
-          for (int o = 0; o < RPG; ++o) {
-            float s = 0.f;
-#pragma unroll
-            for (int dy = 0; dy < 3; ++dy) {
-              s = fmaf(c0[o + dy], w[dy * 3], s);
-              s = fmaf(c1[o + dy], w[dy * 3 + 1], s);
-              s = fmaf(c2[o + dy], w[dy * 3 + 2], s);
-            }
-            sa[((py + o) * FF_T + hx - 2) * LDA + j] = __float2bfloat16(gelu_tanh(s + bdv));
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < RPG + 2; ++u) {
-          c0[u] = c1[u];
-          c1[u] = c2[u];
-        }
-      }
-    }
-    cp_async_wait_one();  // W2's slice (W1's next may still be in flight)
-    __syncthreads();      // fc2's operand is complete
-
-    // fc2: acc += gelu(conv) [64 x HB] x the block's W2 slice
-#pragma unroll
-    for (int kk = 0; kk < HB / 16; ++kk) {
-      uint32_t af[4];
-      ldmatrix_x4(af, sa + (mq * 16 + (lane & 15)) * LDA + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < KP / 32; ++np) {
-        uint32_t t[4];
-        ldmatrix_x4(t, sw2 + (ch * (KP / 2) + np * 16 + li + ((lane >> 4) << 3)) * LDA +
-                           kk * 16 + ((lane >> 3) & 1) * 8);
-        const uint32_t b0[2] = {t[0], t[1]}, b1[2] = {t[2], t[3]};
-        mma_bf16_16816(acc[2 * np], af, b0);
-        mma_bf16_16816(acc[2 * np + 1], af, b1);
-      }
-    }
-  }
-
-  // + b2, x dps[image], + x, one bf16 pair a store
-  const float scale = a.dps ? a.dps[img] : 1.f;
-#pragma unroll
-  for (int nt = 0; nt < NW; ++nt) {
-    const int c = ch * (KP / 2) + nt * 8 + t4 * 2;
-    if (c >= C) continue;
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int p = mq * 16 + gq + hf * 8;
-      const int y = y0 + p / FF_T, xx = x0 + p % FF_T;
-      if (y >= H || xx >= W) continue;
-      const long long off = ((img * H + y) * W + xx) * C + c;
-      float v0 = acc[nt][2 * hf] + a.b2[c], v1 = acc[nt][2 * hf + 1] + a.b2[c + 1];
-      if (a.dps) {
-        v0 *= scale;
-        v1 *= scale;
-      }
-      const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(a.x + off);
-      v0 += __bfloat162float(r.x);
-      v1 += __bfloat162float(r.y);
-      *reinterpret_cast<uint32_t*>(a.out + off) = pack_bf16(v0, v1);
-    }
-  }
-}
-
-// the fused instance's KP for C, or 0 where K2 keeps the four passes
-int ffn_fused_kp(int C, int is_bf16) {
-  if (!is_bf16 || C % 4) return 0;
-  const int k = kpad(C);
-  return k <= 32 ? 32 : k <= 64 ? 64 : k <= 128 ? 128 : k <= 224 ? 224 : 0;
+  ffn_fused_tile<S, FF_NT>(a, blockIdx.x, blockIdx.y, smem, threadIdx.x,
+                           [] { __syncthreads(); });
 }
 
 template <class S>

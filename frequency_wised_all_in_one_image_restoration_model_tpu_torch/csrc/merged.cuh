@@ -5,7 +5,8 @@
 //   out = u + dps2 * LeFF(LN2(u))
 // with attn = proj(window_attention(.)) for the origin block and
 // attn = inter(intra(.)) (per-band windows, then each window's L band copies
-// as one group) for the frequency block.
+// as one group) for the frequency block. (K5 in bf16 at the encoder's res
+// 128 / 64 / 32 stages takes its band-group form instead, freq_merged.cu.)
 //
 // Design: one persistent cooperative kernel. The depthwise 3x3 conv of the
 // FFN half needs a row and a column of u from neighbouring windows, so a
@@ -184,15 +185,21 @@ __device__ __forceinline__ void attn_phase(const AttnArgs& at, long long groups,
 }
 
 // the grid-wide barrier that ends phase ``i`` (0: the kernel's start); one
-// thread notes the time when the caller asked for the phases' times
+// thread notes the time in stamps[i] when the caller asked for the phases'
+// times (stamps not null)
 __device__ __forceinline__ void end_phase(cg::grid_group& grid,
-                                          const MergedArgs& p, int i) {
+                                          long long* stamps, int i) {
   if (i > 0) grid.sync();
-  if (p.stamps && blockIdx.x == 0 && threadIdx.x == 0) {
+  if (stamps && blockIdx.x == 0 && threadIdx.x == 0) {
     long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    p.stamps[i] = t;
+    stamps[i] = t;
   }
+}
+
+__device__ __forceinline__ void end_phase(cg::grid_group& grid,
+                                          const MergedArgs& p, int i) {
+  end_phase(grid, p.stamps, i);
 }
 
 // DP: the attention core (attn_phase); FUSED: the attention half as one

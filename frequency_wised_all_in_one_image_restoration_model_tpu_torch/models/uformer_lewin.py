@@ -82,11 +82,27 @@ IMPLS = ("default", "kernel", "merged", "split", "plain")
 # B = 4 and 16, 0.96 at B = 32). It is behind at res 128 C = 56 (1.14), for
 # every unshifted block (no roll to absorb: 1.03-1.57) and near even at
 # res 16. In float32 it is behind at every stage (1.01-1.39), so float32
-# keeps the chain.
+# keeps the chain. The encoder's frequency blocks (tokens of the band-folded
+# batch, 3 x tiles x res^2) run K5's band-group form, which equals the chain
+# bit for bit, where both A/Bs put it ahead of the chain K1 -> K3 -> K2
+# with its rolls (PERF.md section 6, PR 15): per block
+# (``tools/bwd_kernel_profile.py --k5``) the shifted blocks at res 128 and
+# 64 from B = 4 (0.81-0.93 of the chain) and res 32 from B = 16, shifted
+# and not (0.80-0.95; behind at B = 4); the flagship's joint step with
+# gradients (``tools/e2e_ab.py --k5-routes``) at B = 32 (about 3% faster),
+# not at B = 4 (host-paced, unresolved), so the entries start at B = 32
+# (96 band images). K5 is behind for the unshifted blocks at res 128 and 64
+# (1.01-1.12). Its twelve phases (res 16 and 8, float32) are not in the
+# table: phase 3's A/B has them ahead at res 16 in bf16 (0.67-1.00) and
+# behind or mixed elsewhere, and no step A/B was run for them.
 DEFAULT_MERGED = {
     ("origin", 32, True, torch.bfloat16, 224): 4096,
     ("origin", 32, True, torch.bfloat16, 448): 16384,
     ("origin", 64, True, torch.bfloat16, 224): 131072,
+    ("freq", 128, True, torch.bfloat16, 28): 1572864,
+    ("freq", 64, True, torch.bfloat16, 56): 393216,
+    ("freq", 32, False, torch.bfloat16, 112): 98304,
+    ("freq", 32, True, torch.bfloat16, 112): 98304,
 }
 
 # The origin-MSA blocks ``impl='default'`` runs as K12 -> K13: (width C,
@@ -385,7 +401,7 @@ class LeWinBlock(nn.Module):
             if merged:
                 return lb.BlockFreqMerged.apply(
                     img, *n1, *intra, *inter, mask, *n2, *ffn, L, win, shift,
-                    1e-6, dps1, dps2)
+                    1e-6, dps1, dps2, self.attn_inter.pairs())
             rolled = lb.roll(img, shift)
             y1 = lb.FreqIntra.apply(rolled, *n1, *intra, mask, L, win, 1e-6)
             y = lb.FreqInter.apply(y1, rolled, *inter, mask, L, win, 1e-6,

@@ -61,10 +61,10 @@ SIGNATURES = {
     # B, H, W, C, h, win, shift, Hd, bf16, fused, eps, stream
     "fairm_lewin_merged": [_P] * 23 + [_Q] + [_I] * 10 + [_F, _P],
     # x, ln1s, ln1b, wqkvA, bqkvA, wpA, bpA, biasA, wqkvB, bqkvB, wpB, bpB,
-    # biasB, mask, dps1, ln2s, ln2b, w1t, b1, wd, bd, w2t, b2, dps2, scratch,
-    # out, stamps, scratch_elems, LB, H, W, C, h, win, shift, L, Hd, bf16, eps,
-    # stream
-    "fairm_freq_merged": [_P] * 27 + [_Q] + [_I] * 10 + [_F, _P],
+    # biasB, pairsB, mask, dps1, ln2s, ln2b, w1t, b1, wd, bd, w2t, b2, dps2,
+    # scratch, y1, out, stamps, scratch_elems, LB, H, W, C, h, win, shift, L,
+    # Hd, bf16, group, eps, stream
+    "fairm_freq_merged": [_P] * 29 + [_Q] + [_I] * 11 + [_F, _P],
     # x, g, lns, lnb, wqkv, bqkv, wp, wqkvn, wpn, bias, mask, lam, ws, dx,
     # dln, dwqkv, dbqkv, dwp, dbp, dbias, dlam, ws_bytes, B, H, W, C, h, win,
     # groups, res, bf16, eps, stream

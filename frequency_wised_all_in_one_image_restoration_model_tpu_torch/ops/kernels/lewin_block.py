@@ -786,20 +786,30 @@ def ffn_split_kernel(x_img, lns, lnb, op: FfnOperands, eps: float, dps,
 
 
 def _merged_scratch_cols(C: int, Hd: int, freq: bool, fused: bool,
-                         dtype) -> int:
+                         dtype, group: bool = False) -> int:
     """Columns per pixel, in elements of ``dtype``, of the merged kernels'
-    working buffer (csrc/merged.cuh): the LN'd / attention rows and qkv (not
-    with the fused attention half), the intra output (K5), u, the hidden
-    after fc1 in fp32 and the conv's output."""
+    working buffer: u alone for K5's band-group form (``group``,
+    csrc/freq_merged.cu); else (csrc/merged.cuh) the LN'd / attention rows
+    and qkv (not with the fused attention half), the intra output (K5), u,
+    the hidden after fc1 in fp32 and the conv's output."""
+    if group:
+        return C
     ffn = C + Hd * 4 // _SIZES[dtype] + kpad(Hd)
     return ffn if fused else kpad(C) + 3 * C + (C if freq else 0) + ffn
 
 
-def _merged_scratch(x_img, Hd: int, freq: bool, fused: bool) -> torch.Tensor:
+def _merged_scratch(x_img, Hd: int, freq: bool, fused: bool,
+                    group: bool = False) -> torch.Tensor:
     B, H, W, C = x_img.shape
-    cols = _merged_scratch_cols(C, Hd, freq, fused, x_img.dtype)
+    cols = _merged_scratch_cols(C, Hd, freq, fused, x_img.dtype, group)
     return torch.empty(B * H * W * cols, dtype=x_img.dtype,
                        device=x_img.device)
+
+
+def _scratch_rows(scratch, x_img, at: int) -> torch.Tensor:
+    """A copy of the ``x_img``-shaped rows at element ``at`` of a merged
+    kernel's scratch buffer."""
+    return scratch[at:at + x_img.numel()].reshape(x_img.shape).clone()
 
 
 # the merged kernels' phases, in order: slot i + 1 of a ``stamps`` tensor
@@ -813,6 +823,8 @@ FREQ_MERGED_PHASES = (MERGED_PHASES[:3]
                          "inter projection + scatter") + MERGED_PHASES[4:])
 # K4 with the fused attention half (attention_path 'fused')
 MERGED_FUSED_PHASES = ("attention half",) + MERGED_PHASES[4:]
+# K5's band-group form (freq_merged_path 'group')
+FREQ_GROUP_PHASES = ("band groups: LN1, intra, inter", "LeFF tiles")
 MERGED_STAMPS = 16
 
 
@@ -821,6 +833,30 @@ def merged_phases(C: int, heads: int, win: int, dtype) -> tuple:
     return (MERGED_FUSED_PHASES
             if attention_path(C, heads, win, dtype) == "fused"
             else MERGED_PHASES)
+
+
+def freq_merged_path(C: int, heads: int, win: int, dtype, L: int = 3) -> str:
+    """How K5 runs a block of width ``C``: ``'group'``, one cooperative
+    launch of two phases built from the chain's fused bodies (band groups of
+    192 rows on the SM: LN1, the intra and the inter half; then the LeFF
+    on 8 x 8 tiles; ``csrc/freq_merged.cu``: bf16, L = 3 bands of 8 x 8
+    windows, C a multiple of 4 and of the heads, head dims <= 32,
+    kpad(C) <= 128: the encoder's res 128 / 64 / 32 stages), else
+    ``'phases'`` (``csrc/merged.cuh``: twelve phases over the whole batch,
+    the intermediates in a scratch buffer)."""
+    d = C // heads if heads > 0 and C % heads == 0 else 0
+    if (dtype == torch.bfloat16 and win == 8 and L == 3 and C % 4 == 0
+            and kpad(C) <= 128 and 0 < d <= 32):
+        return "group"
+    return "phases"
+
+
+def freq_merged_phases(C: int, heads: int, win: int, dtype, L: int = 3,
+                       path: Optional[str] = None) -> tuple:
+    """K5's phases for a block of width ``C`` by ``path`` (None:
+    :func:`freq_merged_path`)."""
+    path = path or freq_merged_path(C, heads, win, dtype, L)
+    return FREQ_GROUP_PHASES if path == "group" else FREQ_MERGED_PHASES
 
 
 def _stamps(stamps, x: torch.Tensor) -> None:
@@ -837,7 +873,8 @@ def merged_kernel(x_img, ln1s, ln1b, attn: AttnOperands, mask, lam, ln2s,
     """Launch K4 (:func:`block_merged`) on the TRUE-layout ``x_img
     [B, H, W, C]`` (CUDA) with the operands of both halves: one launch.
     ``stamps``, an int64 tensor of :data:`MERGED_STAMPS`, receives the
-    device clock at the start and after each of :func:`merged_phases`."""
+    device clock at the start and after each of :func:`merged_phases`.
+    ``scratch_out``, a list, receives ``(u, None)``: a copy of u."""
     from .build import load
 
     B, H, W, C = x_img.shape
@@ -870,25 +907,35 @@ def merged_kernel(x_img, ln1s, ln1b, attn: AttnOperands, mask, lam, ln2s,
          _DTYPES[dt], int(fused), float(eps), _stream(x_img))
     LAUNCHES["lewin_merged"] += 1
     if scratch_out is not None:
-        scratch_out.append(scratch)
+        # u, the attention half's output (the first rows with the fused
+        # half); no y1
+        M = B * H * W
+        scratch_out.append((_scratch_rows(
+            scratch, x_img, 0 if fused else M * (kpad(C) + 3 * C)), None))
     return out
 
 
 def freq_merged_kernel(x_img, ln1s, ln1b, intra: AttnOperands,
                        inter: AttnOperands, mask, ln2s, ln2b,
                        ffn: FfnOperands, L: int, win: int, shift: int,
-                       eps: float, dps1, dps2, stamps=None, scratch_out=None):
+                       eps: float, dps1, dps2, stamps=None, scratch_out=None,
+                       path: Optional[str] = None):
     """Launch K5 (:func:`block_freq_merged`) on the TRUE-layout band-major
     ``x_img [L*B, H, W, C]`` (CUDA) with the operands of the three parts:
-    one launch. ``stamps`` as in :func:`merged_kernel`, for
-    :data:`FREQ_MERGED_PHASES`."""
+    one launch, by :func:`freq_merged_path` (``path`` names the form
+    instead: the two are compared by ``chip_smoke.py`` and the tests). The
+    band-group form reads the inter half's bias from its per-pair tables
+    (``inter.pairs``, required there), the phases the grouped bias.
+    ``stamps`` as in :func:`merged_kernel`, for :func:`freq_merged_phases`.
+    ``scratch_out``, a list, receives ``(u, y1)``: u in the true layout and
+    the intra output y1 in the rolled one, which the band-group form then
+    also writes to device memory (the backward reads them)."""
     from .build import load
 
     LB, H, W, C = x_img.shape
     h = intra.heads
     n = win * win
     nW = (H // win) * (W // win)
-    _check(x_img, ln1s, ln2s, mask, dps1, dps2)
     if (H % win or W % win or C % h or LB % L or inter.heads != h
             or not 0 <= shift < win):
         raise ValueError(f"unsupported shape {tuple(x_img.shape)}, h={h}, "
@@ -896,26 +943,46 @@ def freq_merged_kernel(x_img, ln1s, ln1b, intra: AttnOperands,
     _check_attn_operands(intra, x_img, (L, h, n, n) if L > 1 else (h, n, n))
     _check_attn_operands(inter, x_img, (h, L * n, L * n))
     Hd = _check_ffn_operands(ffn, x_img)
+    path = path or freq_merged_path(C, h, win, x_img.dtype, L)
+    if path not in ("group", "phases"):
+        raise ValueError(f"path must be 'group' or 'phases', got {path!r}")
+    group = path == "group"
+    if group:
+        if inter.pairs is None:
+            raise ValueError("K5's band-group form reads the inter half's "
+                             "per-pair tables: attn_operands(..., pairs)")
+        _operand(inter.pairs, (L * L, (2 * win - 1) ** 2, h), torch.float32,
+                 x_img)
+    _check(x_img, ln1s, ln2s, mask, dps1, dps2)
     _stamps(stamps, x_img)
     mask = _f32(mask, (nW, n, n))
     dps1, dps2 = _f32(dps1, (LB,)), _f32(dps2, (LB,))
     ln1s, ln1b = _f32(ln1s, (C,)), _f32(ln1b, (C,))
     ln2s, ln2b = _f32(ln2s, (C,)), _f32(ln2b, (C,))
     dt = x_img.dtype
-    scratch = _merged_scratch(x_img, Hd, True, False)
+    # bound to names until the launch returns: the scratch (the band-group
+    # form's is u), y1 where the caller asks for it
+    scratch = _merged_scratch(x_img, Hd, True, False, group)
+    y1 = (torch.empty_like(x_img) if group and scratch_out is not None
+          else None)
     out = torch.empty_like(x_img)
     _run(load().fairm_freq_merged, _ptr(x_img), _ptr(ln1s), _ptr(ln1b),
          _ptr(intra.wqkv), _ptr(intra.bqkv), _ptr(intra.wp), _ptr(intra.bp),
          _ptr(intra.bias), _ptr(inter.wqkv), _ptr(inter.bqkv), _ptr(inter.wp),
-         _ptr(inter.bp), _ptr(inter.bias), _ptr(mask), _ptr(dps1), _ptr(ln2s),
-         _ptr(ln2b), _ptr(ffn.w1), _ptr(ffn.b1), _ptr(ffn.wd), _ptr(ffn.bd),
-         _ptr(ffn.w2), _ptr(ffn.b2), _ptr(dps2), _ptr(scratch), _ptr(out),
-         _ptr(stamps), scratch.numel(), LB, H, W, C, h, win, shift, L, Hd,
-         _DTYPES[dt],
-         float(eps), _stream(x_img))
+         _ptr(inter.bp), _ptr(inter.bias), _ptr(inter.pairs if group else None),
+         _ptr(mask), _ptr(dps1), _ptr(ln2s), _ptr(ln2b), _ptr(ffn.w1),
+         _ptr(ffn.b1), _ptr(ffn.wd), _ptr(ffn.bd), _ptr(ffn.w2), _ptr(ffn.b2),
+         _ptr(dps2), _ptr(scratch), _ptr(y1), _ptr(out), _ptr(stamps),
+         scratch.numel(), LB, H, W, C, h, win, shift, L, Hd, _DTYPES[dt],
+         int(group), float(eps), _stream(x_img))
     LAUNCHES["freq_merged"] += 1
     if scratch_out is not None:
-        scratch_out.append(scratch)
+        if group:
+            scratch_out.append((scratch.reshape(x_img.shape), y1))
+        else:
+            at = LB * H * W * (kpad(C) + 3 * C)
+            scratch_out.append((_scratch_rows(scratch, x_img, at + x_img.numel()),
+                                _scratch_rows(scratch, x_img, at)))
     return out
 
 
@@ -928,6 +995,13 @@ def freq_merged_kernel(x_img, ln1s, ln1b, intra: AttnOperands,
 def _kernel_operands(x, make, *weights):
     _check(x, *weights)
     return make(*weights, x.dtype)
+
+
+def _inter_operands(x, pairs, *weights) -> AttnOperands:
+    """K3's / K5's inter operands, with the per-pair tables where given."""
+    _check(x, pairs)
+    return _kernel_operands(x, attn_operands, *weights)._replace(
+        pairs=None if pairs is None else pairs.float().contiguous())
 
 
 def block_attention(x_img, lns, lnb, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp,
@@ -982,10 +1056,8 @@ def freq_inter(y_img, res_img, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp, biasB,
                                 wp3, bp, biasB, mask, L, win, eps, dps)
     if pairs is None:
         raise ValueError("K3 needs the per-pair tables biasB was made from")
-    _check(y_img, pairs)
-    op = _kernel_operands(y_img, attn_operands, wq3, bq3, wk3, bk3, wv3, bv3,
-                          wp3, bp, biasB)._replace(
-        pairs=pairs.float().contiguous())
+    op = _inter_operands(y_img, pairs, wq3, bq3, wk3, bk3, wv3, bv3, wp3, bp,
+                         biasB)
     return freq_inter_kernel(y_img, res_img, op, mask, L, win, dps)
 
 
@@ -1066,14 +1138,17 @@ def block_freq_merged(x_img, ln1s, ln1b, wq3A, bq3A, wk3A, bk3A, wv3A, bv3A,
                       wp3A, bpA, biasA, wq3B, bq3B, wk3B, bk3B, wv3B, bv3B,
                       wp3B, bpB, biasB, mask, ln2s, ln2b, w1, b1, wd, bd, w2,
                       b2, L: int = 1, win: int = 8, shift: int = 0,
-                      eps: float = 1e-6, dps1=None, dps2=None):
+                      eps: float = 1e-6, dps1=None, dps2=None, pairs=None):
     """One whole frequency-MSA LeWin block on the TRUE-layout band-major
     batch ``x_img [L*B, H, W, C]``: ``u = x + dps1 * unroll(inter(intra(
     LN1(roll(x)))))``, then ``out = u + dps2 * LeFF(LN2(u))``. The A
     weights and ``biasA [L, h, n, n]`` are :func:`freq_intra`'s, the B
     weights and ``biasB [h, L*n, L*n]`` :func:`freq_inter`'s; ``dps1``,
     ``dps2 [L*B]`` by the folded sample. Equal to the chain of the three
-    entry points around ``torch.roll``, in one launch."""
+    entry points around ``torch.roll``, in one launch. ``pairs``: the
+    per-pair tables ``biasB`` was made from, which K5's band-group form
+    needs on a CUDA tensor (:func:`freq_merged_path`); the plain twin reads
+    ``biasB`` only."""
     if x_img.device.type == "cpu":
         return block_freq_merged_plain(
             x_img, ln1s, ln1b, wq3A, bq3A, wk3A, bk3A, wv3A, bv3A, wp3A, bpA,
@@ -1082,8 +1157,8 @@ def block_freq_merged(x_img, ln1s, ln1b, wq3A, bq3A, wk3A, bk3A, wv3A, bv3A,
             dps2)
     intra = _kernel_operands(x_img, attn_operands, wq3A, bq3A, wk3A, bk3A,
                              wv3A, bv3A, wp3A, bpA, biasA)
-    inter = _kernel_operands(x_img, attn_operands, wq3B, bq3B, wk3B, bk3B,
-                             wv3B, bv3B, wp3B, bpB, biasB)
+    inter = _inter_operands(x_img, pairs, wq3B, bq3B, wk3B, bk3B, wv3B, bv3B,
+                            wp3B, bpB, biasB)
     ffn = _kernel_operands(x_img, ffn_operands, w1, b1, wd, bd, w2, b2)
     return freq_merged_kernel(x_img, ln1s, ln1b, intra, inter, mask, ln2s,
                               ln2b, ffn, L, win, shift, eps, dps1, dps2)
@@ -1672,22 +1747,13 @@ class BlockFFN(torch.autograd.Function):
         return (*grads, None, None)
 
 
-def _merged_forward_aux(x_img, run, Hd: int, freq: bool, fused: bool):
+def _merged_forward_aux(run):
     """One merged launch through ``run(scratch_out)``; hands back ``(out, u,
-    y1)`` with ``u`` (true layout) and ``y1`` (K5: the intra output, rolled
-    layout) copied out of the scratch buffer the kernel already fills
-    (``fused``: K4 with the fused attention half, u first)."""
-    B, H, W, C = x_img.shape
-    M = B * H * W
+    y1)``: ``u`` (true layout) and ``y1`` (K5: the intra output, rolled
+    layout) as the launch left them for the backward."""
     keep = []
     out = run(keep)
-    scratch = keep[0]
-    at = 0 if fused else M * (kpad(C) + 3 * C)
-    y1 = None
-    if freq:
-        y1 = scratch[at:at + M * C].reshape(B, H, W, C).clone()
-        at += M * C
-    u = scratch[at:at + M * C].reshape(B, H, W, C).clone()
+    u, y1 = keep[0]
     return out, u, y1
 
 
@@ -1710,13 +1776,9 @@ class BlockMerged(torch.autograd.Function):
         else:
             attn = _kernel_operands(x_img, attn_operands, *qkvp, bias)
             ffn = _kernel_operands(x_img, ffn_operands, *ffnp)
-            out, u, _ = _merged_forward_aux(
-                x_img, lambda keep: merged_kernel(
-                    x_img, ln1s, ln1b, attn, mask, lam, ln2s, ln2b, ffn, win,
-                    shift, eps, dps1, dps2, scratch_out=keep),
-                w1.shape[1], False,
-                attention_path(x_img.shape[-1], wq3.shape[0], win,
-                               x_img.dtype) == "fused")
+            out, u, _ = _merged_forward_aux(lambda keep: merged_kernel(
+                x_img, ln1s, ln1b, attn, mask, lam, ln2s, ln2b, ffn, win,
+                shift, eps, dps1, dps2, scratch_out=keep))
         ctx.save_for_backward(x_img, u, ln1s, ln1b, *qkvp, bias, mask, lam,
                               ln2s, ln2b, *ffnp, dps1, dps2)
         ctx.win, ctx.shift, ctx.eps = win, shift, eps
@@ -1739,14 +1801,18 @@ class BlockMerged(torch.autograd.Function):
 
 class BlockFreqMerged(torch.autograd.Function):
     """:func:`block_freq_merged`: one K5 launch forward, which also hands
-    back ``u`` and ``y1``; backward the chain K7, roll, K8, K6, add the
-    inter residual's gradient, roll back (JAX ``_freq_merged_bwd``)."""
+    back ``u`` and ``y1`` (the band-group form writes them to device memory
+    for it); backward the chain K7, roll, K8, K6, add the inter residual's
+    gradient, roll back (JAX ``_freq_merged_bwd``). ``pairs`` as in
+    :func:`block_freq_merged`: needed on a CUDA tensor where K5 runs its
+    band-group form; biasB's gradient reaches the tables through the
+    autograd of its assembly."""
 
     @staticmethod
     def forward(ctx, x_img, ln1s, ln1b, wq3A, bq3A, wk3A, bk3A, wv3A, bv3A,
                 wp3A, bpA, biasA, wq3B, bq3B, wk3B, bk3B, wv3B, bv3B, wp3B,
                 bpB, biasB, mask, ln2s, ln2b, w1, b1, wd, bd, w2, b2, L, win,
-                shift, eps, dps1, dps2):
+                shift, eps, dps1, dps2, pairs=None):
         pA = (wq3A, bq3A, wk3A, bk3A, wv3A, bv3A, wp3A, bpA)
         pB = (wq3B, bq3B, wk3B, bk3B, wv3B, bv3B, wp3B, bpB)
         ffnp = (w1, b1, wd, bd, w2, b2)
@@ -1759,13 +1825,12 @@ class BlockFreqMerged(torch.autograd.Function):
             out = block_ffn_plain(u, ln2s, ln2b, *ffnp, eps, dps2)
         else:
             intra = _kernel_operands(x_img, attn_operands, *pA, biasA)
-            inter = _kernel_operands(x_img, attn_operands, *pB, biasB)
+            inter = _inter_operands(
+                x_img, None if pairs is None else pairs.detach(), *pB, biasB)
             ffn = _kernel_operands(x_img, ffn_operands, *ffnp)
-            out, u, y1 = _merged_forward_aux(
-                x_img, lambda keep: freq_merged_kernel(
-                    x_img, ln1s, ln1b, intra, inter, mask, ln2s, ln2b, ffn, L,
-                    win, shift, eps, dps1, dps2, scratch_out=keep),
-                w1.shape[1], True, False)
+            out, u, y1 = _merged_forward_aux(lambda keep: freq_merged_kernel(
+                x_img, ln1s, ln1b, intra, inter, mask, ln2s, ln2b, ffn, L, win,
+                shift, eps, dps1, dps2, scratch_out=keep))
         ctx.save_for_backward(x_img, u, y1, ln1s, ln1b, *pA, biasA, *pB,
                               biasB, mask, ln2s, ln2b, *ffnp, dps1, dps2)
         ctx.L, ctx.win, ctx.shift, ctx.eps = L, win, shift, eps
@@ -1787,4 +1852,4 @@ class BlockFreqMerged(torch.autograd.Function):
         ga = _intra_vjp(img, gi[0], ln1s, ln1b, pA, biasA, mask, L, win, eps)
         dimg = ga[0] + gi[1]              # intra input + inter residual
         return (roll(dimg, -shift), *ga[1:12], *gi[2:11], None, *gf[1:], None,
-                None, None, None, None, None)
+                None, None, None, None, None, None)

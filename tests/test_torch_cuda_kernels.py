@@ -230,7 +230,10 @@ def _f2_args(rng, kernel):
     biasB, pairs = _inter_bias(rng, H)
     args = (a[:1] + ones(C) + a[3:] + b[3:11] + [biasB, _mask()] + ones(C)
             + _f2_ffn_w(rng, C) + [L, WIN, 4, 1e-6, None, None])
-    return (lb.block_freq_merged, lb.block_freq_merged_plain,
+    run = (functools.partial(lb.block_freq_merged, pairs=pairs)
+           if kernel == "freq_merged"
+           else _freq_merged_as("phases", _freq_operands(args, pairs)))
+    return (run, lb.block_freq_merged_plain,
             lambda *x: lb.freq_merged_chain(lb.freq_intra_plain,
                                             lb.freq_inter_plain,
                                             lb.ffn_rounded_hidden_plain, *x),
@@ -240,12 +243,36 @@ def _f2_args(rng, kernel):
             args, "freq_merged")
 
 
+def _freq_merged_as(path, ops):
+    """:func:`lb.block_freq_merged` on the card with the operands ``ops``
+    (:func:`_freq_operands`), its form forced to ``path`` ('group' or
+    'phases'), on the entry point's arguments."""
+    def run(x, ln1s, ln1b, *rest):
+        mask, ln2s, ln2b = rest[18:21]
+        L_, win, shift, eps, dps1, dps2 = rest[27:]
+        return lb.freq_merged_kernel(x, ln1s, ln1b, ops[0], ops[1], mask, ln2s,
+                                     ln2b, ops[2], L_, win, shift, eps, dps1,
+                                     dps2, path=path)
+    return run
+
+
+def _freq_operands(args, pairs):
+    """K5's operands (intra, inter with the per-pair tables, LeFF) from the
+    entry point's arguments."""
+    dt = args[0].dtype
+    return (lb.attn_operands(*args[3:12], dt),
+            lb.attn_operands(*args[12:21], dt, pairs),
+            lb.ffn_operands(*args[24:30], dt))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["passes", "split", "merged", "freq_merged"])
+@pytest.mark.parametrize("kernel", ["passes", "split", "merged", "freq_merged",
+                                    "freq_merged_phases"])
 def test_leff_hidden_kept_in_fp32(card, kernel):
-    """K2's passes, K13, K4 and K5 in bf16 are F2_FACTOR times closer to
-    their plain twins (and K4 / K5 to the chain of kernels) than a twin
-    that rounds the LeFF's hidden to bf16 after fc1, away from the rim."""
+    """K2's passes, K13, K4 and K5 (both forms) in bf16 are F2_FACTOR times
+    closer to their plain twins (and K4 / K5 to the chain of kernels) than
+    a twin that rounds the LeFF's hidden to bf16 after fc1, away from the
+    rim."""
     run, plain, rounded, chain, args, counter = _f2_args(card, kernel)
     lb.reset_launches()
     got = run(*args)
@@ -282,24 +309,157 @@ def test_block_merged_kernel(card, dtype, shift):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shift", [0, 4])
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_block_freq_merged_kernel(card, dtype, shift):
+@pytest.mark.parametrize("dtype,path", [(torch.float32, None),
+                                        (torch.bfloat16, None),
+                                        (torch.bfloat16, "phases")])
+def test_block_freq_merged_kernel(card, dtype, path, shift):
     """K5 in one launch: against its twin, and equal to the chain of K1,
-    K3 and K2 around torch.roll (:func:`_check_chain`)."""
+    K3 and K2 around torch.roll (:func:`_check_chain`); in bf16 by the form
+    freq_merged_path chooses (the band groups) and by the twelve phases."""
     a = _attn(card, L * B, dtype, groups=L)
     b = _attn(card, L * B, dtype)
     biasB, pairs = _inter_bias(card, H)
     args = (a + b[3:11] + [biasB, _mask() if shift else None]
             + _ln(card) + _ffn_w(card)
             + [L, WIN, shift, 1e-6, _dps(card, L * B), _dps(card, L * B)])
+    run = (functools.partial(lb.block_freq_merged, pairs=pairs) if path is None
+           else _freq_merged_as(path, _freq_operands(args, pairs)))
     lb.reset_launches()
-    got = lb.block_freq_merged(*args)
+    got = run(*args)
     assert lb.LAUNCHES["freq_merged"] == 1 and sum(lb.LAUNCHES.values()) == 1
     _check(got, lb.block_freq_merged_plain(*args), dtype)
     chain = lb.freq_merged_chain(
         lb.freq_intra, functools.partial(lb.freq_inter, pairs=pairs),
         lb.block_ffn, *args)
     _check_chain(got, chain, dtype)
+
+
+# K5's band-group form at the encoder stages it serves (C, heads): d = 28,
+# one to four heads, kpad(C) = 32, 64, 128
+GROUP_STAGES = [(28, 1), (56, 2), (112, 4)]
+
+
+def _freq_block(rng, c, heads, images, shift, dtype=torch.bfloat16):
+    """The entry point's arguments for a frequency block of width ``c`` on
+    ``images`` images a band (res 16, four windows), and the per-pair
+    tables of its grouped bias. DropPath at keep rate 0.9: its scale 1 / 0.9
+    is inexact in fp32, so a kernel that rounds the scale and the residual
+    otherwise than the chain shows."""
+    keep = lambda n: torch.from_numpy(
+        (rng.random(n) < 0.9).astype(np.float32) / np.float32(0.9)).cuda()
+    d, n_img = c // heads, L * images
+    w = [[_t(rng, heads, c, d, scale=c ** -0.5) if i % 2 == 0 else
+          _t(rng, heads, d, scale=0.1) for i in range(6)]
+         + [_t(rng, heads, d, c, scale=c ** -0.5), _t(rng, c, scale=0.1)]
+         for _ in range(2)]
+    hd = 4 * c
+    ffn = [_t(rng, c, hd, scale=c ** -0.5), _t(rng, hd, scale=0.1),
+           _t(rng, 3, 3, hd, scale=1 / 3), _t(rng, hd, scale=0.1),
+           _t(rng, hd, c, scale=hd ** -0.5), _t(rng, c, scale=0.1)]
+    ln = lambda: [1.0 + _t(rng, c, scale=0.1), _t(rng, c, scale=0.1)]
+    pairs = _t(rng, L * L, (2 * WIN - 1) ** 2, heads, scale=0.05)
+    args = ([_t(rng, n_img, RES, RES, c, scale=0.5, dtype=dtype)] + ln()
+            + w[0] + [_t(rng, L, heads, N, N, scale=0.05)] + w[1]
+            + [lb.inter_bias(pairs, L, WIN), _mask() if shift else None]
+            + ln() + ffn + [L, WIN, shift, 1e-6, keep(n_img), keep(n_img)])
+    return args, pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("images", [2, 3], ids=["B2", "ragged B3"])
+@pytest.mark.parametrize("shift", [0, 4])
+@pytest.mark.parametrize("path", ["group", "phases"])
+@pytest.mark.parametrize("stage", GROUP_STAGES,
+                         ids=[f"C{c}" for c, _ in GROUP_STAGES])
+def test_freq_merged_forms(card, stage, path, shift, images):
+    """K5 in bf16 at the stages of its band-group form, by either form: one
+    launch, against its twin within TOL, equal bits on a second launch.
+    The band-group form is what freq_merged_path chooses there; it runs the
+    chain's own device code stage by stage, so it equals the chain K1 -> K3
+    -> K2 bit for bit (:func:`_check_chain`), and it takes no device memory
+    beyond u and the output: no y1, q / k / v, attention or hidden row. The
+    twelve phases are not bit-equal to the chain at these widths (most
+    likely their LayerNorm pass, prep_rows, sums a row in another order
+    than the fused kernels), so they are held to it within TOL."""
+    c, heads = stage
+    dt = torch.bfloat16
+    assert lb.freq_merged_path(c, heads, WIN, dt) == "group"
+    args, pairs = _freq_block(card, c, heads, images, shift)
+    run = _freq_merged_as(path, _freq_operands(args, pairs))
+    run(*args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lb.reset_launches()
+    got = run(*args)
+    torch.cuda.synchronize()
+    assert lb.LAUNCHES["freq_merged"] == 1 and sum(lb.LAUNCHES.values()) == 1
+    scratch = (torch.cuda.max_memory_allocated() - base
+               - got.numel() * got.element_size())
+    if path == "group":     # u only, the output's size
+        assert scratch <= got.numel() * got.element_size(), scratch
+    _check(got, lb.block_freq_merged_plain(*args), dt)
+    chain = lb.freq_merged_chain(
+        lb.freq_intra, functools.partial(lb.freq_inter, pairs=pairs),
+        lb.block_ffn, *args)
+    if path == "group":
+        _check_chain(got, chain, dt)
+        assert torch.equal(lb.block_freq_merged(*args, pairs=pairs), got)
+    else:
+        _check(got, chain, dt)
+    assert torch.equal(run(*args), got)
+
+
+@pytest.mark.cuda
+def test_freq_merged_group_form_needs_the_tables(card):
+    """The band-group form reads the inter half's per-pair tables: without
+    them the launcher raises, and the entry point does not run the
+    phases in its place."""
+    args, _ = _freq_block(card, 28, 1, 2, 4)
+    with pytest.raises(ValueError, match="per-pair"):
+        lb.block_freq_merged(*args)
+    with pytest.raises(ValueError, match="per-pair"):
+        lb.BlockFreqMerged.apply(*args)
+
+
+FUNCTION_TOL = {torch.float32: 5e-4, torch.bfloat16: 6e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 4])
+def test_freq_merged_function_in_its_group_form(card, shift):
+    """BlockFreqMerged in bf16 at a band-group shape (res 16, C = 28, one
+    head): K5's band-group form forward, which hands the backward u and y1,
+    then K7, K8, K6. Every gradient equals that of the chain Functions
+    (FreqIntra, FreqInter, BlockFFN) bit for bit, and is within
+    FUNCTION_TOL of ``torch.autograd.grad`` of the plain forward (each
+    weight gradient on max(1, its own largest value, 1% of the largest of
+    any), as ``chip_smoke.py`` measures)."""
+    dt = torch.bfloat16
+    args, pairs = _freq_block(card, 28, 1, 2, shift)
+    args = [a.requires_grad_() if torch.is_tensor(a) and i not in (21, 34, 35)
+            else a for i, a in enumerate(args)]
+    ins = [a for a in args if torch.is_tensor(a) and a.requires_grad]
+    g = _t(card, *args[0].shape, scale=0.5, dtype=dt)
+    lb.reset_launches()
+    got = torch.autograd.grad(lb.BlockFreqMerged.apply(*args, pairs), ins, g)
+    assert (lb.LAUNCHES["freq_merged"], lb.LAUNCHES["lewin_ffn_bwd"],
+            lb.LAUNCHES["freq_inter_bwd"], lb.LAUNCHES["lewin_attn_bwd"]) == (
+                1, 1, 1, 1)
+    x, mask = args[0], args[21]
+    img = lb.roll(x, shift)
+    y1 = lb.FreqIntra.apply(img, *args[1:12], mask, L, WIN, 1e-6)
+    u = lb.roll(lb.FreqInter.apply(y1, img, *args[12:21], mask, L, WIN, 1e-6,
+                                   args[34], pairs), -shift)
+    chain = torch.autograd.grad(
+        lb.BlockFFN.apply(u, *args[22:30], 1e-6, args[35]), ins, g)
+    assert all(torch.equal(p, q) for p, q in zip(got, chain))
+    want = torch.autograd.grad(lb.block_freq_merged_plain(*args), ins, g)
+    floor = max([1.0] + [1e-2 * w.float().abs().max().item() for w in want[1:]])
+    for i, (p, q) in enumerate(zip(got, want)):
+        err = (p.float() - q.float()).abs().max().item()
+        assert err <= FUNCTION_TOL[dt] * max(floor if i else 1.0,
+                                             q.float().abs().max().item()), (i, err)
 
 
 @pytest.mark.cuda

@@ -260,8 +260,37 @@ def test_default_route_follows_the_measured_table(msa_type, res, shift, dtype,
                                         **kw).route(dtype, batch) == impl
     for key, tokens in uformer_lewin.DEFAULT_MERGED.items():
         assert key[0] in ("origin", "freq") and key[1] in (128, 64, 32, 16, 8)
-        assert key[4] in (56, 112, 224, 448, 896)
+        # the decoder's widths, and the encoder's for its frequency blocks
+        assert key[4] in ((56, 112, 224, 448, 896) if key[0] == "origin"
+                          else (28, 56, 112, 224, 448))
         assert tokens > 0 and tokens % (key[1] * key[1]) == 0
+
+
+# the encoder's frequency blocks at the stages of K5's band-group form:
+# (res, C, shift, band images, route); band images = 3 x tiles
+@pytest.mark.parametrize("res,dim,shift,images,want", [
+    (128, 28, 4, 96, "merged"),      # shifted: K5 from B = 32
+    (128, 28, 4, 12, "kernel"),      # B = 4: the chain (the step's A/B)
+    (128, 28, 4, 93, "kernel"),
+    (128, 28, 0, 96, "kernel"),      # unshifted: the chain at every batch
+    (64, 56, 4, 96, "merged"),
+    (64, 56, 4, 48, "kernel"),
+    (64, 56, 0, 96, "kernel"),
+    (32, 112, 4, 96, "merged"),      # res 32: shifted or not
+    (32, 112, 0, 96, "merged"),
+    (32, 112, 0, 48, "kernel"),
+    (16, 224, 4, 96, "kernel"),      # the phases: the chain
+    (8, 448, 0, 96, "kernel"),
+])
+def test_default_route_runs_k5_where_the_table_names_it(res, dim, shift,
+                                                        images, want):
+    """DEFAULT_MERGED's "freq" entries (encoder widths, tokens of the
+    band-folded batch) send the frequency blocks K5's band-group form is
+    ahead for to the merged kernel in bf16; float32 keeps the chain."""
+    block = uformer_lewin.LeWinBlock(dim, res, max(1, dim // 28), impl="default",
+                                     msa_type="freq", L=L, shift_size=shift)
+    assert block.route(torch.bfloat16, images) == want
+    assert block.route(torch.float32, images) == "kernel"
 
 
 @pytest.mark.parametrize("dim,res,batch,want", [
@@ -337,6 +366,84 @@ def test_k3_path_chooser(dim, heads, win, L, dtype, groups, want):
     64 and 32 stages; at C = 112 from FREQ_INTER_MIN_GROUPS groups), the
     four passes elsewhere."""
     assert tlb.freq_inter_path(dim, heads, win, dtype, L, groups) == want
+
+
+# the encoder's stages (res, C, heads): C = 28 * 2^s at res 128 >> s
+ENCODER_STAGES = [(128, 28, 1), (64, 56, 2), (32, 112, 4), (16, 224, 8),
+                  (8, 448, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("stage", ENCODER_STAGES,
+                         ids=[f"res{r}" for r, _, _ in ENCODER_STAGES])
+def test_k5_path_at_every_encoder_stage(stage, dtype):
+    """freq_merged_path: K5's band-group form in bf16 at the encoder's res
+    128, 64 and 32 stages (kpad(C) <= 128, head dims 28), the twelve phases
+    at res 16 and 8 and in fp32; the phases' names follow the form."""
+    res, dim, heads = stage
+    want = ("group" if dtype == torch.bfloat16 and res >= 32 else "phases")
+    assert tlb.freq_merged_path(dim, heads, WIN, dtype) == want
+    assert tlb.freq_merged_phases(dim, heads, WIN, dtype) == (
+        tlb.FREQ_GROUP_PHASES if want == "group" else tlb.FREQ_MERGED_PHASES)
+    assert tlb.freq_merged_phases(dim, heads, WIN, dtype,
+                                  path="phases") == tlb.FREQ_MERGED_PHASES
+
+
+@pytest.mark.parametrize("dim,heads,win,L", [
+    (28, 1, 4, 3),      # windows of 16 tokens
+    (28, 1, 8, 1),      # one band: groups of 64 tokens
+    (56, 1, 8, 3),      # d = 56 > 32
+    (30, 1, 8, 3),      # C not a multiple of 4
+    (10, 1, 8, 3),
+])
+def test_k5_path_off_the_group_form(dim, heads, win, L):
+    """Shapes the band-group form does not take keep the phases."""
+    assert tlb.freq_merged_path(dim, heads, win, torch.bfloat16,
+                                L) == "phases"
+
+
+@pytest.mark.parametrize("dim", [28, 56, 112])
+def test_k5_scratch_of_the_group_form_is_u(dim):
+    """The band-group form's scratch is u alone: C columns a pixel, against
+    the phases' LN / qkv / y1 / u / fp32 hidden / conv rows."""
+    hd = 4 * dim
+    bf = torch.bfloat16
+    assert tlb._merged_scratch_cols(dim, hd, True, False, bf, group=True) == dim
+    assert tlb._merged_scratch_cols(dim, hd, True, False, bf) == (
+        tlb.kpad(dim) + 3 * dim + dim + dim + 2 * hd + tlb.kpad(hd))
+    assert tlb._merged_scratch_cols(dim, hd, True, False, torch.float32) == (
+        tlb.kpad(dim) + 3 * dim + dim + dim + hd + tlb.kpad(hd))
+
+
+def test_k5_group_form_needs_the_per_pair_tables(rng):
+    """freq_merged_kernel raises where the band-group form would run on
+    inter operands without the per-pair tables, before it looks at the
+    device; the phases read the grouped bias and get as far as the device
+    check."""
+    dim, heads = 28, 1
+    d, hd = dim // heads, 4 * dim
+    t = lambda *shape: torch.from_numpy(_np(rng, *shape, scale=0.1))
+    pA = [t(heads, dim, d) if i % 2 == 0 else t(heads, d) for i in range(6)]
+    pA += [t(heads, d, dim), t(dim)]
+    x = t(L * B, 16, 16, dim).bfloat16()
+    intra = tlb.attn_operands(*pA, t(L, heads, N, N), torch.bfloat16)
+    inter = tlb.attn_operands(*pA, t(heads, L * N, L * N), torch.bfloat16)
+    ffn = tlb.ffn_operands(t(dim, hd), t(hd), t(3, 3, hd), t(hd), t(hd, dim),
+                           t(dim), torch.bfloat16)
+    ln = [torch.ones(dim), torch.zeros(dim)]
+    run = lambda path, op: tlb.freq_merged_kernel(
+        x, *ln, intra, op, None, *ln, ffn, L, WIN, 0, 1e-6, None, None,
+        path=path)
+    assert tlb.freq_merged_path(dim, heads, WIN, torch.bfloat16) == "group"
+    for path in (None, "group"):
+        with pytest.raises(ValueError, match="per-pair"):
+            run(path, inter)
+    with pytest.raises(ValueError, match="CUDA"):
+        run("phases", inter)
+    with pytest.raises(ValueError, match="CUDA"):
+        run(None, inter._replace(pairs=t(L * L, 225, heads)))
+    with pytest.raises(ValueError, match="path"):
+        run("fused", inter)
 
 
 def test_inter_bias_from_pairs_is_the_grouped_bias():

@@ -30,7 +30,7 @@ Run on a machine with an NVIDIA GPU, from the root of the checkout:
 
     python3 tools/bwd_kernel_profile.py [--dtype bfloat16] [--batch 4]
         [--k7 | --k6 | --k8 | --k10 | --k2 | --k1 | --k4 | --k3 | --k11
-         | --f2 | --k14 | --k9 [--strided] | --k12 | --k13]
+         | --f2 | --k14 | --k9 [--strided] | --k12 | --k13 | --k5]
 
 Prints the card's name and power limit, then per kernel its ms by CUDA
 events, its device time, the host's time to issue a call, and the passes in
@@ -118,6 +118,9 @@ def main(argv=None) -> int:
     which.add_argument("--k13", action="store_true",
                        help="K13 at chip_smoke.py's split_cases, fp32 and "
                        "bf16, B = 4 and 16")
+    which.add_argument("--k5", action="store_true",
+                       help="K5 at every encoder stage, shift 0 and 4, B = 4, "
+                       "16 and 32, bf16 and float32, beside the chain")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -135,6 +138,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip())
     dtype = getattr(torch, args.dtype)
+    if args.k5:
+        k5_profile(chip_smoke, lb, windows)
+        return 0
     if args.k12 or args.k13:
         split_profile(chip_smoke, lb, windows, "lewin_attn_split" if args.k12
                       else "lewin_ffn_split",
@@ -238,8 +244,9 @@ def profile_case(case, label):
           f"{host:.4f} ms a call to issue on the host")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1]):
         print(f"  {us / 1e3:8.4f} ms x {n:2d}  {name[:100]}")
-    print(f"  the launch's operations over its device time: "
-          f"{case.flops / total / 1e6:.1f} TFLOP/s")
+    if total:   # the profiler can come back without device events
+        print(f"  the launch's operations over its device time: "
+              f"{case.flops / total / 1e6:.1f} TFLOP/s")
     return gemms
 
 
@@ -290,6 +297,44 @@ def split_profile(chip_smoke, lb, windows, kernel, batches) -> None:
                               f"{2.0 * m * n * k / us / 1e6:.1f} TFLOP/s "
                               f"({name.split('(')[0]})")
                 del ops
+
+
+def k5_profile(chip_smoke, lb, windows) -> None:
+    """K5 at every case of ``chip_smoke.kernel_cases`` in bfloat16 and float32
+    at B = 4, 16 and 32: the launch by ``freq_merged_path`` (ms by CUDA
+    events, device time, its passes) and, where that is the band-group
+    form, the parent's phases form beside it; each form's phases' clock
+    stamps; the chain K1 -> K3 -> K2 around the two rolls as one (ms by
+    CUDA events) and each of its five launches timed apart, and the
+    bound."""
+    from chip_smoke import BwdCase
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name_dt = str(dtype)[6:]
+        for B in (4, 16, 32):
+            for case in chip_smoke.kernel_cases(lb, windows, dtype, B):
+                if case.kernel != "freq_merged":
+                    continue
+                x, h = case.args[0], case.args[3].shape[0]
+                paths = [lb.freq_merged_path(x.shape[-1], h, 8, dtype)]
+                if paths == ["group"]:
+                    paths.append("phases")
+                for path in paths:
+                    label = f"{case.label} B{B} {name_dt} ({path})"
+                    profile_case(BwdCase(
+                        case.kernel, label,
+                        lambda path=path: case.timed(path=path), lambda: None,
+                        case.flops, 0), label)
+                    chip_smoke.print_phases(lb, case, label, path)
+                times = [(name, chip_smoke.time_ms(fn))
+                         for name, fn in chip_smoke.k5_parts(lb, case, dtype)]
+                bound, by = chip_smoke.bound_of(case, dtype)
+                print(f"  chain {chip_smoke.time_ms(case.chain_timed):.4f} ms "
+                      f"by CUDA events (" + ", ".join(
+                          f"{name} {ms:.4f}" for name, ms in times)
+                      + f"; parts {sum(ms for _, ms in times):.4f}); bound "
+                      f"{bound:.4f} ms by {by}", flush=True)
+            torch.cuda.empty_cache()
 
 
 def f2_cases(chip_smoke, lb, windows, batch):

@@ -14,13 +14,19 @@ parent):
 
     python3 tools/e2e_ab.py [--no-steps] [--configs NAME ...] [--trace-steps]
         [--dtype float32] [--batch B ...]
+    python3 tools/e2e_ab.py --k5-routes [--batch B ...]
 
 ``--configs`` takes a subset of the three; ``--trace-steps`` traces each
 one's joint step at its batch (each port kernel's device time over all of
 its passes) in place of the flagship's B=32 one; ``--dtype`` and
 ``--batch`` set the eval forwards' dtype (the eval entry point's float32,
-say) and batches. Prints the card's name and power limit first. Imports
-the PyTorch port only.
+say) and batches. ``--k5-routes`` compares, in one tree, the flagship's
+encoder frequency blocks by the chain (the model's route table without
+its "freq" entries) and by the table as it is (K5 where its "freq"
+entries name it): the bf16 eval forward and the bf16 joint step (with
+gradients) at each ``--batch``, in turns chain / table / table / chain.
+Prints the card's name and power limit first. Imports the PyTorch port
+only.
 """
 
 from __future__ import annotations
@@ -51,6 +57,9 @@ def main(argv=None) -> int:
                     help="the eval forwards' dtype")
     ap.add_argument("--batch", type=int, nargs="+", default=[BATCH],
                     help="the eval forwards' batches")
+    ap.add_argument("--k5-routes", action="store_true",
+                    help="the flagship's encoder frequency blocks by the "
+                    "chain against K5, eval forward and joint step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -74,6 +83,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = cs.card_line()
     print(card, flush=True)
+    if args.k5_routes:
+        k5_routes(cs, config, airnet, train_state, steps_lib, synthetic, card,
+                  args.batch)
+        return 0
     fields_of = {"flagship": {},
                  "per_scale_set": cs.INJECTION_CONFIGS["per_scale_set"],
                  "resnet_dgrn": cs.FAMILIES["resnet_dgrn"]}
@@ -110,6 +123,54 @@ def main(argv=None) -> int:
         cs.profile_step(config, airnet, train_state, steps_lib, synthetic, card,
                         None, "flagship", BATCH)
     return 0
+
+
+def k5_routes(cs, config, airnet, train_state, steps_lib, synthetic, card,
+              batches) -> None:
+    """The flagship in bf16 with the encoder's frequency blocks by the
+    chain (the model's route table without its "freq" entries) and by the
+    table as it is: the default-route eval forward (ms, MP/s, launch
+    counts) and the joint step (``chip_smoke.step_times``) at each batch,
+    in turns chain / table / table / chain."""
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.models import (
+        uformer_lewin)
+
+    table = uformer_lewin.DEFAULT_MERGED
+    saved = dict(table)
+    routes = {"chain": {k: v for k, v in saved.items() if k[0] != "freq"},
+              "table": saved}
+    print("k5 routes: the table's K5 entries " + ", ".join(
+        f"res {k[1]} {'shifted' if k[2] else 'unshifted'} from {v} tokens"
+        for k, v in saved.items() if k[0] == "freq"), flush=True)
+    try:
+        for B in batches:
+            for route in ("chain", "table", "table", "chain"):
+                table.clear()
+                table.update(routes[route])
+                cfg = cs.flagship_config(config, "bfloat16")
+                bundle = airnet.build_models(cfg, "cuda", "default")
+                cs.liven(bundle)
+                x = torch.from_numpy(np.random.default_rng(2).random(
+                    (B, cs.P, cs.P, 3), dtype=np.float32)).cuda()
+                cs.COUNTERS.reset()
+                airnet.eval_forward(bundle, x)
+                counts = {k: v for k, v in cs.COUNTERS.read().items() if v}
+                ms = [cs.time_ms(lambda: airnet.eval_forward(bundle, x),
+                                 iters=5) for _ in range(2)]
+                print(f"k5 routes: flagship eval forward bfloat16 B={B}, "
+                      f"encoder by the {route} ({card}): " + " / ".join(
+                          f"{t:.3f}" for t in ms) + " ms, " + " / ".join(
+                          f"{B * cs.P * cs.P / t / 1e3:.4f}" for t in ms)
+                      + f" MP/s; launches {counts}", flush=True)
+                del bundle, x
+                torch.cuda.empty_cache()
+                print(f"k5 routes: joint step, encoder by the {route}:",
+                      flush=True)
+                cs.step_times(config, airnet, train_state, steps_lib, synthetic,
+                              card, "flagship", None, (("bfloat16", "default", B),))
+    finally:
+        table.clear()
+        table.update(saved)
 
 
 if __name__ == "__main__":
