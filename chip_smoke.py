@@ -23,7 +23,8 @@ Phases, each fatal on failure:
    16, where one launch spends its time (the device clock at each of its
    grid barriers); K5 at res 128 / 64 / 32 in bf16 by both forms (the band
    groups the route takes, equal to the chain bit for bit at B = 4, 16 and
-   32, and the twelve phases against them; each form's time and phases);
+   32, and the twelve phases equal to them bit for bit; each form's time
+   and phases);
    then K2's table: bf16 at B = 4 and 32 at every flagship
    stage K2 serves, against its twin, its time beside the plain version's,
    the bound, a ``torch.matmul`` yardstick of fc1 and fc2, and the device
@@ -129,9 +130,19 @@ Phases, each fatal on failure:
     width and depth, the default route) twice from one saved state on a
     fresh generator of the same seed; every loss and every tensor of the
     train state after them (parameters, buffers, key encoder, queue, Adam's
-    moments) equal bit for bit.
+    moments) equal bit for bit;
+16. serving: the eval forward exported (``<port>.serving.export_eval``,
+    one ``torch.export`` program whose forward kernels are ``fairm::``
+    custom ops, the weights its inputs) for the flagship at full width and
+    depth in bf16 at B=32 and in fp32 at B=4, the per-scale set and
+    ``resnet_dgrn`` at full width in bf16 at B=4 (their depth cut); each
+    artifact loaded in a clean process that imports no model code, its
+    ``fairm::`` nodes and the launches of one served call equal to the
+    eager forward's, the served output against the eager one (1e-4 fp32,
+    1e-2 bf16; a short batch padded and cropped), export s, artifact MiB,
+    load s, served and eager ms, and a trace of the first served call.
 
-``--phases 3 4`` runs only those of phases 3-15, for work on one of them:
+``--phases 3 4`` runs only those of phases 3-16, for work on one of them:
 such a partial run prints neither of the two result lines and exits with
 2. The whole run fails too if anything of JAX or of the JAX package was
 imported. Its line before the last is ``{"kernels": [...]}``, where
@@ -141,7 +152,7 @@ and by the merged kernels in float32 and by the default route in
 bfloat16, the training entry point in bfloat16; phase 11's forwards, the
 eval entry point with the default method, the per-scale training entry
 point; phase 13's split and default forwards, phase 14's entry points and
-forwards); the last line is
+forwards, phase 16's served calls); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with 1 and prints no result.
 """
@@ -343,7 +354,7 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
-ALL_PHASES = frozenset(range(3, 16))
+ALL_PHASES = frozenset(range(3, 17))
 
 
 class Failed(Exception):
@@ -668,8 +679,8 @@ def check_kernels(lb, windows, default_merged, stats, card: str):
     """Phase 3: each kernel against its plain twin (and K4 / K5 against the
     chain); times with prepared operands; K5 where it runs its band-group
     form equal to the chain bit for bit (at every batch of the table), and
-    also by its twelve phases (the parent's form), held to it within
-    CHAIN_TOL. The kernels line takes each kernel's first (res-128) case in
+    also by its twelve phases (the parent's form), equal to it bit for
+    bit. The kernels line takes each kernel's first (res-128) case in
     bf16 at B=32. The merged-against-chain
     table covers both dtypes at the batches the entry points run and marks
     the blocks that ``default_merged`` (the model's route table, each entry
@@ -707,16 +718,17 @@ def check_kernels(lb, windows, default_merged, stats, card: str):
             if case.stage is not None and case.stage[1] in (128, 32, 16):
                 print_phases(lb, case, label)
             if k5_group(lb, case, dtype):
-                # the parent's form, twelve phases, beside the band groups
-                # (which equal the chain bit for bit; the phases' LayerNorms
-                # sum in another order, so they are held to CHAIN_TOL)
+                # the parent's form, twelve phases, beside the band groups:
+                # both equal the chain bit for bit (the phases' LN2 sums a
+                # row in the order of K2's fused tile)
                 phases = case.timed(path="phases")
                 compare(f"{label} phases form vs band groups", phases, got,
                         CHAIN_TOL[dtype])
+                if not torch.equal(phases, got):
+                    raise Failed(f"{label}: K5's twelve phases differ from the "
+                                 "band groups (and the chain) in some bits")
                 print(f"    phases form {time_ms(lambda: case.timed(path='phases')):.4f}"
-                      f" ms (band groups {ms:.4f} ms), bits "
-                      f"{'equal' if torch.equal(phases, got) else 'differ'}",
-                      flush=True)
+                      f" ms (band groups {ms:.4f} ms), bits equal", flush=True)
                 print_phases(lb, case, label, "phases")
                 del phases
             # the kernels line: each kernel's first case in bf16, K4's at a
@@ -2334,9 +2346,10 @@ def step_times(config, airnet, train_state, steps_lib, synthetic, card: str,
     """Phase 9c: ms per joint step and per phase-A step, and the split of
     the joint step (forward = ``upto='loss'``, backward = ``'grads'`` -
     ``'loss'``, optimizer + EMA + enqueue = ``'full'`` - ``'grads'``), by
-    CUDA events. Every variant is warmed up first (the allocator's pool
-    grows with the first backward), then timed twice, forwards and back;
-    the split is taken from each variant's lower time and both are shown."""
+    CUDA events. Every variant is warmed up by one step first (the
+    allocator's pool grows with the first backward), then timed twice over
+    two steps, forwards and back (no more: the script's time limit); the
+    split is taken from each variant's lower time and both are shown."""
     variants = ((True, "loss"), (True, "grads"), (True, "full"), (False, "full"))
     torch.cuda.reset_peak_memory_stats()
     for dtype, impl, batch in runs_of:
@@ -2347,11 +2360,10 @@ def step_times(config, airnet, train_state, steps_lib, synthetic, card: str,
             steps = {v: steps_lib.make_train_step(cfg, bundle, joint=v[0],
                                                   upto=v[1]) for v in variants}
             for v in variants:
-                for _ in range(2):
-                    steps[v](state, data)
+                steps[v](state, data)
             runs = {v: [] for v in variants}
             for v in variants + variants[::-1]:
-                runs[v].append(time_ms(lambda: steps[v](state, data), iters=3,
+                runs[v].append(time_ms(lambda: steps[v](state, data), iters=2,
                                        warmup=0))
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
         except torch.cuda.OutOfMemoryError:
@@ -3492,11 +3504,214 @@ def repeated_steps(config, airnet, train_state, steps_lib, synthetic, ckpt,
         torch.cuda.empty_cache()
 
 
+# Phase 16's configurations: (label, fields, eval dtype, batch); the
+# flagship at full depth in bf16 at the metric's batch (K4, K5) and in fp32
+# at the CLI's small batch (K12 / K13); the per-scale set (K9, the
+# deformable LeFF's K11) and resnet_dgrn (DGRN's K11) in bf16 at B=4, their
+# depth cut to one block a stage and to one DGRN group of two blocks (the
+# script's time limit: exporting and loading a program takes time by its
+# nodes)
+SERVE_CONFIGS = (
+    ("flagship", {}, "bfloat16", BATCH),
+    ("flagship", {}, "float32", SMALL_BATCH),
+    ("per_scale_set", {**INJECTION_CONFIGS["per_scale_set"],
+                       "uformer_depth_cap": 1}, "bfloat16", SMALL_BATCH),
+    ("resnet_dgrn", {**FAMILIES["resnet_dgrn"], **SHALLOW_DGRN}, "bfloat16",
+     SMALL_BATCH),
+)
+# whole served forward against the eager one: the kernels are the same, so
+# fp32 holds to the JAX serving CLI's 1e-4 and bf16 to the whole-forward
+# bound
+SERVE_TOL = {"float32": 1e-4, "bfloat16": FORWARD_TOL[torch.bfloat16]}
+# a short batch, padded to the exported one and cropped back
+SERVE_SHORT = 3
+
+# the clean process that loads one artifact: it imports the port's serving
+# module only (and through it the kernels' registrations), loads the
+# artifact, counts its program's fairm:: nodes, serves the tiles once (the
+# launches counted from 0) and a short batch; then, once the parent writes
+# the artifact's go file (one process at a time, the card otherwise idle),
+# times the served call and, for the first artifact, traces it
+SERVE_CHILD = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+from {pkg} import serving
+from {pkg}.ops.kernels import custom_ops
+
+# the parent's settings: float32 products and convolutions without TF32
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+d, name, short, trace = sys.argv[1], sys.argv[2], int(sys.argv[3]), sys.argv[4]
+t0 = time.perf_counter()
+model = serving.load(f"{{d}}/{{name}}.fairm")
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+x = np.load(f"{{d}}/{{name}}_x.npy")
+custom_ops.reset_launches()
+y = model(x)
+torch.cuda.synchronize()
+launches = {{k: v for k, v in custom_ops.read_launches().items() if v}}
+np.save(f"{{d}}/{{name}}_y.npy", y.cpu().numpy())
+np.save(f"{{d}}/{{name}}_short.npy", model(x[:short]).cpu().numpy())
+while not os.path.exists(f"{{d}}/{{name}}.go"):
+    time.sleep(0.05)
+xs = torch.from_numpy(x).cuda()
+for _ in range(2):
+    model(xs)
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+start.record()
+for _ in range(10):
+    model(xs)
+end.record()
+torch.cuda.synchronize()
+if trace == "1":
+    # where the served call spends its time (chip_smoke.py imports nothing
+    # of the port itself)
+    import chip_smoke as cs
+    from {pkg}.ops import deform_conv
+    from {pkg}.ops.kernels import lewin_block, window_attention
+    cs.COUNTERS.modules = (lewin_block, window_attention, deform_conv)
+    cs.profile_call(lambda: model(xs), f"served {{name}}")
+bad = sorted(m for m in sys.modules
+             if m.startswith(("{pkg}.models", "{pkg}.config")))
+assert not bad, bad
+print(json.dumps(dict(load_s=load_s, launches=launches,
+                      graph=custom_ops.graph_launches(model.program.graph),
+                      nodes=len(model.program.graph.nodes),
+                      ms=start.elapsed_time(end) / 10, imported=bad)),
+      flush=True)
+"""
+
+
+def serve_counts(label: str, bundle, airnet, uformer_lewin, dtype: str,
+                 B: int) -> dict:
+    """The launches one eager forward of ``B`` tiles of a phase-16
+    configuration makes, held apart from the model (and, for the Uformer
+    pairs, from its blocks' routes too); the kernels not launched left
+    out."""
+    if label == "flagship":
+        held = default_counts(dtype, B)
+        model = route_counts(bundle, airnet, uformer_lewin, B)
+        if held != model:
+            raise Failed(f"serving {label}: the held counts {held} != the "
+                         f"model's routes {model}")
+    elif label == "per_scale_set":    # its depth cut: from its blocks
+        model = block_counts(bundle, airnet, uformer_lewin, B)
+    else:                             # DGRN: two DCNs a block
+        cfg = bundle.cfg
+        model = {**ZERO, "dcn": 2 * cfg.dgrn_groups * cfg.dgrn_blocks}
+    return {k: v for k, v in model.items() if v}
+
+
+def serving_phase(config, airnet, uformer_lewin, serving, card: str, stats):
+    """Phase 16: the eval forward served. Each configuration of
+    :data:`SERVE_CONFIGS` at full width (offset heads and lamb drawn at
+    random) is exported (``serving.export_eval``, the default
+    route) and saved; its eager forward's launches must be the held counts.
+    Then a clean process loads each artifact and serves it: the
+    program's ``fairm::`` nodes and the launches of one served call must be
+    the eager forward's, the served output within SERVE_TOL of the eager
+    one (bits equal or not printed), a short batch padded and cropped
+    likewise. Printed beside the card: export s, artifact MiB, load s, and
+    the served against the eager call's ms by CUDA events. Each artifact
+    loads in its own process while the next configuration exports; the
+    served calls are timed one process at a time."""
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    children = {}
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            eager = {}
+            for label, fields, dtype, B in SERVE_CONFIGS:
+                name = f"{label}_{dtype}_B{B}"
+                cfg = flagship_config(config, dtype, **fields)
+                bundle = airnet.build_models(cfg, "cuda")
+                if fields:
+                    liven(bundle)
+                x = torch.from_numpy(np.random.default_rng(16).random(
+                    (B, P, P, 3), dtype=np.float32)).cuda()
+                np.save(f"{d}/{name}_x.npy", x.cpu().numpy())
+                want = serve_counts(label, bundle, airnet, uformer_lewin,
+                                    dtype, B)
+                COUNTERS.reset()
+                y = airnet.eval_forward(bundle, x)
+                torch.cuda.synchronize()
+                got = {k: v for k, v in COUNTERS.read().items() if v}
+                if got != want:
+                    raise Failed(f"serving {name}: eager launches {got} != "
+                                 f"{want}")
+                ms = time_ms(lambda: airnet.eval_forward(bundle, x))
+                t0 = time.perf_counter()
+                blob = serving.export_eval(
+                    cfg, (bundle.encoder.state_dict(),
+                          bundle.decoder.state_dict()), batch=B)
+                export_s = time.perf_counter() - t0
+                # the metadata after the header's magic, version and length
+                meta = json.loads(
+                    blob[16:16 + int.from_bytes(blob[12:16], "little")])
+                if meta["launches"] != want:
+                    raise Failed(f"serving {name}: the artifact's launches "
+                                 f"{meta['launches']} != {want}")
+                serving.save(f"{d}/{name}.fairm", blob)
+                eager[name] = dict(y=y.cpu(), ms=ms, want=want, dtype=dtype,
+                                   B=B, export_s=export_s,
+                                   mib=len(blob) / 2 ** 20,
+                                   weights_mib=meta["weights_len"] / 2 ** 20)
+                del bundle, blob, x, y
+                torch.cuda.empty_cache()
+                # loaded while the next configuration exports
+                children[name] = subprocess.Popen(
+                    [sys.executable, "-c", SERVE_CHILD.format(pkg=PKG), d,
+                     name, str(SERVE_SHORT), "0" if children else "1"],
+                    cwd=root, env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)
+            for name, e in eager.items():
+                open(f"{d}/{name}.go", "w").close()
+                out, err = children[name].communicate(timeout=900)
+                if children[name].returncode != 0:
+                    raise Failed(f"the clean serving process of {name} "
+                                 f"failed:\n{err[-4000:]}")
+                lines = out.strip().splitlines()
+                if lines[:-1]:
+                    print("\n".join(lines[:-1]), flush=True)   # its trace
+                c = json.loads(lines[-1])
+                if c["graph"] != e["want"] or c["launches"] != e["want"]:
+                    raise Failed(f"serving {name}: {c['graph']} fairm:: "
+                                 f"nodes, {c['launches']} launches served, "
+                                 f"eager {e['want']}")
+                tol = SERVE_TOL[e["dtype"]]
+                y = torch.from_numpy(np.load(f"{d}/{name}_y.npy"))
+                short = torch.from_numpy(np.load(f"{d}/{name}_short.npy"))
+                err = compare(f"served {name} vs eager", y, e["y"], tol)
+                compare(f"served {name} short batch of {SERVE_SHORT} vs "
+                        "eager", short, e["y"][:SERVE_SHORT], tol)
+                n = e["B"] * P * P
+                add_launches(stats, f"served_{name}",
+                             {k: c["launches"].get(k, 0) for k in stats})
+                print(f"serving {name} ({card}): export {e['export_s']:.1f} s,"
+                      f" {c['nodes']} graph nodes, artifact {e['mib']:.1f} MiB "
+                      f"(weights {e['weights_mib']:.1f}), load "
+                      f"{c['load_s']:.1f} s in a clean process; served "
+                      f"{c['ms']:.3f} ms ({n / c['ms'] / 1e3:.4f} MP/s), eager "
+                      f"{e['ms']:.3f} ms ({n / e['ms'] / 1e3:.4f} MP/s); "
+                      f"max_abs {err:.3e}, bits "
+                      f"{'equal' if torch.equal(y, e['y']) else 'differ'}; "
+                      f"launches {c['launches']}", flush=True)
+        finally:
+            for child in children.values():
+                if child.poll() is None:
+                    child.kill()
+                    child.communicate()
+    print(f"serving phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one H100")
     ap.add_argument("--phases", type=int, nargs="+",
                     default=sorted(ALL_PHASES), choices=sorted(ALL_PHASES),
-                    help="of phases 3-15, run only these: a development aid "
+                    help="of phases 3-16, run only these: a development aid "
                     "that prints no result and exits with 2 (default: all)")
     phases = set(ap.parse_args(argv).phases)
     if not torch.cuda.is_available():
@@ -3504,7 +3719,7 @@ def main(argv=None) -> int:
               "an NVIDIA GPU", file=sys.stderr)
         return 1
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch import (
-        config, test as port_test, train as port_train)
+        config, serving, test as port_test, train as port_train)
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch.data import (
         synthetic)
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch.evaluation import (
@@ -3626,6 +3841,9 @@ def main(argv=None) -> int:
             marks.append((15, time.perf_counter()))
             repeated_steps(config, airnet, train_state, steps_lib, synthetic,
                            ckpt, card)
+        if 16 in phases:
+            marks.append((16, time.perf_counter()))
+            serving_phase(config, airnet, uformer_lewin, serving, card, stats)
         if phases == ALL_PHASES:
             idle = [n for n in KERNELS if not stats[n]["launches"]]
             if idle:

@@ -15,16 +15,21 @@ Modules
 -------
 test          the eval CLI: ``python -m <this package>.test <flags>``
 train         the training CLI: ``python -m <this package>.train <flags>``
+serving       the eval forward exported as a ``.fairm`` artifact (one
+              ``torch.export`` program, the forward kernels as custom ops);
+              its CLI ``python -m <this package>.export_serving <flags>``
 config        the configuration and command line (the JAX package's flags)
 data          train loaders and test sets: file-backed, synthetic; image decoding
 ops           frequency decomposition, window machinery, metrics, CUDA kernel
-              wrappers (forward and backward) and their autograd Functions
+              wrappers (forward and backward), their autograd Functions and
+              custom ops; image utilities (resize, NIQE, edges, patches)
 models        Uformer encoder/decoder, LeWin blocks, AirNet composition, MoCo
 evaluation    tiled full-image restoration, the per-task runner
 training      losses, train state, the two-phase steps, the loop, checkpoints
               (``epoch_<N>.pt``: the models, and the whole train state)
 utils         JAX-parameter / train-state conversion, image I/O, run logs,
-              the step meter
-"""
+              the step meter, plots
 
-from . import config  # noqa: F401
+Importing the package imports none of its modules: a process that loads a
+served artifact imports ``serving`` and the kernels' registrations only.
+"""

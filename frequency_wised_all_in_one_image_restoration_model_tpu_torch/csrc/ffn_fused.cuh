@@ -83,6 +83,43 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
+// LayerNorm of one row of C <= KP bf16 values by a warp, lane l holding
+// columns l, l + 32, ...: fp32 statistics in two passes, each sum over
+// the lanes by warp_sum, rounded to bf16 into dst[0, C), zeros into
+// dst[C, pad). K2's fused tile normalises its rows with it, and so do the
+// merged kernels' LN2 phases where the chain's K2 runs that tile
+// (merged.cuh), so that both sum a row in one order.
+template <int KP>
+__device__ __forceinline__ void ln_row_lanes(const bf16_t* src, bf16_t* dst,
+                                             int C, int pad, const float* lns,
+                                             const float* lnb, float eps) {
+  const int lane = threadIdx.x & 31;
+  float v[KP / 32];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < KP / 32; ++i) {
+    const int c = lane + 32 * i;
+    v[i] = c < C ? __bfloat162float(src[c]) : 0.f;
+    s += v[i];
+  }
+  const float mu = warp_sum(s) / C;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < KP / 32; ++i) {
+    const float dv = lane + 32 * i < C ? v[i] - mu : 0.f;
+    q += dv * dv;
+  }
+  const float rs = rsqrtf(warp_sum(q) / C + eps);
+#pragma unroll
+  for (int i = 0; i < KP / 32; ++i) {
+    const int c = lane + 32 * i;
+    if (c < C)
+      dst[c] = __float2bfloat16((v[i] - mu) * rs * lns[c] + lnb[c]);
+    else if (c < pad)
+      dst[c] = __float2bfloat16(0.f);
+  }
+}
+
 // Tile ``tile`` (row-major over the image's 8 x 8 tiles) of image ``img``
 // by the NT threads tid = 0 ... NT - 1 (NT a multiple of 128), whose
 // barrier is sync(); smem holds S::BYTES. Threads that leave the tile may
@@ -152,31 +189,11 @@ __device__ __forceinline__ void ffn_fused_tile(const FfnArgs& a, int tile,
     *reinterpret_cast<uint2*>(sx + r * LDX + c) = v;
   }
   sync();
-  // ... then LN2 in place: a warp a pixel, fp32 statistics in two passes,
-  // rounded to bf16
+  // ... then LN2 in place: a warp a pixel (the row is zero past C)
   for (int r = warp; r < FF_HP; r += NT / 32) {
     if (!inside(r)) continue;
     bf16_t* row = sx + r * LDX;
-    float v[KP / 32];
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < KP / 32; ++i) {
-      v[i] = __bfloat162float(row[lane + 32 * i]);  // zero past C
-      s += v[i];
-    }
-    const float mu = warp_sum(s) / C;
-    float q = 0.f;
-#pragma unroll
-    for (int i = 0; i < KP / 32; ++i) {
-      const float dv = lane + 32 * i < C ? v[i] - mu : 0.f;
-      q += dv * dv;
-    }
-    const float rs = rsqrtf(warp_sum(q) / C + a.eps);
-#pragma unroll
-    for (int i = 0; i < KP / 32; ++i) {
-      const int c = lane + 32 * i;
-      if (c < C) row[c] = __float2bfloat16((v[i] - mu) * rs * a.lns[c] + a.lnb[c]);
-    }
+    ln_row_lanes<KP>(row, row, C, C, a.lns, a.lnb, a.eps);
   }
 
   const int nq = warp % NQ, mset = warp / NQ;   // fc1

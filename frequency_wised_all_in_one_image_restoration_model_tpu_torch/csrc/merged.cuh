@@ -37,6 +37,7 @@
 #include "attn_fused.cuh"
 #include "attention.cuh"
 #include "dwconv.cuh"
+#include "ffn_fused.cuh"
 #include "gemm.cuh"
 
 namespace fairm {
@@ -167,6 +168,39 @@ __device__ __forceinline__ void prep_phase(const void* src, int K, RowMap amap,
                static_cast<T*>(dst), kpad(K),
                (long long)blockIdx.x * wpb + (threadIdx.x >> 5),
                (long long)gridDim.x * wpb);
+}
+
+// LN2 of the M rows of u (C columns) into rows of kpad(C) columns, a warp a
+// row, in the order of K2's fused tile (ln_row_lanes, KP = ffn_fused_kp(C))
+template <int KP>
+__device__ __forceinline__ void ln_lanes_phase(const bf16_t* src, int C,
+                                               long long M, const float* ln_g,
+                                               const float* ln_b, float eps,
+                                               bf16_t* dst) {
+  const long long warps = (long long)gridDim.x * (MNT / 32);
+  for (long long r = (long long)blockIdx.x * (MNT / 32) + (threadIdx.x >> 5);
+       r < M; r += warps)
+    ln_row_lanes<KP>(src + r * C, dst + r * kpad(C), C, kpad(C), ln_g, ln_b,
+                     eps);
+}
+
+// LN2 of u into rows2, summing each row in the order of the K2 the chain
+// runs at this width: K2's fused tile in bf16 where it applies
+// (ffn_fused_kp), else its passes' prep_rows
+template <typename T>
+__device__ __forceinline__ void ln2_phase(const T* u, int C, long long M,
+                                          const float* ln_g, const float* ln_b,
+                                          float eps, T* rows2) {
+  if constexpr (std::is_same<T, bf16_t>::value) {
+    switch (ffn_fused_kp(C, 1)) {
+      case 32: ln_lanes_phase<32>(u, C, M, ln_g, ln_b, eps, rows2); return;
+      case 64: ln_lanes_phase<64>(u, C, M, ln_g, ln_b, eps, rows2); return;
+      case 128: ln_lanes_phase<128>(u, C, M, ln_g, ln_b, eps, rows2); return;
+      case 224: ln_lanes_phase<224>(u, C, M, ln_g, ln_b, eps, rows2); return;
+      default: break;
+    }
+  }
+  prep_phase<T>(u, C, identity_map(), M, ln_g, ln_b, eps, rows2);
 }
 
 // DP > 0: the tensor-core core for N tokens and head dims <= DP (bf16);
@@ -324,7 +358,7 @@ __global__ void __launch_bounds__(MNT, merged_min_blocks<T, FUSED>())
   }
 
   // the FFN half on u, true layout
-  prep_phase<T>(u, C, identity_map(), M, p.ln2s, p.ln2b, p.eps, rows2);
+  ln2_phase<T>(u, C, M, p.ln2s, p.ln2b, p.eps, rows2);
   end_phase(grid, p, phase++);
   gemm_phase<T, WG>(rows2, p.w1, C, p.b1, nullptr, hw, nullptr, hid1,
                     identity_map(), M, Hd, 1, smem, &p.t_rows, &p.t_w1, pipe,

@@ -57,15 +57,31 @@ class KernelParams(nn.Module):
     hands over ``kernel_weights()`` in the kernel's own formats
     (``make_operands``), made once per dtype and again only after a
     parameter changes, in place (``load_state_dict``, an optimiser step) or
-    by a move to other storage (``.to(device)``)."""
+    by a move to other storage (``.to(device)``).
+
+    While ``torch.export`` traces a served program (``serving.py``) the
+    operands are inputs of that program: ``served_operands`` holds them and
+    ``kernel_operands`` hands them over as they are (a traced tensor has no
+    address to key a cache on)."""
 
     make_operands = staticmethod(lewin_block.attn_operands)
 
     def __init__(self):
         super().__init__()
         self._operands = {}
+        self.served_operands = None
+
+    def cached_dtypes(self):
+        """The dtypes whose operands this holder has made."""
+        return tuple(self._operands)
 
     def kernel_operands(self, dtype: torch.dtype):
+        if self.served_operands is not None:
+            return self.served_operands
+        if torch.compiler.is_exporting():
+            raise RuntimeError(f"{type(self).__name__}: a traced program takes "
+                               "the kernels' operands as inputs "
+                               "(served_operands)")
         stamp = tuple((p.data_ptr(), p._version) for p in self.parameters())
         hit = self._operands.get(dtype)
         if hit is None or hit[0] != stamp:

@@ -39,9 +39,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
-from .kernels.lewin_block import (_DTYPES, _check, _f32, _mm, _nk, _ptr,
-                                  _run, _stream)
+from .kernels.lewin_block import (_DTYPES, _check, _f32, _launch, _mm, _nk,
+                                  _ptr, _run, _stream)
 
 LAUNCHES = {"dcn": 0, "dcn_bwd": 0}
 
@@ -171,8 +172,6 @@ def dcn_kernel(x, offset, mask, weight, bias=None, padding: int = 1,
     """Launch K11 on CUDA tensors (arguments as :func:`dcn_plain`) by
     :func:`dcn_path` (``path`` names the route instead: the two are
     compared by ``chip_smoke.py``; fp32 has the column route only)."""
-    from .kernels.build import load
-
     b, h, w, cin = x.shape
     kh, kw, wcin, cout = weight.shape
     k = kh * kw
@@ -193,17 +192,33 @@ def dcn_kernel(x, offset, mask, weight, bias=None, padding: int = 1,
     if path not in ("implicit", "columns") or (
             path == "implicit" and dt != torch.bfloat16):
         raise ValueError(f"K11 has no route {path!r} in {dt}")
+    return _launch("dcn", launch_dcn, x, off, msk, wt, bias, kh, kw, padding,
+                   dilation, -1.0 if clamp is None else float(clamp),
+                   path == "implicit")
+
+
+def launch_dcn(x: Tensor, offset: Tensor, mask: Tensor, wt: Tensor,
+               bias: Optional[Tensor], kh: int, kw: int, padding: int,
+               dilation: int, clamp: float, implicit: bool) -> Tensor:
+    """K11's launch on checked operands (:func:`dcn_kernel`): ``wt`` the
+    GEMM operand ``[Cout, kpad(K Cin)]``, fp32 offset and mask, ``clamp``
+    < 0 for none."""
+    from .kernels.build import load
+
+    b, h, w, cin = x.shape
+    ho, wo = offset.shape[1], offset.shape[2]
+    cout = wt.shape[0]
+    dt = x.dtype
     # the column route stages the modulated columns through device memory
     # for its GEMM; the implicit GEMM builds them on the SM
     cols = None
-    if path == "columns":
+    if not implicit:
         cols = torch.empty((b * ho * wo, wt.shape[1]), dtype=dt,
                            device=x.device)
     out = torch.empty((b, ho, wo, cout), dtype=dt, device=x.device)
-    _run(load().fairm_dcn, _ptr(x), _ptr(off), _ptr(msk), _ptr(wt),
+    _run(load().fairm_dcn, _ptr(x), _ptr(offset), _ptr(mask), _ptr(wt),
          _ptr(bias), _ptr(cols), _ptr(out), b, h, w, cin, ho, wo, cout, kh,
-         kw, padding, dilation, -1.0 if clamp is None else float(clamp),
-         _DTYPES[dt], _stream(x))
+         kw, padding, dilation, clamp, _DTYPES[dt], _stream(x))
     LAUNCHES["dcn"] += 1
     return out
 

@@ -40,9 +40,12 @@ and :func:`attention_kernel`, :func:`freq_inter_kernel`,
 :func:`ffn_kernel`, :func:`merged_kernel` and :func:`freq_merged_kernel`
 check those operands and launch. The model makes the
 operands once per parameter version (``models/uformer_blocks.py``) and
-calls the launchers directly. ``LAUNCHES`` counts kernel launches per
-kernel (K1 ``lewin_attn`` serves two entry points), one per launcher call
-that reached the card.
+calls the launchers directly. A launcher's last step, the launch itself on
+checked operands (``launch_attn`` and the other ``launch_*``), is also the
+custom op ``fairm::<name>`` (``custom_ops.py``), which a program that
+``torch.export`` traces calls in its place (:func:`_launch`).
+``LAUNCHES`` counts kernel launches per kernel (K1 ``lewin_attn`` serves
+two entry points), one per launch that reached the card.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch import Tensor
 
 LAUNCHES = {"lewin_attn": 0, "lewin_ffn": 0, "freq_inter": 0,
             "lewin_merged": 0, "freq_merged": 0, "lewin_attn_split": 0,
@@ -497,6 +501,17 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _launch(name: str, impl, *args):
+    """Run a launch ``impl`` (one of the forward launches below, each the
+    implementation of the custom op ``fairm::<name>``): through the op while
+    ``torch.export`` traces the caller, so that the exported program holds
+    the launch as one node (``custom_ops.py``); else directly."""
+    if torch.compiler.is_exporting():
+        from . import custom_ops  # noqa: F401  registers the fairm:: ops
+        return getattr(torch.ops.fairm, name)(*args)
+    return impl(*args)
+
+
 def attention_path(C: int, heads: int, win: int, dtype) -> str:
     """How K1 (and the attention half of K4) runs a block of width ``C``:
     ``'fused'``, one launch with the half's rows on the SM
@@ -516,8 +531,6 @@ def attention_kernel(x_img, lns, lnb, op: AttnOperands, mask, lam, win: int,
     :func:`block_attention` for ``res=True, bias_groups=1``,
     :func:`freq_intra` for ``res=False, bias_groups=L``; by
     :func:`attention_path`."""
-    from .build import load
-
     B, H, W, C = x_img.shape
     h = op.heads
     n = win * win
@@ -532,22 +545,35 @@ def attention_kernel(x_img, lns, lnb, op: AttnOperands, mask, lam, win: int,
     lam = _f32(lam, (B, h))
     dps = _f32(dps, (B,))
     lns, lnb = _f32(lns, (C,)), _f32(lnb, (C,))
-    dt = x_img.dtype
-    fused = attention_path(C, h, win, dt) == "fused"
+    fused = attention_path(C, h, win, x_img.dtype) == "fused"
+    return _launch("lewin_attn", launch_attn, x_img, lns, lnb, op.wqkv,
+                   op.bqkv, op.wp, op.bp, op.bias, mask, lam, dps, h, win,
+                   bias_groups, res, fused, float(eps))
+
+
+def launch_attn(x: Tensor, lns: Tensor, lnb: Tensor, wqkv: Tensor,
+                bqkv: Tensor, wp: Tensor, bp: Tensor, bias: Tensor,
+                mask: Optional[Tensor], lam: Optional[Tensor],
+                dps: Optional[Tensor], heads: int, win: int, groups: int,
+                res: bool, fused: bool, eps: float) -> Tensor:
+    """K1's launch on checked operands (:func:`attention_kernel`)."""
+    from .build import load
+
+    B, H, W, C = x.shape
+    dt = x.dtype
     xo = qkv = None
     if not fused:
         # the passes' buffers: the LN'd windows, then the attention rows;
         # the qkv rows
-        xo = torch.empty((B * H * W, kpad(C)), dtype=dt, device=x_img.device)
-        qkv = torch.empty((B * H * W, 3 * C), dtype=dt, device=x_img.device)
-    out = torch.empty_like(x_img)
+        xo = torch.empty((B * H * W, kpad(C)), dtype=dt, device=x.device)
+        qkv = torch.empty((B * H * W, 3 * C), dtype=dt, device=x.device)
+    out = torch.empty_like(x)
     # every tensor handed over by address is bound to a name until the
     # launch: a temporary freed earlier could be reused by the next one
-    _run(load().fairm_lewin_attn, _ptr(x_img), _ptr(lns), _ptr(lnb),
-         _ptr(op.wqkv), _ptr(op.bqkv), _ptr(op.wp), _ptr(op.bp),
-         _ptr(op.bias), _ptr(mask), _ptr(lam), _ptr(dps), _ptr(xo), _ptr(qkv),
-         _ptr(out), B, H, W, C, h, win, bias_groups, int(res), _DTYPES[dt],
-         int(fused), float(eps), _stream(x_img))
+    _run(load().fairm_lewin_attn, _ptr(x), _ptr(lns), _ptr(lnb), _ptr(wqkv),
+         _ptr(bqkv), _ptr(wp), _ptr(bp), _ptr(bias), _ptr(mask), _ptr(lam),
+         _ptr(dps), _ptr(xo), _ptr(qkv), _ptr(out), B, H, W, C, heads, win,
+         groups, int(res), _DTYPES[dt], int(fused), eps, _stream(x))
     LAUNCHES["lewin_attn"] += 1
     return out
 
@@ -587,8 +613,6 @@ def freq_inter_kernel(y_img, res_img, op: AttnOperands, mask, L: int,
     the two are compared by ``chip_smoke.py``). The operands carry the
     per-pair tables ``op.pairs`` beside the grouped bias: the fused form
     reads the tables, the passes the bias."""
-    from .build import load
-
     LB, H, W, C = y_img.shape
     h = op.heads
     n = win * win
@@ -606,21 +630,34 @@ def freq_inter_kernel(y_img, res_img, op: AttnOperands, mask, L: int,
     _operand(op.pairs, (L * L, (2 * win - 1) ** 2, h), torch.float32, y_img)
     mask = _f32(mask, (nW, n, n))
     dps = _f32(dps, (LB,))
-    dt = y_img.dtype
     groups = LB // L * nW
-    fused = (path or freq_inter_path(C, h, win, dt, L, groups)) == "fused"
+    fused = (path or freq_inter_path(C, h, win, y_img.dtype, L,
+                                     groups)) == "fused"
+    return _launch("freq_inter", launch_freq_inter, y_img, res_img, op.wqkv,
+                   op.bqkv, op.wp, op.bp, op.bias, op.pairs, mask, dps, h,
+                   win, L, fused)
+
+
+def launch_freq_inter(y: Tensor, res: Tensor, wqkv: Tensor, bqkv: Tensor,
+                      wp: Tensor, bp: Tensor, bias: Tensor, pairs: Tensor,
+                      mask: Optional[Tensor], dps: Optional[Tensor],
+                      heads: int, win: int, L: int, fused: bool) -> Tensor:
+    """K3's launch on checked operands (:func:`freq_inter_kernel`)."""
+    from .build import load
+
+    LB, H, W, C = y.shape
+    dt = y.dtype
     zo = qkv = None
     if not fused:
         # the passes' buffers: the regrouped rows, then the attention rows;
         # the qkv rows
-        zo = torch.empty((LB * H * W, kpad(C)), dtype=dt, device=y_img.device)
-        qkv = torch.empty((LB * H * W, 3 * C), dtype=dt, device=y_img.device)
-    out = torch.empty_like(y_img)
-    _run(load().fairm_freq_inter, _ptr(y_img), _ptr(res_img), _ptr(op.wqkv),
-         _ptr(op.bqkv), _ptr(op.wp), _ptr(op.bp), _ptr(op.bias),
-         _ptr(op.pairs), _ptr(mask), _ptr(dps), _ptr(zo), _ptr(qkv),
-         _ptr(out), LB, H, W, C, h, win, L, _DTYPES[dt], int(fused),
-         _stream(y_img))
+        zo = torch.empty((LB * H * W, kpad(C)), dtype=dt, device=y.device)
+        qkv = torch.empty((LB * H * W, 3 * C), dtype=dt, device=y.device)
+    out = torch.empty_like(y)
+    _run(load().fairm_freq_inter, _ptr(y), _ptr(res), _ptr(wqkv), _ptr(bqkv),
+         _ptr(wp), _ptr(bp), _ptr(bias), _ptr(pairs), _ptr(mask), _ptr(dps),
+         _ptr(zo), _ptr(qkv), _ptr(out), LB, H, W, C, heads, win, L,
+         _DTYPES[dt], int(fused), _stream(y))
     LAUNCHES["freq_inter"] += 1
     return out
 
@@ -640,14 +677,24 @@ def _check_ffn_operands(op: FfnOperands, x: torch.Tensor) -> int:
 
 def ffn_kernel(x_img, lns, lnb, op: FfnOperands, eps: float, dps):
     """Launch K2 (:func:`block_ffn`) on a CUDA tensor with prepared operands."""
-    from .build import load
-
     B, H, W, C = x_img.shape
     _check(x_img, lns, dps)
-    Hd = _check_ffn_operands(op, x_img)
+    _check_ffn_operands(op, x_img)
     lns, lnb = _f32(lns, (C,)), _f32(lnb, (C,))
     dps = _f32(dps, (B,))
-    dt = x_img.dtype
+    return _launch("lewin_ffn", launch_ffn, x_img, lns, lnb, *op, dps,
+                   float(eps))
+
+
+def launch_ffn(x: Tensor, lns: Tensor, lnb: Tensor, w1: Tensor, b1: Tensor,
+               wd: Tensor, bd: Tensor, w2: Tensor, b2: Tensor,
+               dps: Optional[Tensor], eps: float) -> Tensor:
+    """K2's launch on checked operands (:func:`ffn_kernel`)."""
+    from .build import load
+
+    B, H, W, C = x.shape
+    Hd = b1.shape[0]
+    dt = x.dtype
     M = B * H * W
     lib = load()
     xn = hid1 = hid2 = None
@@ -655,14 +702,14 @@ def ffn_kernel(x_img, lns, lnb, op: FfnOperands, eps: float, dps):
         # the four passes' LN2 rows and hidden tensors: fc1's output in fp32,
         # the conv's in the model dtype (the fused kernel keeps its hidden
         # rows on the SM)
-        xn = torch.empty((M, kpad(C)), dtype=dt, device=x_img.device)
-        hid1 = torch.empty((M, Hd), dtype=torch.float32, device=x_img.device)
-        hid2 = torch.empty((M, kpad(Hd)), dtype=dt, device=x_img.device)
-    out = torch.empty_like(x_img)
-    _run(lib.fairm_lewin_ffn, _ptr(x_img), _ptr(lns), _ptr(lnb),
-         _ptr(op.w1), _ptr(op.b1), _ptr(op.wd), _ptr(op.bd), _ptr(op.w2),
-         _ptr(op.b2), _ptr(dps), _ptr(xn), _ptr(hid1), _ptr(hid2), _ptr(out),
-         B, H, W, C, Hd, _DTYPES[dt], float(eps), _stream(x_img))
+        xn = torch.empty((M, kpad(C)), dtype=dt, device=x.device)
+        hid1 = torch.empty((M, Hd), dtype=torch.float32, device=x.device)
+        hid2 = torch.empty((M, kpad(Hd)), dtype=dt, device=x.device)
+    out = torch.empty_like(x)
+    _run(lib.fairm_lewin_ffn, _ptr(x), _ptr(lns), _ptr(lnb), _ptr(w1),
+         _ptr(b1), _ptr(wd), _ptr(bd), _ptr(w2), _ptr(b2), _ptr(dps),
+         _ptr(xn), _ptr(hid1), _ptr(hid2), _ptr(out), B, H, W, C, Hd,
+         _DTYPES[dt], eps, _stream(x))
     LAUNCHES["lewin_ffn"] += 1
     return out
 
@@ -714,8 +761,6 @@ def attention_split_kernel(x_img, lns, lnb, op: AttnOperands, mask, lam,
     ``shift`` the image is in its true layout and the kernel reads and
     writes it through the SW-MSA roll by ``-shift``: the result is
     ``roll(block_attention_split(roll(x, -shift)), shift)``."""
-    from .build import load
-
     B, H, W, C = x_img.shape
     h = op.heads
     n = win * win
@@ -725,16 +770,31 @@ def attention_split_kernel(x_img, lns, lnb, op: AttnOperands, mask, lam,
         raise ValueError(f"unsupported shape {tuple(x_img.shape)}, h={h}, "
                          f"win={win}, shift={shift}")
     _check_attn_operands(op, x_img, (h, n, n))
-    M = B * H * W
     dt = x_img.dtype
-    kb = split_parts(M, C, C, dt) if kb is None else kb
+    kb = split_parts(B * H * W, C, C, dt) if kb is None else kb
     split_cols(C, kb, dt)
     mask = _f32(mask, (nW, n, n))
     lam = _f32(lam, (B, h))
     dps = _f32(dps, (B,))
     lns, lnb = _f32(lns, (C,)), _f32(lnb, (C,))
     fused = attn_split_path(C, h, win) == "fused"
-    dev = x_img.device
+    return _launch("lewin_attn_split", launch_attn_split, x_img, lns, lnb,
+                   op.wqkv, op.bqkv, op.wp, op.bp, op.bias, mask, lam, dps,
+                   h, win, shift, kb, fused, float(eps))
+
+
+def launch_attn_split(x: Tensor, lns: Tensor, lnb: Tensor, wqkv: Tensor,
+                      bqkv: Tensor, wp: Tensor, bp: Tensor, bias: Tensor,
+                      mask: Optional[Tensor], lam: Optional[Tensor],
+                      dps: Optional[Tensor], heads: int, win: int, shift: int,
+                      kb: int, fused: bool, eps: float) -> Tensor:
+    """K12's launch on checked operands (:func:`attention_split_kernel`)."""
+    from .build import load
+
+    B, H, W, C = x.shape
+    M = B * H * W
+    dt = x.dtype
+    dev = x.device
     # the LN'd windows; the passes' qkv rows, the fused form's attention
     # rows; the projection's fp32 parts
     xo = torch.empty((M, kpad(C)), dtype=dt, device=dev)
@@ -742,12 +802,12 @@ def attention_split_kernel(x_img, lns, lnb, op: AttnOperands, mask, lam,
     ao = torch.empty((M, kpad(C)), dtype=dt, device=dev) if fused else None
     parts = (torch.empty((kb, M, C), dtype=torch.float32, device=dev)
              if kb > 1 else None)
-    out = torch.empty_like(x_img)
-    _run(load().fairm_lewin_attn_split, _ptr(x_img), _ptr(lns), _ptr(lnb),
-         _ptr(op.wqkv), _ptr(op.bqkv), _ptr(op.wp), _ptr(op.bp),
-         _ptr(op.bias), _ptr(mask), _ptr(lam), _ptr(dps), _ptr(xo), _ptr(qkv),
-         _ptr(ao), _ptr(parts), _ptr(out), B, H, W, C, h, win, shift, kb,
-         _DTYPES[dt], int(fused), float(eps), _stream(x_img))
+    out = torch.empty_like(x)
+    _run(load().fairm_lewin_attn_split, _ptr(x), _ptr(lns), _ptr(lnb),
+         _ptr(wqkv), _ptr(bqkv), _ptr(wp), _ptr(bp), _ptr(bias), _ptr(mask),
+         _ptr(lam), _ptr(dps), _ptr(xo), _ptr(qkv), _ptr(ao), _ptr(parts),
+         _ptr(out), B, H, W, C, heads, win, shift, kb, _DTYPES[dt],
+         int(fused), eps, _stream(x))
     LAUNCHES["lewin_attn_split"] += 1
     return out
 
@@ -757,30 +817,41 @@ def ffn_split_kernel(x_img, lns, lnb, op: FfnOperands, eps: float, dps,
     """Launch K13 (:func:`block_ffn_split`) on a CUDA tensor with K2's
     operands; ``kb`` hidden blocks, by default :func:`split_parts` of
     fc2."""
-    from .build import load
-
     B, H, W, C = x_img.shape
     _check(x_img, lns, dps)
     Hd = _check_ffn_operands(op, x_img)
-    M = B * H * W
     dt = x_img.dtype
-    kb = split_parts(M, C, Hd, dt) if kb is None else kb
+    kb = split_parts(B * H * W, C, Hd, dt) if kb is None else kb
     split_cols(Hd, kb, dt)
     lns, lnb = _f32(lns, (C,)), _f32(lnb, (C,))
     dps = _f32(dps, (B,))
-    dev = x_img.device
+    return _launch("lewin_ffn_split", launch_ffn_split, x_img, lns, lnb, *op,
+                   dps, kb, float(eps))
+
+
+def launch_ffn_split(x: Tensor, lns: Tensor, lnb: Tensor, w1: Tensor,
+                     b1: Tensor, wd: Tensor, bd: Tensor, w2: Tensor,
+                     b2: Tensor, dps: Optional[Tensor], kb: int,
+                     eps: float) -> Tensor:
+    """K13's launch on checked operands (:func:`ffn_split_kernel`)."""
+    from .build import load
+
+    B, H, W, C = x.shape
+    Hd = b1.shape[0]
+    M = B * H * W
+    dt = x.dtype
+    dev = x.device
     xn = torch.empty((M, kpad(C)), dtype=dt, device=dev)
     # fc1's output in fp32, the conv's in the model dtype; fc2's parts
     hid1 = torch.empty((M, Hd), dtype=torch.float32, device=dev)
     hid2 = torch.empty((M, kpad(Hd)), dtype=dt, device=dev)
     parts = (torch.empty((kb, M, C), dtype=torch.float32, device=dev)
              if kb > 1 else None)
-    out = torch.empty_like(x_img)
-    _run(load().fairm_lewin_ffn_split, _ptr(x_img), _ptr(lns), _ptr(lnb),
-         _ptr(op.w1), _ptr(op.b1), _ptr(op.wd), _ptr(op.bd), _ptr(op.w2),
-         _ptr(op.b2), _ptr(dps), _ptr(xn), _ptr(hid1), _ptr(hid2),
-         _ptr(parts), _ptr(out), B, H, W, C, Hd, kb, _DTYPES[dt], float(eps),
-         _stream(x_img))
+    out = torch.empty_like(x)
+    _run(load().fairm_lewin_ffn_split, _ptr(x), _ptr(lns), _ptr(lnb),
+         _ptr(w1), _ptr(b1), _ptr(wd), _ptr(bd), _ptr(w2), _ptr(b2),
+         _ptr(dps), _ptr(xn), _ptr(hid1), _ptr(hid2), _ptr(parts), _ptr(out),
+         B, H, W, C, Hd, kb, _DTYPES[dt], eps, _stream(x))
     LAUNCHES["lewin_ffn_split"] += 1
     return out
 
@@ -875,8 +946,6 @@ def merged_kernel(x_img, ln1s, ln1b, attn: AttnOperands, mask, lam, ln2s,
     ``stamps``, an int64 tensor of :data:`MERGED_STAMPS`, receives the
     device clock at the start and after each of :func:`merged_phases`.
     ``scratch_out``, a list, receives ``(u, None)``: a copy of u."""
-    from .build import load
-
     B, H, W, C = x_img.shape
     h = attn.heads
     n = win * win
@@ -886,26 +955,20 @@ def merged_kernel(x_img, ln1s, ln1b, attn: AttnOperands, mask, lam, ln2s,
         raise ValueError(f"unsupported shape {tuple(x_img.shape)}, h={h}, "
                          f"win={win}, shift={shift}")
     _check_attn_operands(attn, x_img, (h, n, n))
-    Hd = _check_ffn_operands(ffn, x_img)
+    _check_ffn_operands(ffn, x_img)
     _stamps(stamps, x_img)
     mask = _f32(mask, (nW, n, n))
     lam = _f32(lam, (B, h))
     dps1, dps2 = _f32(dps1, (B,)), _f32(dps2, (B,))
     ln1s, ln1b = _f32(ln1s, (C,)), _f32(ln1b, (C,))
     ln2s, ln2b = _f32(ln2s, (C,)), _f32(ln2b, (C,))
-    dt = x_img.dtype
-    fused = attention_path(C, h, win, dt) == "fused"
-    # bound to names until the launch returns, the scratch included
-    scratch = _merged_scratch(x_img, Hd, False, fused)
-    out = torch.empty_like(x_img)
-    _run(load().fairm_lewin_merged, _ptr(x_img), _ptr(ln1s), _ptr(ln1b),
-         _ptr(attn.wqkv), _ptr(attn.bqkv), _ptr(attn.wp), _ptr(attn.bp),
-         _ptr(attn.bias), _ptr(mask), _ptr(lam), _ptr(dps1), _ptr(ln2s),
-         _ptr(ln2b), _ptr(ffn.w1), _ptr(ffn.b1), _ptr(ffn.wd), _ptr(ffn.bd),
-         _ptr(ffn.w2), _ptr(ffn.b2), _ptr(dps2), _ptr(scratch), _ptr(out),
-         _ptr(stamps), scratch.numel(), B, H, W, C, h, win, shift, Hd,
-         _DTYPES[dt], int(fused), float(eps), _stream(x_img))
-    LAUNCHES["lewin_merged"] += 1
+    fused = attention_path(C, h, win, x_img.dtype) == "fused"
+    args = (x_img, ln1s, ln1b, attn.wqkv, attn.bqkv, attn.wp, attn.bp,
+            attn.bias, mask, lam, dps1, ln2s, ln2b, *ffn, dps2, h, win, shift,
+            fused, float(eps))
+    if stamps is None and scratch_out is None:
+        return _launch("lewin_merged", launch_merged, *args)
+    out, scratch = _launch_merged(*args, stamps)
     if scratch_out is not None:
         # u, the attention half's output (the first rows with the fused
         # half); no y1
@@ -913,6 +976,40 @@ def merged_kernel(x_img, ln1s, ln1b, attn: AttnOperands, mask, lam, ln2s,
         scratch_out.append((_scratch_rows(
             scratch, x_img, 0 if fused else M * (kpad(C) + 3 * C)), None))
     return out
+
+
+def _launch_merged(x, ln1s, ln1b, wqkv, bqkv, wp, bp, bias, mask, lam, dps1,
+                   ln2s, ln2b, w1, b1, wd, bd, w2, b2, dps2, heads: int,
+                   win: int, shift: int, fused: bool, eps: float, stamps):
+    """K4's launch: ``(out, its scratch buffer)``."""
+    from .build import load
+
+    B, H, W, C = x.shape
+    Hd = b1.shape[0]
+    # bound to names until the launch returns, the scratch included
+    scratch = _merged_scratch(x, Hd, False, fused)
+    out = torch.empty_like(x)
+    _run(load().fairm_lewin_merged, _ptr(x), _ptr(ln1s), _ptr(ln1b),
+         _ptr(wqkv), _ptr(bqkv), _ptr(wp), _ptr(bp), _ptr(bias), _ptr(mask),
+         _ptr(lam), _ptr(dps1), _ptr(ln2s), _ptr(ln2b), _ptr(w1), _ptr(b1),
+         _ptr(wd), _ptr(bd), _ptr(w2), _ptr(b2), _ptr(dps2), _ptr(scratch),
+         _ptr(out), _ptr(stamps), scratch.numel(), B, H, W, C, heads, win,
+         shift, Hd, _DTYPES[x.dtype], int(fused), eps, _stream(x))
+    LAUNCHES["lewin_merged"] += 1
+    return out, scratch
+
+
+def launch_merged(x: Tensor, ln1s: Tensor, ln1b: Tensor, wqkv: Tensor,
+                  bqkv: Tensor, wp: Tensor, bp: Tensor, bias: Tensor,
+                  mask: Optional[Tensor], lam: Optional[Tensor],
+                  dps1: Optional[Tensor], ln2s: Tensor, ln2b: Tensor,
+                  w1: Tensor, b1: Tensor, wd: Tensor, bd: Tensor, w2: Tensor,
+                  b2: Tensor, dps2: Optional[Tensor], heads: int, win: int,
+                  shift: int, fused: bool, eps: float) -> Tensor:
+    """K4's launch on checked operands (:func:`merged_kernel`)."""
+    return _launch_merged(x, ln1s, ln1b, wqkv, bqkv, wp, bp, bias, mask, lam,
+                          dps1, ln2s, ln2b, w1, b1, wd, bd, w2, b2, dps2,
+                          heads, win, shift, fused, eps, None)[0]
 
 
 def freq_merged_kernel(x_img, ln1s, ln1b, intra: AttnOperands,
@@ -930,8 +1027,6 @@ def freq_merged_kernel(x_img, ln1s, ln1b, intra: AttnOperands,
     ``scratch_out``, a list, receives ``(u, y1)``: u in the true layout and
     the intra output y1 in the rolled one, which the band-group form then
     also writes to device memory (the backward reads them)."""
-    from .build import load
-
     LB, H, W, C = x_img.shape
     h = intra.heads
     n = win * win
@@ -942,7 +1037,7 @@ def freq_merged_kernel(x_img, ln1s, ln1b, intra: AttnOperands,
                          f"L={L}, win={win}, shift={shift}")
     _check_attn_operands(intra, x_img, (L, h, n, n) if L > 1 else (h, n, n))
     _check_attn_operands(inter, x_img, (h, L * n, L * n))
-    Hd = _check_ffn_operands(ffn, x_img)
+    _check_ffn_operands(ffn, x_img)
     path = path or freq_merged_path(C, h, win, x_img.dtype, L)
     if path not in ("group", "phases"):
         raise ValueError(f"path must be 'group' or 'phases', got {path!r}")
@@ -959,23 +1054,14 @@ def freq_merged_kernel(x_img, ln1s, ln1b, intra: AttnOperands,
     dps1, dps2 = _f32(dps1, (LB,)), _f32(dps2, (LB,))
     ln1s, ln1b = _f32(ln1s, (C,)), _f32(ln1b, (C,))
     ln2s, ln2b = _f32(ln2s, (C,)), _f32(ln2b, (C,))
-    dt = x_img.dtype
-    # bound to names until the launch returns: the scratch (the band-group
-    # form's is u), y1 where the caller asks for it
-    scratch = _merged_scratch(x_img, Hd, True, False, group)
-    y1 = (torch.empty_like(x_img) if group and scratch_out is not None
-          else None)
-    out = torch.empty_like(x_img)
-    _run(load().fairm_freq_merged, _ptr(x_img), _ptr(ln1s), _ptr(ln1b),
-         _ptr(intra.wqkv), _ptr(intra.bqkv), _ptr(intra.wp), _ptr(intra.bp),
-         _ptr(intra.bias), _ptr(inter.wqkv), _ptr(inter.bqkv), _ptr(inter.wp),
-         _ptr(inter.bp), _ptr(inter.bias), _ptr(inter.pairs if group else None),
-         _ptr(mask), _ptr(dps1), _ptr(ln2s), _ptr(ln2b), _ptr(ffn.w1),
-         _ptr(ffn.b1), _ptr(ffn.wd), _ptr(ffn.bd), _ptr(ffn.w2), _ptr(ffn.b2),
-         _ptr(dps2), _ptr(scratch), _ptr(y1), _ptr(out), _ptr(stamps),
-         scratch.numel(), LB, H, W, C, h, win, shift, L, Hd, _DTYPES[dt],
-         int(group), float(eps), _stream(x_img))
-    LAUNCHES["freq_merged"] += 1
+    args = (x_img, ln1s, ln1b, intra.wqkv, intra.bqkv, intra.wp, intra.bp,
+            intra.bias, inter.wqkv, inter.bqkv, inter.wp, inter.bp,
+            inter.bias, inter.pairs if group else None, mask, dps1, ln2s,
+            ln2b, *ffn, dps2, h, win, shift, L, group, float(eps))
+    if stamps is None and scratch_out is None:
+        return _launch("freq_merged", launch_freq_merged, *args)
+    out, scratch, y1 = _launch_freq_merged(*args, stamps,
+                                           scratch_out is not None)
     if scratch_out is not None:
         if group:
             scratch_out.append((scratch.reshape(x_img.shape), y1))
@@ -984,6 +1070,51 @@ def freq_merged_kernel(x_img, ln1s, ln1b, intra: AttnOperands,
             scratch_out.append((_scratch_rows(scratch, x_img, at + x_img.numel()),
                                 _scratch_rows(scratch, x_img, at)))
     return out
+
+
+def _launch_freq_merged(x, ln1s, ln1b, wqkvA, bqkvA, wpA, bpA, biasA, wqkvB,
+                        bqkvB, wpB, bpB, biasB, pairsB, mask, dps1, ln2s, ln2b,
+                        w1, b1, wd, bd, w2, b2, dps2, heads: int, win: int,
+                        shift: int, L: int, group: bool, eps: float, stamps,
+                        want_y1: bool):
+    """K5's launch: ``(out, its scratch buffer, y1 or None)``; the
+    band-group form writes y1 where ``want_y1``."""
+    from .build import load
+
+    LB, H, W, C = x.shape
+    Hd = b1.shape[0]
+    # bound to names until the launch returns: the scratch (the band-group
+    # form's is u), y1 where the caller asks for it
+    scratch = _merged_scratch(x, Hd, True, False, group)
+    y1 = torch.empty_like(x) if group and want_y1 else None
+    out = torch.empty_like(x)
+    _run(load().fairm_freq_merged, _ptr(x), _ptr(ln1s), _ptr(ln1b),
+         _ptr(wqkvA), _ptr(bqkvA), _ptr(wpA), _ptr(bpA), _ptr(biasA),
+         _ptr(wqkvB), _ptr(bqkvB), _ptr(wpB), _ptr(bpB), _ptr(biasB),
+         _ptr(pairsB), _ptr(mask), _ptr(dps1), _ptr(ln2s), _ptr(ln2b),
+         _ptr(w1), _ptr(b1), _ptr(wd), _ptr(bd), _ptr(w2), _ptr(b2),
+         _ptr(dps2), _ptr(scratch), _ptr(y1), _ptr(out), _ptr(stamps),
+         scratch.numel(), LB, H, W, C, heads, win, shift, L, Hd,
+         _DTYPES[x.dtype], int(group), eps, _stream(x))
+    LAUNCHES["freq_merged"] += 1
+    return out, scratch, y1
+
+
+def launch_freq_merged(x: Tensor, ln1s: Tensor, ln1b: Tensor, wqkvA: Tensor,
+                       bqkvA: Tensor, wpA: Tensor, bpA: Tensor, biasA: Tensor,
+                       wqkvB: Tensor, bqkvB: Tensor, wpB: Tensor, bpB: Tensor,
+                       biasB: Tensor, pairsB: Optional[Tensor],
+                       mask: Optional[Tensor], dps1: Optional[Tensor],
+                       ln2s: Tensor, ln2b: Tensor, w1: Tensor, b1: Tensor,
+                       wd: Tensor, bd: Tensor, w2: Tensor, b2: Tensor,
+                       dps2: Optional[Tensor], heads: int, win: int,
+                       shift: int, L: int, group: bool, eps: float) -> Tensor:
+    """K5's launch on checked operands (:func:`freq_merged_kernel`)."""
+    return _launch_freq_merged(x, ln1s, ln1b, wqkvA, bqkvA, wpA, bpA, biasA,
+                               wqkvB, bqkvB, wpB, bpB, biasB, pairsB, mask,
+                               dps1, ln2s, ln2b, w1, b1, wd, bd, w2, b2, dps2,
+                               heads, win, shift, L, group, eps, None,
+                               False)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -48,7 +48,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from .lewin_block import _DTYPES, _check, _f32, _ptr, _run, _stream
+from torch import Tensor
+
+from .lewin_block import (_DTYPES, _check, _f32, _launch, _ptr, _run,
+                          _stream)
 
 LAUNCHES = {"window_attn": 0, "window_attn_bwd": 0}
 
@@ -178,6 +181,17 @@ def _operands(q, k, v, bias, mask, nW: int, *extra):
             _f32(mask, (nW, n, nk)))
 
 
+def _aligned(t: torch.Tensor, nbytes: int) -> bool:
+    """Whether ``t``'s first element sits on an ``nbytes`` boundary: by its
+    address, or, while ``torch.export`` traces the caller (a traced tensor
+    has no address), by its offset in its storage, whose base the caching
+    allocator aligns to 512 bytes (:func:`launch_window_attn_mma` checks the
+    address again)."""
+    if torch.compiler.is_exporting():
+        return t.storage_offset() * t.element_size() % nbytes == 0
+    return t.data_ptr() % nbytes == 0
+
+
 def window_path(q, k, v, bias, mask) -> str:
     """How K9 runs: ``'mma'``, on the tensor cores with q / k / v read in
     place (bf16; (n, nk, d) = (64, 64, 33..64), (64, 192, 33..64) or (192,
@@ -205,8 +219,8 @@ def window_path(q, k, v, bias, mask) -> str:
         ok = False
     elems = 8 if d > 32 else 4  # 16- or 8-byte copies
     return "mma" if ok and d % elems == 0 and all(
-        t.data_ptr() % (2 * elems) == 0 and all(x % elems == 0 for x in
-                                                descriptor(t)[:4])
+        _aligned(t, 2 * elems) and all(x % elems == 0 for x in
+                                       descriptor(t)[:4])
         for t in (q, k, v)) else "cores"
 
 
@@ -217,8 +231,6 @@ def window_attention_kernel(q, k, v, bias, mask, scale: float, nW: int):
     given, and the output is written token-major ``[L, W, n / L, h, d]``
     and returned as a view; on the CUDA cores the operands are joined and
     the tables tiled first."""
-    from .build import load
-
     banded = q.dim() == 5
     q5, k5, v5 = (t if t.dim() == 5 else t.unsqueeze(2) for t in (q, k, v))
     W, h, L, nb, d = q5.shape
@@ -247,27 +259,60 @@ def window_attention_kernel(q, k, v, bias, mask, scale: float, nW: int):
                 or nk % mask.shape[2]):
             raise ValueError(f"mask {tuple(mask.shape)}: expected [{nW}, mr, "
                              f"mc] tiling [{n}, {nk}]")
-    lib = load()
     if window_path(q, k, v, bias, mask) == "cores":
-        q4, k4, v4 = grouped(q), grouped(k), grouped(v)
-        bias, mask = _tile(bias, n, nk).contiguous(), (
-            None if mask is None else _tile(mask, n, nk).contiguous())
-        out = torch.empty_like(q4)
-        _run(lib.fairm_window_attn, _ptr(q4), _ptr(k4), _ptr(v4), _ptr(bias),
-             _ptr(mask), _ptr(out), W, h, n, nk, d, nW, float(scale),
-             _DTYPES[q.dtype], _stream(q))
-        LAUNCHES["window_attn"] += 1
+        tiled = None if mask is None else _tile(mask, n, nk).contiguous()
+        out = _launch("window_attn", launch_window_attn, grouped(q),
+                      grouped(k), grouped(v), _tile(bias, n, nk).contiguous(),
+                      tiled, float(scale), nW)
         return out.reshape(q.shape)
+    out = _launch("window_attn_mma", launch_window_attn_mma, q, k, v, bias,
+                  mask, float(scale), nW)
+    o5 = out.permute(1, 3, 0, 2, 4)
+    return o5 if banded else o5.squeeze(2)
+
+
+def launch_window_attn(q: Tensor, k: Tensor, v: Tensor, bias: Tensor,
+                       mask: Optional[Tensor], scale: float,
+                       nW: int) -> Tensor:
+    """K9 on the CUDA cores: contiguous ``[W, h, n, d]`` operands and tables
+    tiled to ``[n, nk]`` (:func:`window_attention_kernel`); ``[W, h, n,
+    d]`` out."""
+    from .build import load
+
+    W, h, n, d = q.shape
+    out = torch.empty_like(q)
+    _run(load().fairm_window_attn, _ptr(q), _ptr(k), _ptr(v), _ptr(bias),
+         _ptr(mask), _ptr(out), W, h, n, k.shape[2], d, nW, scale,
+         _DTYPES[q.dtype], _stream(q))
+    LAUNCHES["window_attn"] += 1
+    return out
+
+
+def launch_window_attn_mma(q: Tensor, k: Tensor, v: Tensor, bias: Tensor,
+                           mask: Optional[Tensor], scale: float,
+                           nW: int) -> Tensor:
+    """K9 on the tensor cores, q / k / v read in place through their
+    strides (:func:`window_attention_kernel`); the output token-major,
+    ``[L, W, n / L, h, d]``."""
+    from .build import load
+
+    q5, k5, v5 = (t if t.dim() == 5 else t.unsqueeze(2) for t in (q, k, v))
+    W, h, L, nb, d = q5.shape
+    elems = 8 if d > 32 else 4
+    if any(t.data_ptr() % (2 * elems) for t in (q, k, v)):
+        raise ValueError("K9's tensor-core form needs q / k / v on "
+                         f"{2 * elems}-byte boundaries")
     mr, mc = (1, 1) if mask is None else mask.shape[1:]
     out = torch.empty((L, W, nb, h, d), dtype=q.dtype, device=q.device)
     o5 = out.permute(1, 3, 0, 2, 4)
     desc = (ctypes.c_longlong * 20)(*(x for t in (q5, k5, v5, o5)
                                       for x in descriptor(t)))
-    _run(lib.fairm_window_attn_mma, _ptr(q), _ptr(k), _ptr(v), _ptr(out),
-         _ptr(bias), _ptr(mask), ctypes.addressof(desc), W, h, n, nk, d, nW,
-         bias.shape[2], mr, mc, float(scale), _stream(q))
+    _run(load().fairm_window_attn_mma, _ptr(q), _ptr(k), _ptr(v), _ptr(out),
+         _ptr(bias), _ptr(mask), ctypes.addressof(desc), W, h, L * nb,
+         k5.shape[2] * k5.shape[3], d, nW, bias.shape[2], mr, mc, scale,
+         _stream(q))
     LAUNCHES["window_attn"] += 1
-    return o5 if banded else o5.squeeze(2)
+    return out
 
 
 def window_attention_bwd_kernel(q, k, v, bias, mask, g, scale: float,

@@ -1,6 +1,6 @@
-"""Image quality metrics on the bundle's device (PSNR / SSIM) and
-``AverageMeter`` (the port of the eval part of the JAX ``ops/metrics.py``;
-``ssim_gaussian``, a loss no ported training path uses, is not ported yet).
+"""Image quality metrics on the bundle's device (PSNR / SSIM), the
+Gaussian-window SSIM loss ``ssim_gaussian`` and ``AverageMeter`` (the port
+of the JAX ``ops/metrics.py``).
 
 The reference ships every restored image to the CPU and calls skimage
 (utils/val_utils.py:50-66). Here both metrics are tensor code that runs
@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -101,6 +102,40 @@ def compute_psnr_ssim(pred: torch.Tensor, target: torch.Tensor) -> tuple:
     """Batch-mean PSNR, SSIM, N: the reference's return contract
     (val_utils.py:50-66) with ``[B, H, W, C]`` tensors."""
     return psnr(pred, target).mean(), ssim(pred, target).mean(), pred.shape[0]
+
+
+def _gaussian_kernel(win: int, sigma: float) -> np.ndarray:
+    g = np.exp(-((np.arange(win) - win // 2) ** 2) / (2.0 * sigma * sigma))
+    g = g / g.sum()
+    return np.outer(g, g).astype(np.float32)
+
+
+def ssim_gaussian(pred: torch.Tensor, target: torch.Tensor,
+                  win_size: int = 11, sigma: float = 1.5) -> torch.Tensor:
+    """Differentiable Gaussian-window SSIM, the scalar mean over the batch
+    and the map (JAX ``ssim_gaussian``; reference
+    utils/pytorch_ssim/__init__.py:19-43): an 11 x 11 Gaussian of sigma
+    1.5 per channel with zero padding to the input's size, C1 = 0.01^2,
+    C2 = 0.03^2, no crop. ``[B, H, W, C]``, in float32 with TF32 off."""
+    x = pred.float().permute(0, 3, 1, 2)
+    y = target.float().permute(0, 3, 1, 2)
+    c = x.shape[1]
+    kern = torch.from_numpy(_gaussian_kernel(win_size, sigma)).to(x.device)
+    kern = kern.expand(c, 1, win_size, win_size)
+
+    def filt(z):
+        return F.conv2d(z, kern, padding=win_size // 2, groups=c)
+
+    with full_float32():
+        mu1, mu2 = filt(x), filt(y)
+        mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+        s1 = filt(x * x) - mu1_sq
+        s2 = filt(y * y) - mu2_sq
+        s12 = filt(x * y) - mu1_mu2
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    smap = (((2 * mu1_mu2 + c1) * (2 * s12 + c2))
+            / ((mu1_sq + mu2_sq + c1) * (s1 + s2 + c2)))
+    return smap.mean()
 
 
 class AverageMeter:

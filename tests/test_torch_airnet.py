@@ -22,7 +22,7 @@ from frequency_wised_all_in_one_image_restoration_model_tpu.evaluation import (
 from frequency_wised_all_in_one_image_restoration_model_tpu.models import (
     airnet as jairnet)
 from frequency_wised_all_in_one_image_restoration_model_tpu_torch import (
-    config as tconfig)
+    config as tconfig, serving as tserving)
 from frequency_wised_all_in_one_image_restoration_model_tpu_torch.evaluation import (
     tiling as ttiling)
 from frequency_wised_all_in_one_image_restoration_model_tpu_torch.models import (
@@ -129,6 +129,28 @@ def test_split_route_matches_jax(slice_run):
     assert blocks and {m.route(torch.float32, 8) for m in blocks} == {"split"}
     got = tairnet.eval_forward(tb, torch.from_numpy(slice_run["tiles"]))
     np.testing.assert_allclose(got.numpy(), slice_run["y"],
+                               rtol=TOL_MODEL, atol=TOL_MODEL)
+
+
+def test_served_forward_matches_jax(slice_run):
+    """The serving export of the slice (``serving.export_eval``, the plain
+    route on the CPU, weights from ``from_jax``) against JAX's forward on
+    the tile batch, and a short batch padded and cropped."""
+    tcfg = tconfig.from_fields(slice_run["cfg"])
+    states = (from_jax(slice_run["enc_vars"]), from_jax(slice_run["dec_vars"]))
+    tiles = slice_run["tiles"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        model = tserving.loads(tserving.export_eval(
+            tcfg, states, batch=len(tiles), device="cpu"))
+        got, short = model(tiles), model(tiles[:3])
+    finally:
+        torch.set_num_threads(threads)
+    assert model.meta["encoder_type"] == model.meta["decoder_type"] == "Uformer"
+    np.testing.assert_allclose(got.numpy(), slice_run["y"], rtol=TOL_MODEL,
+                               atol=TOL_MODEL)
+    np.testing.assert_allclose(short.numpy(), slice_run["y"][:3],
                                rtol=TOL_MODEL, atol=TOL_MODEL)
 
 

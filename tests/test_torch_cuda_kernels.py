@@ -378,9 +378,9 @@ def test_freq_merged_forms(card, stage, path, shift, images):
     chain's own device code stage by stage, so it equals the chain K1 -> K3
     -> K2 bit for bit (:func:`_check_chain`), and it takes no device memory
     beyond u and the output: no y1, q / k / v, attention or hidden row. The
-    twelve phases are not bit-equal to the chain at these widths (most
-    likely their LayerNorm pass, prep_rows, sums a row in another order
-    than the fused kernels), so they are held to it within TOL."""
+    twelve phases equal the chain bit for bit too: their LN2 sums each row
+    in the order of K2's fused tile, which the chain runs at these widths
+    (``merged.cuh::ln2_phase``)."""
     c, heads = stage
     dt = torch.bfloat16
     assert lb.freq_merged_path(c, heads, WIN, dt) == "group"
@@ -402,12 +402,56 @@ def test_freq_merged_forms(card, stage, path, shift, images):
     chain = lb.freq_merged_chain(
         lb.freq_intra, functools.partial(lb.freq_inter, pairs=pairs),
         lb.block_ffn, *args)
+    _check_chain(got, chain, dt)
     if path == "group":
-        _check_chain(got, chain, dt)
         assert torch.equal(lb.block_freq_merged(*args, pairs=pairs), got)
-    else:
-        _check(got, chain, dt)
     assert torch.equal(run(*args), got)
+
+
+def _first_difference(got, want) -> str:
+    """Where two tensors first differ (row-major), or 'equal'."""
+    diff = (got != want).reshape(-1).nonzero()
+    if not len(diff):
+        return "equal"
+    i = diff[0].item()
+    idx = np.unravel_index(i, tuple(got.shape))
+    return (f"{int((got != want).sum())} elements differ, the first at "
+            f"{tuple(int(j) for j in idx)}: {got.reshape(-1)[i].item()} "
+            f"against {want.reshape(-1)[i].item()}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 4])
+@pytest.mark.parametrize("stage", GROUP_STAGES + [(224, 8)],
+                         ids=[f"C{c}" for c, _ in GROUP_STAGES] + ["C224"])
+def test_freq_merged_phases_by_stage(card, stage, shift):
+    """K5's twelve phases against the chain K1 -> K3 -> K2, stage by stage:
+    the intra output y1 and u, which the phases leave in their scratch
+    buffer, against the chain's, and the output against the chain's K2 on
+    the phases' own u. Each pair is equal bit for bit; a failure names the
+    first stage and element that differ."""
+    c, heads = stage
+    dt = torch.bfloat16
+    args, pairs = _freq_block(card, c, heads, 3, shift)
+    x, ln1s, ln1b = args[:3]
+    ops = _freq_operands(args, pairs)
+    mask, ln2s, ln2b = args[21:24]
+    dps1, dps2 = args[-2:]
+    kept = []
+    got = lb.freq_merged_kernel(x, ln1s, ln1b, ops[0], ops[1], mask, ln2s,
+                                ln2b, ops[2], L, WIN, shift, 1e-6, dps1, dps2,
+                                scratch_out=kept, path="phases")
+    u, y1 = kept[0]
+    img = lb.roll(x, shift)
+    y1_chain = lb.attention_kernel(img, ln1s, ln1b, ops[0], mask, None, WIN,
+                                   1e-6, False, L, None)
+    u_chain = lb.roll(lb.freq_inter_kernel(y1_chain, img, ops[1], mask, L,
+                                           WIN, dps1), -shift)
+    out_on_u = lb.ffn_kernel(u, ln2s, ln2b, ops[2], 1e-6, dps2)
+    found = {"y1": _first_difference(y1, y1_chain),
+             "u": _first_difference(u, u_chain),
+             "out": _first_difference(got, out_on_u)}
+    assert all(v == "equal" for v in found.values()), found
 
 
 @pytest.mark.cuda
