@@ -140,9 +140,30 @@ Phases, each fatal on failure:
     ``fairm::`` nodes and the launches of one served call equal to the
     eager forward's, the served output against the eager one (1e-4 fp32,
     1e-2 bf16; a short batch padded and cropped), export s, artifact MiB,
-    load s, served and eager ms, and a trace of the first served call.
+    load s, served and eager ms, and a trace of the first served call;
+17. analysis, the flagship at full width and depth in float32 at B=4 (the
+    eval CLI's dtype, the loader's batch), weights from seed 0, the default
+    route against the plain route: (a) ``collect_embeddings`` over two
+    batches and ``latent_band_histogram`` over two images (1e-3 of
+    ``max(1, max|plain|)``); (b) under a capture (``models/capture.py``),
+    ``model_attention_band_report`` of encoder and decoder and
+    ``embed_lamb_responses`` on one image: one map per attention layer,
+    each band energy finite and summing to 1, the captured output against
+    the default eval output (1e-3), no kernel launched by a captured
+    forward, each ``embed_lamb_1`` equal bit for bit to the fused route's
+    gain; (c) LFS: the gradients over two batches through the eval forward
+    (the blocks' autograd Functions, K6 / K7 / K8 backward), the Taylor
+    scores and the masks: the loss (1e-4), every gradient on the fp32 joint
+    step's measure (1e-2), the masks except within 1e-3 of the threshold;
+    (d) the LeWin leftovers: a stage of two blocks at res 128 C=56 and res 8
+    C=896 with ``token_projection='conv'``, ``token_mlp='ffn'`` and
+    ``'mlp'``, and a ``LeFF(use_eca=True)``, bf16 B=32 and fp32 B=4,
+    forward and every gradient (K9 forward, K10 backward, both launched);
+    (e) ``main(cfg)`` of the CLIs that only print (``plot_MSA_frequency``,
+    ``plot_embed_lamb_curve``, ``plot_lamb_curve``,
+    ``plot_LFS_distribution``) with the flagship's flags and synthetic data.
 
-``--phases 3 4`` runs only those of phases 3-16, for work on one of them:
+``--phases 3 4`` runs only those of phases 3-17, for work on one of them:
 such a partial run prints neither of the two result lines and exits with
 2. The whole run fails too if anything of JAX or of the JAX package was
 imported. Its line before the last is ``{"kernels": [...]}``, where
@@ -152,7 +173,8 @@ and by the merged kernels in float32 and by the default route in
 bfloat16, the training entry point in bfloat16; phase 11's forwards, the
 eval entry point with the default method, the per-scale training entry
 point; phase 13's split and default forwards, phase 14's entry points and
-forwards, phase 16's served calls); the last line is
+forwards, phase 16's served calls, phase 17's analysis paths); the last
+line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with 1 and prints no result.
 """
@@ -354,7 +376,7 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
-ALL_PHASES = frozenset(range(3, 17))
+ALL_PHASES = frozenset(range(3, 18))
 
 
 class Failed(Exception):
@@ -3707,11 +3729,325 @@ def serving_phase(config, airnet, uformer_lewin, serving, card: str, stats):
     print(f"serving phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# phase 17: the analysis path on the flagship in float32 at B=4, the eval
+# CLI's dtype and the loader's batch; the LeWin leftovers at the decoder's
+# res 128 C=56 and res 8 C=896 (res, C, heads)
+ANALYSIS_BATCH = 4
+ANALYSIS_TOL = 1e-3          # (a), (b): of max(1, max|plain|)
+MASK_BAND = 1e-3             # (c): scores this near the threshold may flip
+LEFTOVER_STAGES = ((128, 56, 1), (8, 896, 16))
+LEFTOVER_FIELDS = (dict(token_projection="conv"), dict(token_mlp="ffn"),
+                   dict(token_mlp="mlp"))
+ANALYSIS_CLIS = ("plot_MSA_frequency", "plot_embed_lamb_curve",
+                 "plot_lamb_curve", "plot_LFS_distribution")
+
+
+def analysis_embeddings(config, airnet, bundles, cfg, stats):
+    """Phase 17a: ``collect_embeddings`` over two loader batches and
+    ``latent_band_histogram`` over two of their images, by the default
+    route against the plain route."""
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.analysis import (
+        embeddings, frequency_dist)
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.scripts import (
+        common)
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.training.loop import (
+        build_train_loader)
+
+    loader = build_train_loader(cfg, seed=cfg.seed)
+    batches = [loader.next_batch() for _ in range(2)]
+    images = [batches[0]["d1"][i] for i in range(2)]
+    got = {}
+    for impl, b in bundles.items():
+        def encode(x, b=b):
+            with torch.inference_mode():
+                return b.encoder(common.images(x, "cuda"))[1]
+        COUNTERS.reset()
+        emb, ids = embeddings.collect_embeddings(encode, batches)
+        hist = frequency_dist.latent_band_histogram(
+            lambda x, b=b: common.spatial_inter(b, x), images)
+        torch.cuda.synchronize()
+        counts = COUNTERS.read()
+        got[impl] = (emb, ids, hist)
+        if impl == "default":
+            add_launches(stats, "analysis_embeddings_float32", counts)
+        elif any(counts.values()):
+            raise Failed(f"the plain route launched {counts}")
+    (emb, ids, hist), (emb_p, ids_p, hist_p) = got["default"], got["plain"]
+    if emb.shape != (2 * ANALYSIS_BATCH, cfg.encoder_dim) or list(ids) != list(ids_p):
+        raise Failed(f"embeddings {emb.shape}, ids {ids} / {ids_p}")
+    compare("17a embeddings default vs plain", torch.from_numpy(emb),
+            torch.from_numpy(emb_p), ANALYSIS_TOL)
+    compare("17a latent band histogram default vs plain",
+            torch.from_numpy(hist), torch.from_numpy(hist_p), ANALYSIS_TOL)
+
+
+def analysis_capture(airnet, uformer_lewin, bundle, batch):
+    """Phase 17b: ``model_attention_band_report`` of the whole model
+    (encoder and decoder) and ``embed_lamb_responses`` of the decoder on one
+    image: one map per attention layer, each band energy finite and summing
+    to 1, the captured output against the default route's eval output, no
+    kernel launched by a captured forward, and each ``embed_lamb_1`` equal
+    to the gain the fused route computes (``WindowAttention.lam``)."""
+    from torch import nn
+
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.analysis import (
+        embeddings, msa_frequency)
+
+    x = torch.from_numpy(batch["d1"][:1]).cuda()
+    want = airnet.eval_forward(bundle, x)
+    outs = []
+    root = nn.ModuleDict({"encoder": bundle.encoder, "decoder": bundle.decoder})
+    COUNTERS.reset()
+    report = msa_frequency.model_attention_band_report(
+        lambda t: outs.append(airnet.restore(bundle, t)), root, x)
+    torch.cuda.synchronize()
+    counts = COUNTERS.read()
+    blocks = {net: [m for m in getattr(bundle, net).modules()
+                    if isinstance(m, uformer_lewin.LeWinBlock)]
+              for net in ("encoder", "decoder")}
+    layers = (sum(2 if m.msa_type == "freq" else 1 for m in blocks["encoder"])
+              + len(blocks["decoder"]))
+    if len(report) != layers:
+        raise Failed(f"17b: {len(report)} attention maps, {layers} layers")
+    bad = [k for k, e in report.items()
+           if not np.isfinite(e).all() or abs(float(e.sum()) - 1.0) > 1e-5]
+    if bad:
+        raise Failed(f"17b: band energies not finite or not summing to 1: {bad[:3]}")
+    if any(counts.values()):
+        raise Failed(f"17b: the captured forward launched {counts}")
+    compare("17b captured forward vs default eval", outs[0], want,
+            ANALYSIS_TOL)
+    with torch.inference_mode():
+        ctx = bundle.encoder.features(x)
+    lambs = embeddings.embed_lamb_responses(bundle.decoder, x, ctx)
+    modules = dict(bundle.decoder.named_modules())
+    differ = []
+    for key, g in lambs.items():
+        attn = modules[key.rsplit("/", 2)[0].replace("/", ".")]
+        with torch.inference_mode():
+            lam = attn.lam(ctx.band_inter, torch.float32)
+        if not torch.equal(torch.from_numpy(g).reshape(lam.shape), lam.cpu()):
+            differ.append(key)
+    if len(lambs) != len(blocks["decoder"]) or differ:
+        raise Failed(f"17b: {len(lambs)} embed_lamb_1 gains for "
+                     f"{len(blocks['decoder'])} blocks; differ from lam: "
+                     f"{differ[:3]}")
+    top = max(report, key=lambda k: report[k][-1])
+    print(f"  17b: {len(report)} maps ({len(blocks['encoder'])} encoder "
+          f"blocks x 2, {len(blocks['decoder'])} decoder), energies sum to 1; "
+          f"{len(lambs)} embed_lamb_1 gains equal to lam bit for bit; the "
+          f"highest top-band share {report[top][-1]:.4f} at {top}", flush=True)
+
+
+def analysis_lfs(bundles, batches, stats):
+    """Phase 17c: the LFS gradients over two batches, the Taylor scores and
+    the masks by the default route (the blocks' autograd Functions: K6, K7,
+    K8 backward) against the plain route (autograd of the twins): the loss,
+    every parameter's gradient on the fp32 joint step's measure, the masks
+    except where a score lies within MASK_BAND of the threshold."""
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.scripts import (
+        plot_LFS_distribution)
+
+    runs = {}
+    for impl, b in bundles.items():
+        t0 = time.perf_counter()
+        COUNTERS.reset()
+        runs[impl] = plot_LFS_distribution.lfs_analysis(b, batches[0], batches)
+        torch.cuda.synchronize()
+        counts = COUNTERS.read()
+        secs = time.perf_counter() - t0
+        print(f"  17c LFS {impl}: loss {runs[impl]['loss']:.6f}, threshold "
+              f"{runs[impl]['thresh']:.4e}, {secs:.2f} s, launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        if impl == "default":
+            add_launches(stats, "analysis_lfs_float32", counts)
+            idle = [k for k in BWD_KERNELS if not counts[k]]
+            if idle:
+                raise Failed(f"17c: the LFS backward never launched {idle}")
+        elif any(counts.values()):
+            raise Failed(f"17c: the plain route launched {counts}")
+    run, ref = runs["default"], runs["plain"]
+    if abs(run["loss"] - ref["loss"]) > STEP_LOSS_TOL["float32"]:
+        raise Failed(f"17c: loss {run['loss']} against {ref['loss']}")
+    gmax = max(float(g.abs().max()) for g in ref["grads"].values())
+    worst, worst_name = 0.0, ""
+    for name, gp in ref["grads"].items():
+        g = run["grads"][name]
+        if not torch.isfinite(g).all():
+            raise Failed(f"17c: {name}: non-finite gradient")
+        rel = float((g - gp).abs().max()) / max(float(gp.abs().max()),
+                                                1e-3 * gmax)
+        if rel > worst:
+            worst, worst_name = rel, name
+    thresh = ref["thresh"]
+    flips = near = 0
+    for k, m in ref["masks"].items():
+        band = np.abs(ref["scores"][k] - thresh) <= MASK_BAND * abs(thresh)
+        differ = run["masks"][k] != m
+        flips += int((differ & ~band).sum())
+        near += int((differ & band).sum())
+    channels = sum(m.size for m in ref["masks"].values())
+    kept = sum(int(m.sum()) for m in run["masks"].values())
+    print(f"  17c: {len(ref['grads'])} gradients, worst max|g - g_plain| / "
+          f"max(max|g_plain|, 1e-3 max|g|) = {worst:.3e} at {worst_name} "
+          f"(limit {STEP_GRAD_TOL['float32']}); thresholds {run['thresh']:.4e}"
+          f" / {thresh:.4e}; kept {kept}/{channels}; masks differ at {flips} "
+          f"channels off the threshold's band, {near} inside it", flush=True)
+    if worst > STEP_GRAD_TOL["float32"] or flips:
+        raise Failed("17c: the kernel route's LFS disagrees with the plain "
+                     "route")
+
+
+def leftover_cases(uformer_lewin, uformer_blocks, layers):
+    """``(label, {impl: module}, res, C)`` of phase 17d: each module made
+    once from seed 17 on the card, its plain twin a copy whose blocks run
+    the plain route."""
+    cases = []
+    for res, dim, heads in LEFTOVER_STAGES:
+        for f in LEFTOVER_FIELDS:
+            cases.append((f"res{res} C{dim} "
+                          + "/".join(f"{k}={v}" for k, v in f.items()),
+                          uformer_lewin.BasicUformerLayer(dim, res, 2, heads,
+                                                          impl="default", **f),
+                          res, dim))
+    cases.append(("res128 C56 LeFF(use_eca)",
+                  uformer_blocks.LeFF(56, 224, use_eca=True), 128, 56))
+    out = []
+    for label, m, res, dim in cases:
+        layers.trunc_normal_init(m, torch.Generator().manual_seed(17))
+        m = m.cuda()
+        plain = copy.deepcopy(m)
+        for blk in plain.modules():
+            if isinstance(blk, uformer_lewin.LeWinBlock):
+                blk.impl = "plain"
+        out.append((label, {"default": m, "plain": plain}, res, dim))
+    return out
+
+
+def analysis_leftovers(uformer_lewin, uformer_blocks, layers, stats):
+    """Phase 17d: a stage of two blocks (the second shifted where the stage
+    is wider than a window) at each of LEFTOVER_STAGES with each of
+    LEFTOVER_FIELDS, and a ``LeFF(use_eca=True)``, in bf16 at B=32 and fp32
+    at B=4: the default route (K9 forward, K10 backward) against the plain
+    route, the forward at the per-kernel bound (the stage's output is in
+    the compute dtype at |y| up to about 5, where one bf16 ulp is 6e-3 of
+    it) and the gradient of the input and of every parameter at a
+    Function's, on :func:`compare_all`'s measure."""
+    cases = leftover_cases(uformer_lewin, uformer_blocks, layers)
+    for dtype, B in ((torch.bfloat16, BATCH), (torch.float32, ANALYSIS_BATCH)):
+        COUNTERS.reset()
+        for label, modules, res, dim in cases:
+            rng = np.random.default_rng(17)
+            x0 = torch.from_numpy(rng.standard_normal(
+                (B, res * res, dim), dtype=np.float32)).cuda().to(dtype)
+            g = torch.from_numpy(rng.standard_normal(
+                (B, res * res, dim), dtype=np.float32)).cuda()
+            outs = {}
+            for impl, m in modules.items():
+                x = x0.clone().requires_grad_()
+                y = m(x) if hasattr(m, "run") else m.composite(x)
+                grads = torch.autograd.grad(y, [x, *m.parameters()],
+                                            g.to(dtype))
+                outs[impl] = (y.detach(), grads)
+            (y, gr), (yp, grp) = outs["default"], outs["plain"]
+            tag = f"17d {label} {str(dtype)[6:]} B{B}"
+            compare(f"{tag} forward", y, yp, KERNEL_TOL[dtype])
+            # every gradient on compare_all's measure (the parameters'
+            # gradients are sums over the rows), the worst one printed
+            floor = max([1.0] + [1e-2 * float(b.float().abs().max())
+                                 for b in grp[1:]])
+            rel = [float((a.float() - b.float()).abs().max())
+                   / max(floor if i else 1.0, float(b.float().abs().max()))
+                   for i, (a, b) in enumerate(zip(gr, grp))]
+            bad = [i for i, (r, a) in enumerate(zip(rel, gr))
+                   if not torch.isfinite(a).all()]
+            i = int(np.argmax(rel))
+            print(f"  {tag}: {len(rel)} gradients (input, parameters), "
+                  f"worst err/max(floor,|ref|) {rel[i]:.3e} at #{i}, tol "
+                  f"{FUNCTION_TOL[dtype]:.0e}", flush=True)
+            if bad or rel[i] > FUNCTION_TOL[dtype]:
+                raise Failed(f"{tag}: gradient #{i} off by {rel[i]:.3e} "
+                             f"(non-finite: {bad})")
+            del outs, y, gr, yp, grp
+        torch.cuda.synchronize()
+        counts = COUNTERS.read()
+        add_launches(stats, f"leftovers_{str(dtype)[6:]}", counts)
+        print(f"  17d {str(dtype)[6:]} B={B}: launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        if not (counts["window_attn"] and counts["window_attn_bwd"]):
+            raise Failed(f"17d: K9 / K10 launches {counts['window_attn']} / "
+                         f"{counts['window_attn_bwd']}")
+
+
+def analysis_clis(config, stats):
+    """Phase 17e: ``main(cfg)`` of the CLIs that only print, on the card,
+    with the flagship's flags, synthetic data and a temporary output path;
+    their lines go to a file, of which the first two of each are shown."""
+    import contextlib
+    import importlib
+    import io
+
+    flags = ["--encoder_type", "Uformer", "--decoder_type", "Uformer", "--L",
+             "3", "--encoder_msa_type", "freq", "--degradation_embedding_method",
+             "all_DC", "--synthetic_data"]
+    with tempfile.TemporaryDirectory() as d:
+        cfg = config.parse_args(flags + ["--output_path", f"{d}/"])
+        COUNTERS.reset()
+        for name in ANALYSIS_CLIS:
+            t0 = time.perf_counter()
+            mod = importlib.import_module(f"{PKG}.scripts.{name}")
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                mod.main(cfg)
+            lines = out.getvalue().splitlines()
+            print(f"  17e {name}: {len(lines)} lines in "
+                  f"{time.perf_counter() - t0:.1f} s; "
+                  + " | ".join(ln[:100] for ln in lines[:2]), flush=True)
+            if name != "plot_lamb_curve" and not lines:
+                raise Failed(f"17e: {name} printed nothing")
+        torch.cuda.synchronize()
+        add_launches(stats, "analysis_cli_float32", COUNTERS.read())
+
+
+def analysis_phase(config, airnet, uformer_lewin, card: str, stats):
+    """Phase 17: the analysis toolkit and its CLIs on the card, and the
+    LeWin leftovers (see the module docstring)."""
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.models import (
+        layers, uformer_blocks)
+
+    t_phase = time.perf_counter()
+    cfg = flagship_config(config, "float32", synthetic_data=True)
+    bundles = {impl: airnet.build_models(cfg, "cuda", impl)
+               for impl in ("default", "plain")}
+    print(f"analysis (phase 17), flagship float32 B={ANALYSIS_BATCH}, {card}:",
+          flush=True)
+    marks = [("build", time.perf_counter())]
+    analysis_embeddings(config, airnet, bundles, cfg, stats)
+    marks.append(("a", time.perf_counter()))
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.training.loop import (
+        build_train_loader)
+    loader = build_train_loader(cfg, seed=cfg.seed)
+    batches = [loader.next_batch() for _ in range(2)]
+    analysis_capture(airnet, uformer_lewin, bundles["default"], batches[0])
+    marks.append(("b", time.perf_counter()))
+    analysis_lfs(bundles, batches, stats)
+    marks.append(("c", time.perf_counter()))
+    del bundles
+    torch.cuda.empty_cache()
+    analysis_leftovers(uformer_lewin, uformer_blocks, layers, stats)
+    marks.append(("d", time.perf_counter()))
+    analysis_clis(config, stats)
+    marks.append(("e", time.perf_counter()))
+    print(f"analysis phase: {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{n} {b - a:.1f} s" for (_, a), (n, b)
+                      in zip([("", t_phase)] + marks, marks)) + ")", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one H100")
     ap.add_argument("--phases", type=int, nargs="+",
                     default=sorted(ALL_PHASES), choices=sorted(ALL_PHASES),
-                    help="of phases 3-16, run only these: a development aid "
+                    help="of phases 3-17, run only these: a development aid "
                     "that prints no result and exits with 2 (default: all)")
     phases = set(ap.parse_args(argv).phases)
     if not torch.cuda.is_available():
@@ -3844,6 +4180,9 @@ def main(argv=None) -> int:
         if 16 in phases:
             marks.append((16, time.perf_counter()))
             serving_phase(config, airnet, uformer_lewin, serving, card, stats)
+        if 17 in phases:
+            marks.append((17, time.perf_counter()))
+            analysis_phase(config, airnet, uformer_lewin, card, stats)
         if phases == ALL_PHASES:
             idle = [n for n in KERNELS if not stats[n]["launches"]]
             if idle:

@@ -29,6 +29,11 @@ training      losses, train state, the two-phase steps, the loop, checkpoints
               (``epoch_<N>.pt``: the models, and the whole train state)
 utils         JAX-parameter / train-state conversion, image I/O, run logs,
               the step meter, plots
+analysis      the analysis toolkit: results logs, frequency histograms,
+              embeddings and lamb gains, attention-map band energy, LFS
+              channel scores
+scripts       its CLIs, one per root ``plot_*.py`` and the sweep runner:
+              ``python -m <this package>.scripts.<name> <flags>``
 
 Importing the package imports none of its modules: a process that loads a
 served artifact imports ``serving`` and the kernels' registrations only.

@@ -104,10 +104,20 @@ def build_models(cfg, device, impl: str = "default",
                        decoder=decoder.train(not eval_mode))
 
 
-@torch.inference_mode()
-def eval_forward(bundle: ModelBundle, x: torch.Tensor) -> torch.Tensor:
-    """Eval AirNet forward ``x [B, P, P, 3] -> [B, P, P, 3]`` float32:
-    the encoder's conditioning -> decoder (reference model.py:66-70). The
-    encoder's contrastive heads are not run: eval uses only ``inter``."""
+def restore(bundle: ModelBundle, x: torch.Tensor) -> torch.Tensor:
+    """The AirNet forward ``x [B, P, P, 3] -> [B, P, P, 3]`` float32: the
+    encoder's conditioning -> decoder (reference model.py:66-70). The
+    encoder's contrastive heads are not run: eval uses only ``inter``.
+    Undecorated, so that autograd can differentiate it (the LFS analysis,
+    ``analysis/lfs.py``): with gradients enabled the blocks run their
+    autograd Functions, whose backward is the backward kernels on the card.
+    A bundle built for eval runs in eval mode: DropPath off, BatchNorm on
+    its running statistics."""
     ctx = bundle.encoder.features(x)
     return bundle.decoder(x, ctx)
+
+
+@torch.inference_mode()
+def eval_forward(bundle: ModelBundle, x: torch.Tensor) -> torch.Tensor:
+    """The eval forward: :func:`restore` under ``torch.inference_mode``."""
+    return restore(bundle, x)

@@ -1,4 +1,5 @@
-"""Shared small layers: activation, layout helpers, DropPath, init."""
+"""Shared small layers: activations, the token MLP, layout helpers,
+DropPath, init."""
 
 from __future__ import annotations
 
@@ -51,6 +52,22 @@ def to_image(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     if n != h * w:
         raise ValueError(f"{n} tokens do not form a {h}x{w} image")
     return x.reshape(b, h, w, c)
+
+
+class Mlp(nn.Module):
+    """Linear, GELU, Linear token MLP (reference encoder_Uformer.py:374-393;
+    JAX ``layers.Mlp``), under Flax's automatic names ``Dense_0`` /
+    ``Dense_1``; computes in its input's dtype."""
+
+    def __init__(self, dim: int, hidden: int, out: Optional[int] = None):
+        super().__init__()
+        self.Dense_0 = nn.Linear(dim, hidden)
+        self.Dense_1 = nn.Linear(hidden, out or dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        lin = lambda m, t: F.linear(t, m.weight.to(dt), m.bias.to(dt))
+        return lin(self.Dense_1, gelu(lin(self.Dense_0, x)))
 
 
 class DropPath(nn.Module):

@@ -19,7 +19,14 @@ window-attention core, K9 (``ops/kernels/window_attention.py``), or the
 plain core where the attention probabilities are needed (the band
 modulations); :meth:`LeFF.composite` is the LeFF as torch ops, with the
 deformable convolution K11 (``ops/deform_conv.py``) in its ``deform_conv``
-form.
+form. Under :func:`.capture.capture` the attention modules form the
+probabilities in plain PyTorch and record their maps, as JAX's do when
+their intermediates are mutable.
+
+The modules no configuration of the CLI builds (JAX reaches them by
+building a block or a stage directly): :class:`SepConv2d` /
+:class:`ConvProjection` (``token_projection='conv'``), :class:`ECA1d`
+(``LeFF(use_eca=True)``).
 """
 
 from __future__ import annotations
@@ -35,7 +42,8 @@ from ..ops import frequency, windows
 from ..ops.deform_conv import DCNFn, dcn_plain
 from ..ops.kernels import lewin_block
 from ..ops.kernels import window_attention as wa
-from .layers import gelu, leaky_relu, to_image, to_tokens
+from . import capture
+from .layers import gelu, lecun_normal_, leaky_relu, to_image, to_tokens
 
 
 def _conv_nhwc(conv: nn.Module, x: torch.Tensor, dtype: torch.dtype,
@@ -174,6 +182,50 @@ def _reapply(attn: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.permute(0, 2, 1, 3).reshape(b_, n, -1).to(v.dtype)
 
 
+class SepConv2d(nn.Module):
+    """Depthwise ``kernel x kernel`` conv, ReLU, pointwise 1x1 conv
+    (reference encoder_Uformer.py:16-43; JAX ``SepConv2d``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
+                 stride: int = 1):
+        super().__init__()
+        self.depthwise = nn.Conv2d(in_ch, in_ch, kernel, stride=stride,
+                                   padding=(kernel - stride) // 2,
+                                   groups=in_ch)
+        self.pointwise = nn.Conv2d(in_ch, out_ch, 1)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """``x [B, H, W, C]`` -> ``[B, H', W', out_ch]`` in ``dtype``."""
+        y = F.relu(_conv_nhwc(self.depthwise, x, dtype))
+        return _conv_nhwc(self.pointwise, y, dtype)
+
+
+class ConvProjection(nn.Module):
+    """Separable-conv q / k / v projection (reference
+    encoder_Uformer.py:47-76; JAX ``ConvProjection``): ``to_q`` on the
+    window's tokens as an image, ``to_k`` / ``to_v`` on the key source
+    (the window itself, or ``attn_kv`` of ``kv_dim`` channels)."""
+
+    def __init__(self, dim: int, kv_dim: Optional[int] = None):
+        super().__init__()
+        kv_dim = kv_dim or dim
+        self.to_q = SepConv2d(dim, dim)
+        self.to_k = SepConv2d(kv_dim, dim)
+        self.to_v = SepConv2d(kv_dim, dim)
+
+    def forward(self, x, heads: int, dtype: torch.dtype, attn_kv=None):
+        """``x [B', n, C]`` -> q, k, v ``[B', h, n, d]`` in ``dtype``, as
+        :meth:`LinearProjection.forward`."""
+        b, n, c = x.shape
+        side = math.isqrt(n)
+        kv = x if attn_kv is None else attn_kv
+        img = lambda t: to_image(t, side, side)
+        split = lambda t: to_tokens(t).reshape(b, n, heads, c // heads) \
+            .permute(0, 2, 1, 3)
+        return (split(self.to_q(img(x), dtype)), split(self.to_k(img(kv), dtype)),
+                split(self.to_v(img(kv), dtype)))
+
+
 class WindowAttention(KernelParams):
     """Window attention with the relative-position bias (reference
     decoder_Uformer.py:128-299; JAX ``WindowAttention``, and its
@@ -187,7 +239,10 @@ class WindowAttention(KernelParams):
       the probabilities scaled by the gain of band feature i, i = 1..N-1;
     * ``lamb_bands_num`` / ``lamb_bands_dc``: the learnable per-band gain
       ``lamb [N-1, 1, h]`` of ``frequency_decompose_type``;
-    * ``kv_source``: see :class:`LinearProjection`.
+    * ``kv_source``: see :class:`LinearProjection`;
+    * ``token_projection='conv'``: q / k / v by :class:`ConvProjection`
+      (unfused blocks only; the key source as JAX passes it, the window or
+      the ``attention_residual`` map).
     """
 
     def __init__(self, dim: int, win_size: int, num_heads: int,
@@ -196,10 +251,19 @@ class WindowAttention(KernelParams):
                  dim_kv: Optional[int] = None,
                  all_bands_num: Optional[int] = None,
                  lamb_bands_num: Optional[int] = None,
-                 lamb_bands_dc: bool = False):
+                 lamb_bands_dc: bool = False,
+                 token_projection: str = "linear"):
         super().__init__()
         self.num_heads, self.num_win = num_heads, num_win
-        self.qkv = LinearProjection(dim, kv_source, dim_kv)
+        if token_projection == "conv":
+            if kv_source == "attention_kv":
+                raise ValueError("token_projection='conv' takes no encoder "
+                                 "(K, V): the JAX ConvProjection reads the "
+                                 "key source as an image")
+            self.qkv = ConvProjection(
+                dim, dim_kv if kv_source == "attention_residual" else None)
+        else:
+            self.qkv = LinearProjection(dim, kv_source, dim_kv)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * win_size - 1) ** 2, num_heads))
         self.all_bands_dc = all_bands_dc
@@ -247,7 +311,9 @@ class WindowAttention(KernelParams):
         """The unfused attention (JAX ``WindowAttention.__call__``) on the
         windows ``xw [B*nW, n, C]`` in the compute dtype: ``(out [B*nW, n,
         C], (k, v))``. The core is K9 unless the band modulations need the
-        probabilities, where it is the plain core as in JAX."""
+        probabilities, or a capture covers the module, where it is the plain
+        core as in JAX; a capture records ``attn_map`` and the gains
+        ``embed_lamb_<i>``."""
         b_, n, c = xw.shape
         h, dt = self.num_heads, xw.dtype
         q, k, v = self.qkv(xw, h, dt, attn_kv)
@@ -259,7 +325,9 @@ class WindowAttention(KernelParams):
         nW = mask.shape[0] if mask is not None else 1
         nb = self.all_bands_num
         dc_fast = self.all_bands_dc and n == nk
-        if self.lamb_bands_num is None and (nb is None or dc_fast):
+        capturing = capture.active(self) is not None
+        if (self.lamb_bands_num is None and (nb is None or dc_fast)
+                and not capturing):
             out = _core(q, k, v, bias, mask, nW, plain)
         else:
             attn = wa.probabilities(q, k, bias, mask, (c // h) ** -0.5, nW)
@@ -275,7 +343,9 @@ class WindowAttention(KernelParams):
 
         if nb is not None and dc_fast:
             # attn + (attn - 1/n) lam applied to v: a rescale and a rank-1 term
-            lam = self.gain(1, all_inter, dt).reshape(-1, h).float()
+            g = self.gain(1, all_inter, dt)
+            capture.record(self, "embed_lamb_1", g)
+            lam = g.reshape(-1, h).float()
             lam = lam.repeat_interleave(self.num_win, dim=0)[:, :, None, None]
             v_sum = v.float().sum(dim=2)[:, :, None, :]
             out_h = out.reshape(b_, n, h, -1).permute(0, 2, 1, 3).float()
@@ -288,11 +358,15 @@ class WindowAttention(KernelParams):
                 bands = frequency.frequency_decompose_1(attn, nb - 1)
             new = attn
             for i in range(1, nb):
-                g = self.gain(i, all_inter, dt).float()
+                g = self.gain(i, all_inter, dt)
+                capture.record(self, f"embed_lamb_{i}", g)
                 band = (bands[i].reshape(-1, self.num_win, h, n, n)
-                        * g[:, :, :, None, None])
+                        * g.float()[:, :, :, None, None])
                 new = new + band.reshape(-1, h, n, n)
-            out = _reapply(new, v)
+            attn = new
+            out = _reapply(attn, v)
+        if capturing:
+            capture.record(self, "attn_map", attn)
         return _linear(self.proj, out, dt), (k, v)
 
 
@@ -362,7 +436,9 @@ class FrequencyWindowAttention(KernelParams):
         bands major), the band-masked grouped bias, the SW-MSA mask of one
         window standing for its (L, L) tiling, the core K9, whose output is
         already band-folded. ``(out [L*B*nW, n, C], (k, v))`` with k, v
-        regrouped to ``[B*nW, h, L*n, d]`` (``kv``; else None)."""
+        regrouped to ``[B*nW, h, L*n, d]`` (``kv``; else None). Under a
+        capture the core is the plain one on the band-grouped map, which it
+        records as ``attn_map`` (JAX :448-453)."""
         b_, n, c = xw.shape
         h, L, dt = self.num_heads, self.L, xw.dtype
         q, k, v = self.qkv(xw, h, dt)
@@ -371,9 +447,40 @@ class FrequencyWindowAttention(KernelParams):
         q, k, v = band(q), band(k), band(v)
         bias = self._grouped(self._per_pair())
         nW = 1 if mask is None else mask.shape[0]
-        out = _core(q, k, v, bias, mask, nW, plain)
+        if capture.active(self) is not None:
+            attn = wa.probabilities(wa.grouped(q), wa.grouped(k), bias, mask,
+                                    (c // h) ** -0.5, nW)
+            capture.record(self, "attn_map", attn)
+            out = _reapply(attn, wa.grouped(v))     # [B*nW, L*n, C]
+            out = out.reshape(b_ // L, L, n, c).transpose(0, 1).reshape(b_, n, c)
+        else:
+            out = _core(q, k, v, bias, mask, nW, plain)
         return (_linear(self.proj, out, dt),
                 (wa.grouped(k), wa.grouped(v)) if kv else None)
+
+
+class ECA1d(nn.Module):
+    """1-D efficient channel attention (reference leff.py:44-69; JAX
+    ``ECA1d``): the token mean of each channel, a ``k_size`` conv across
+    the channels (zero padded), a sigmoid gate. ``conv`` is the raw
+    parameter as JAX declares it, ``[k, 1, 1]`` (HIO)."""
+
+    def __init__(self, k_size: int = 3):
+        super().__init__()
+        self.conv = nn.Parameter(torch.zeros(k_size, 1, 1))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Flax's LeCun-normal, fan-in ``k``."""
+        with torch.no_grad():
+            lecun_normal_(self.conv, self.conv.shape[0], generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x [B, N, C]`` -> same shape and dtype."""
+        dt = x.dtype
+        k = self.conv.shape[0]
+        y = x.mean(dim=1)[:, None, :]                       # [B, 1, C]
+        y = F.conv1d(y, self.conv.reshape(1, 1, k).to(dt), padding=(k - 1) // 2)
+        return x * torch.sigmoid(y)
 
 
 class LeFF(KernelParams):
@@ -382,12 +489,14 @@ class LeFF(KernelParams):
     With ``deform=True`` (the ``deform_conv`` injection, leff.py:79-83,
     103-107) the depthwise conv is :class:`DCNLayerLeFF`, conditioned on
     the degradation map through ``linear_inter``; the reference narrows
-    the hidden width to C for it (decoder_Uformer.py:600-601)."""
+    the hidden width to C for it (decoder_Uformer.py:600-601). With
+    ``use_eca`` :class:`ECA1d` gates the output (:meth:`composite` only: no
+    block builds it, as in JAX)."""
 
     make_operands = staticmethod(lewin_block.ffn_operands)
 
     def __init__(self, dim: int, hidden: int, deform: bool = False,
-                 degradation_dim: int = -1):
+                 degradation_dim: int = -1, use_eca: bool = False):
         super().__init__()
         self.deform = deform
         self.linear1 = nn.Linear(dim, hidden)
@@ -397,6 +506,8 @@ class LeFF(KernelParams):
         else:
             self.dwconv = nn.Conv2d(hidden, hidden, 3, padding=1, groups=hidden)
         self.linear2 = nn.Linear(hidden, dim)
+        if use_eca:
+            self.eca = ECA1d()
 
     def kernel_weights(self):
         """``(w1 [C, Hd], b1, wd [3, 3, Hd], bd, w2 [Hd, C], b2)``."""
@@ -416,7 +527,8 @@ class LeFF(KernelParams):
             img = self.dcn(img, g, plain)
         else:
             img = _conv_nhwc(self.dwconv, img, dt)
-        return _linear(self.linear2, to_tokens(gelu(img)), dt)
+        y = _linear(self.linear2, to_tokens(gelu(img)), dt)
+        return self.eca(y) if hasattr(self, "eca") else y
 
 
 class DCNLayerLeFF(nn.Module):

@@ -49,6 +49,15 @@ LeFF. The decoder's methods:
 * ``attention_kv``: the encoder's saved last-block K / V are;
 * the learnable ``modulator`` parameter ``[win^2, C]`` added to every
   window (``--learnable_modulator``).
+
+Two fields no configuration of the CLI sets make a block unfused too, as
+in JAX (uformer_lewin.py:101-102, 181-182; reached by building a block or
+a stage directly): ``token_projection='conv'`` (q / k / v by separable
+convolutions, ``uformer_blocks.ConvProjection``; the frequency-wise MSA
+keeps its linear projection, as JAX's does) and ``token_mlp`` ``'ffn'`` /
+``'mlp'`` (the token MLP ``layers.Mlp`` for the LeFF). A block under
+:func:`.capture.capture` takes the unfused path as well (JAX's
+``is_mutable_collection('intermediates')``), decided at run time.
 """
 
 from __future__ import annotations
@@ -60,7 +69,8 @@ from torch import nn
 
 from ..ops import windows
 from ..ops.kernels import lewin_block as lb
-from .layers import DropPath, leaky_relu, lecun_normal_, to_image, to_tokens
+from . import capture
+from .layers import DropPath, Mlp, leaky_relu, lecun_normal_, to_image, to_tokens
 from .uformer_blocks import (Downsample, FrequencyWindowAttention, LeFF,
                              SelfModulatedLayerNorm, WindowAttention, _linear)
 
@@ -144,7 +154,8 @@ class LeWinBlock(nn.Module):
                  degradation_dim: int = -1,
                  all_bands_num: Optional[int] = None,
                  lamb_bands_num: Optional[int] = None,
-                 lamb_bands_dc: bool = False):
+                 lamb_bands_dc: bool = False, token_mlp: str = "leff",
+                 token_projection: str = "linear"):
         super().__init__()
         res = input_resolution
         self.res, self.dim = res, dim
@@ -161,6 +172,7 @@ class LeWinBlock(nn.Module):
         # JAX's fused_ok / fused_freq_ok (uformer_lewin.py:97-109, 177-186)
         self.unfused = bool(
             modulator or need_kv or self.injection
+            or token_projection != "linear" or token_mlp in ("ffn", "mlp")
             or (msa_type == "origin"
                 and (lamb_bands_num is not None
                      or (all_bands_num is not None and not all_bands_dc))))
@@ -191,13 +203,15 @@ class LeWinBlock(nn.Module):
                 dim, win, num_heads, all_bands_dc, encoder_embed_dim,
                 num_win=(res // win) ** 2, kv_source=kv_source, dim_kv=deg,
                 all_bands_num=all_bands_num, lamb_bands_num=lamb_bands_num,
-                lamb_bands_dc=lamb_bands_dc)
+                lamb_bands_dc=lamb_bands_dc, token_projection=token_projection)
         if "self_modulator" in self.injection:
             self.norm2_deg_norm = nn.LayerNorm(deg, eps=1e-6)
             self.norm2 = SelfModulatedLayerNorm(dim, deg)
         else:
             self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        if "deform_conv" in self.injection:
+        if token_mlp in ("ffn", "mlp"):
+            self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        elif "deform_conv" in self.injection:
             self.mlp = LeFF(dim, dim, deform=True, degradation_dim=deg)
         else:
             self.mlp = LeFF(dim, int(dim * mlp_ratio))
@@ -255,7 +269,7 @@ class LeWinBlock(nn.Module):
         win, shift, L, mask = self.win, self.shift, self.L, self.attn_mask
         dps1 = self.drop_path1.scale(b, x.device, generator)
         dps2 = self.drop_path2.scale(b, x.device, generator)
-        if self.unfused:
+        if self.unfused or capture.active(self) is not None:
             return self._forward_unfused(x, inter, inter_kv, all_inter, dps1,
                                          dps2)
         route = self.route(dt, b)
@@ -383,7 +397,9 @@ class LeWinBlock(nn.Module):
         if dps1 is not None:
             y = y * dps1.to(dt)[:, None, None]
         x = shortcut + y
-        y = self.mlp.composite(self._norm(2, x, inter), inter, plain)
+        y = self._norm(2, x, inter)
+        y = (self.mlp(y) if isinstance(self.mlp, Mlp)
+             else self.mlp.composite(y, inter, plain))
         if dps2 is not None:
             y = y * dps2.to(dt)[:, None, None]
         return x + y, (kv if self.need_kv else None)

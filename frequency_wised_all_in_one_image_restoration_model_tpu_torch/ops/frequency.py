@@ -14,6 +14,7 @@ complex64 whatever the model's compute dtype (a bf16 FFT is lossy).
 from __future__ import annotations
 
 import functools
+from typing import Union
 
 import numpy as np
 import torch
@@ -69,17 +70,22 @@ def frequency_decompose_1(x: torch.Tensor, num_rings: int) -> torch.Tensor:
 
 
 def frequency_decompose(x: torch.Tensor, num_bands: int,
-                        inverse: bool = True) -> torch.Tensor:
+                        inverse: Union[bool, str] = True) -> torch.Tensor:
     """Equal-width rings ``[0,s) ... [1-s,1]``: ``x [..., H, W]`` real ->
     ``[num_bands, ..., H, W]`` float32 spatial reconstructions
-    (``inverse=True``), or the masked spectra with the fftshift removed,
+    (``inverse=True``), the masked spectra with the fftshift removed,
     stacked as (real, imag) in a trailing axis (``inverse=False``; what the
-    frequency-L1 loss consumes, reference frequency_decompose.py:28-68)."""
+    frequency-L1 loss consumes, reference frequency_decompose.py:28-68), or
+    the shifted magnitude spectra (``inverse='visual'``, reference :55-56;
+    what the attention-map band energy of ``analysis/msa_frequency.py``
+    sums)."""
     h, w = x.shape[-2], x.shape[-1]
     masks = torch.from_numpy(ring_masks(h, w, num_bands, "open")).to(x.device)
     fx = torch.fft.fftshift(torch.fft.fft2(x.float()), dim=(-2, -1))
     bshape = (num_bands,) + (1,) * (x.dim() - 2) + (h, w)
     banded = masks.reshape(bshape) * fx.unsqueeze(0)
+    if inverse == "visual":
+        return banded.abs()
     banded = torch.fft.ifftshift(banded, dim=(-2, -1))
     if inverse is True:
         return torch.fft.ifft2(banded).real

@@ -20,8 +20,12 @@ The raw parameters are of that last kind and keep JAX's layout: every DCN
 ``[k, k, Cin, Cout]`` as JAX declares it (``DCNLayerLeFF`` reads it so),
 the learnable ``modulator`` ``[win^2, C]``, the per-band ``lamb`` of the
 Uformer decoder ``[N-1, 1, h]`` and of the ViT ``[N, 1 or batch, h]``, the
-ViT ``pos_embedding [1, n, dim]``. The ResNet encoder's BatchNorm
-statistics come over as every ``batch_stats`` does.
+ViT ``pos_embedding [1, n, dim]``, ECA's ``conv [k, 1, 1]``. The ResNet
+encoder's BatchNorm statistics come over as every ``batch_stats`` does.
+The modules no CLI flag builds follow the same rules: the depthwise and
+pointwise kernels of ``SepConv2d`` (``to_q`` / ``to_k`` / ``to_v`` of
+``ConvProjection``) as convolutions, the token ``Mlp``'s ``Dense_0`` /
+``Dense_1`` as Denses.
 
 Reference ``.pth`` checkpoints reach the port through the JAX package:
 ``utils/torch_weights.py`` -> JAX variables -> :func:`from_jax`.

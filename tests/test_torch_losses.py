@@ -53,8 +53,8 @@ def test_frequency_decompose_matches(pair, inverse):
     want = np.asarray(jfrequency.frequency_decompose(jnp.asarray(x), 3, inverse))
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
-    with pytest.raises(ValueError):
-        tfrequency.frequency_decompose(torch.from_numpy(x), 3, "visual")
+    with pytest.raises(ValueError):   # 'visual' is the magnitude mode
+        tfrequency.frequency_decompose(torch.from_numpy(x), 3, "magnitude")
 
 
 @pytest.mark.parametrize("bands_l1", [-1, 2])
