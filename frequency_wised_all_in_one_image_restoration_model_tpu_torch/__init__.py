@@ -27,6 +27,8 @@ models        Uformer encoder/decoder, LeWin blocks, AirNet composition, MoCo
 evaluation    tiled full-image restoration, the per-task runner
 training      losses, train state, the two-phase steps, the loop, checkpoints
               (``epoch_<N>.pt``: the models, and the whole train state)
+parallel      multi-GPU runs: the mesh layout, ranks, the process group
+              (NCCL on the cards, gloo on the CPU) and its collectives
 utils         JAX-parameter / train-state conversion, image I/O, run logs,
               the step meter, plots
 analysis      the analysis toolkit: results logs, frequency histograms,

@@ -13,10 +13,9 @@ What differs:
 
 * ``--cuda N`` is the index of the CUDA device the entry points run on (the
   JAX package accepts and ignores it);
-* flags the port does not act on (meshes, the multi-host set-up,
-  ``--remat``) are accepted and carried; :func:`check_ported` raises
-  ``NotImplementedError`` for the values that would change a result and
-  are not ported;
+* ``--remat`` is accepted and carried, and changes nothing;
+  :func:`check_ported` raises ``ValueError`` for a mesh the port cannot
+  run (``parallel/distributed.py`` runs the others: one rank a card);
 * :func:`from_fields` carries over any configuration object with these
   fields, such as the JAX package's ``Config``.
 """
@@ -114,9 +113,10 @@ class Config:
     seed: int = 0
     data_root: str = "data/"
     synthetic_data: bool = False     # use a deterministic synthetic dataset (tests/bench)
-    mesh_data: int = 1               # device-mesh sizes of the JAX package;
-    mesh_task: int = 1               # a product above 1 is not ported
-    # multi-host set-up of the JAX package; carried, not acted on
+    mesh_data: int = 1               # ranks along the batch/data axis
+    mesh_task: int = 1               # ranks along the task axis
+    # multi-host runs: one process a host, each starting its ranks
+    # (parallel/distributed.py::spawn)
     coordinator_address: Optional[str] = None
     num_processes: int = 1
     process_id: int = 0
@@ -387,9 +387,16 @@ def from_fields(cfg) -> Config:
 
 
 def check_ported(cfg: Config) -> None:
-    """Raise for a value that would change the result and is not ported."""
-    if cfg.mesh_data * cfg.mesh_task > 1:
-        raise NotImplementedError(
-            f"mesh_data * mesh_task = {cfg.mesh_data * cfg.mesh_task}: the "
-            "port runs on one card; multi-GPU runs are not ported yet "
-            "(ROADMAP.md, Queue 1 item 10)")
+    """Raise for a value the port cannot run: a mesh of fewer than one rank
+    on an axis, or a global batch (``mesh_data * batch_size``, the
+    ``mesh_data`` loader batches the training loop joins) that does not
+    divide over the ``mesh_data * mesh_task`` ranks (``ValueError``, as the
+    JAX package's ``process_slice``). The entry points that run on one
+    device (serving, analysis) build with these flags and ignore them."""
+    if cfg.mesh_data < 1 or cfg.mesh_task < 1:
+        raise ValueError(f"mesh sizes must be at least 1, got mesh_data "
+                         f"{cfg.mesh_data} mesh_task {cfg.mesh_task}")
+    world = cfg.mesh_data * cfg.mesh_task
+    if (cfg.mesh_data * cfg.batch_size) % world:
+        raise ValueError(f"global batch {cfg.mesh_data * cfg.batch_size} not "
+                         f"divisible by {world} ranks")

@@ -11,6 +11,13 @@ The pooled tiles go through the forward in chunks of ``chunk`` (32, as
 ``tiling.restore_image``), the ragged last chunk as it is: eval has no
 state across a batch (the all_DC gain is per image), so the result does not
 depend on the chunk, and PyTorch compiles nothing per shape.
+
+Under a process group (``parallel/distributed.py``) rank 0 reads the test
+set and hands each pool of tiles to every rank; the pool is wrap-padded to a
+multiple of the ranks, each rank runs its block of it in its chunks, the
+results are gathered in rank order and the pad dropped, and rank 0
+stitches, scores and logs (the JAX package's tile-sharded eval,
+``runner.py:80-108``). The other ranks return no result.
 """
 
 from __future__ import annotations
@@ -24,7 +31,33 @@ import torch
 from ..config import Config
 from ..models.airnet import ModelBundle, eval_forward
 from ..ops import metrics
+from ..parallel import distributed, mesh as mesh_lib
 from . import tiling
+
+
+def forward_tiles(bundle: ModelBundle, tiles: Optional[np.ndarray],
+                  chunk: int = 32) -> Optional[torch.Tensor]:
+    """The eval forward of a pool of tiles ``[n, P, P, 3]`` in chunks of
+    ``chunk``. Under a process group every rank calls it, rank 0 with the
+    tiles and the others with ``None`` (their share comes from rank 0; a
+    ``None`` from rank 0 ends the eval and gives ``None``): the pool
+    wrap-padded to a multiple of the ranks, this rank's block forwarded, the
+    blocks gathered in rank order and the pad dropped."""
+    if distributed.active():
+        tiles = distributed.broadcast_value(tiles)
+        if tiles is None:
+            return None
+    n = tiles.shape[0]
+    world = distributed.world()
+    pad = (-n) % world
+    if pad:  # wrap-pad (the pad may exceed n with many ranks)
+        tiles = np.concatenate([tiles, np.take(tiles, np.arange(pad) % n,
+                                               axis=0)])
+    x = torch.from_numpy(tiles[mesh_lib.rows_of(n + pad, distributed.rank(),
+                                                world)]).to(bundle.device)
+    restored = torch.cat([eval_forward(bundle, x[o:o + chunk])
+                          for o in range(0, x.shape[0], chunk)])
+    return distributed.all_gather_rows(restored)[:n]
 
 
 def restored_images(cfg: Config, bundle: ModelBundle, dataset: Iterable,
@@ -33,15 +66,19 @@ def restored_images(cfg: Config, bundle: ModelBundle, dataset: Iterable,
     """``(name, restored [H, W, 3] float32 on the bundle's device, clean)``
     for every ``(name, degraded, clean)`` float01 HWC item of ``dataset``,
     in order. Tiles of up to ``pool_tiles`` images with the same tile grid
-    are pooled into one batch (mixed-size datasets flush per image)."""
+    are pooled into one batch (mixed-size datasets flush per image). Under
+    a process group rank 0 passes the dataset and yields; another rank
+    passes ``None``, runs its share of every pool and yields nothing."""
     patch = cfg.crop_test_imgs_size
     assert patch % 8 == 0, "patch size should be a multiple of window_size"  # test.py:44
+    if dataset is None:
+        while forward_tiles(bundle, None, chunk) is not None:
+            pass
+        return
 
     def flush(group):
         tiles = np.concatenate([t[:n] for _, t, _, n, _ in group])
-        x = torch.from_numpy(tiles).to(bundle.device)
-        restored = torch.cat([eval_forward(bundle, x[o:o + chunk])
-                              for o in range(0, x.shape[0], chunk)])
+        restored = forward_tiles(bundle, tiles, chunk)
         off = 0
         for name, _, offs, n, clean in group:
             yield name, tiling.stitch_tiles(restored[off:off + n], offs, n,
@@ -49,17 +86,22 @@ def restored_images(cfg: Config, bundle: ModelBundle, dataset: Iterable,
                                             clean.shape[1]), clean
             off += n
 
-    group, group_shape = [], None
-    for name, degraded, clean in dataset:
-        tiles, offs, n = tiling.extract_tiles(
-            np.asarray(degraded, np.float32), patch)
-        if group and (len(group) >= pool_tiles or group_shape != tiles.shape):
+    try:
+        group, group_shape = [], None
+        for name, degraded, clean in dataset:
+            tiles, offs, n = tiling.extract_tiles(
+                np.asarray(degraded, np.float32), patch)
+            if group and (len(group) >= pool_tiles
+                          or group_shape != tiles.shape):
+                yield from flush(group)
+                group = []
+            group_shape = tiles.shape
+            group.append((name, tiles, offs, n, clean))
+        if group:
             yield from flush(group)
-            group = []
-        group_shape = tiles.shape
-        group.append((name, tiles, offs, n, clean))
-    if group:
-        yield from flush(group)
+    finally:
+        if distributed.active():
+            distributed.broadcast_value(None)  # the other ranks stop
 
 
 def psnr_ssim(restored: torch.Tensor, clean: np.ndarray) -> Tuple[float, float]:
@@ -71,10 +113,16 @@ def psnr_ssim(restored: torch.Tensor, clean: np.ndarray) -> Tuple[float, float]:
 
 def test_by_task(cfg: Config, bundle: ModelBundle, task: str, epochs: int,
                  dataset: Optional[Iterable] = None, pool_tiles: int = 4,
-                 chunk: int = 32) -> str:
+                 chunk: int = 32) -> Optional[str]:
     """Evaluate one task; returns the reference's result line
     (test.py:80-84). ``dataset`` yields ``(name, degraded, clean)`` float01
-    HWC numpy arrays (default: the task's synthetic or file-backed set)."""
+    HWC numpy arrays (default: the task's synthetic or file-backed set).
+    Under a process group every rank calls it; rank 0 reads the set,
+    scores and returns the line, the others return ``None``."""
+    if not distributed.is_main():
+        for _ in restored_images(cfg, bundle, None, pool_tiles, chunk):
+            pass
+        return None
     if dataset is None:
         dataset = build_test_dataset(cfg, task)
     psnr_meter = metrics.AverageMeter()

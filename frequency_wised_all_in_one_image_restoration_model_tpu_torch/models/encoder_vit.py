@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import frequency
+from ..parallel import distributed
 from .layers import batch_norm, dropout, gelu, leaky_relu, lecun_normal_
 from .uformer_blocks import _linear
 
@@ -65,7 +66,11 @@ class ViTAttention(nn.Module):
             else:
                 bands = frequency.frequency_decompose(
                     attn, _bands(self.decompose_type))
-            attn = attn + (bands * self.lamb[:, :, :, None, None]).sum(0)
+            lamb = self.lamb
+            if 1 < lamb.shape[1] != b:
+                # a slot per sample of the global batch: this rank's slots
+                lamb = lamb[:, distributed.process_slice(lamb.shape[1])]
+            attn = attn + (bands * lamb[:, :, :, None, None]).sum(0)
         attn = dropout(attn, self.rate, self.training, generator)
         out = torch.matmul(attn.to(dt), v).transpose(1, 2).reshape(b, n, dim)
         return dropout(_linear(self.to_out, out, dt), self.rate,

@@ -9,6 +9,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import distributed, mesh
+
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
     """LeakyReLU(0.1), the reference's activation everywhere but InputProj."""
@@ -25,12 +27,21 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     (momentum=0.9)`` does it: in training the batch's mean and biased
     variance normalise and also enter the running statistics (torch's own
     layer puts the unbiased variance there); in eval the running
-    statistics normalise."""
+    statistics normalise.
+
+    Under a process group the batch is the global batch (sync-BN, as the
+    JAX package's mean over a sharded axis gives): the per-channel means of
+    ``x`` and ``x * x`` on each rank's equal share are averaged over the
+    ranks by a differentiable all-reduce, whose backward carries the
+    cross-rank terms, and every rank puts the same values into its running
+    statistics. At world 1 the values are this rank's bits."""
     if not bn.training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
-    mean = x.mean(dim=(0, 2, 3))
-    var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+    moments = distributed.all_reduce_sum(torch.stack(
+        [x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))])) / distributed.world()
+    mean = moments[0]
+    var = (moments[1] - mean * mean).clamp_min(0.0)
     with torch.no_grad():
         bn.running_mean.mul_(0.9).add_(mean, alpha=0.1)
         bn.running_var.mul_(0.9).add_(var, alpha=0.1)
@@ -73,7 +84,8 @@ class Mlp(nn.Module):
 class DropPath(nn.Module):
     """Per-sample stochastic depth. Eval is the identity; in training
     :meth:`scale` draws the per-image branch scale ``{0, 1/keep}`` that the
-    block kernels take as ``dps``, from an explicit generator."""
+    block kernels take as ``dps``, from an explicit generator (or a rank's
+    view of one, ``parallel.mesh.RankRows``: the global batch's draw)."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -84,7 +96,7 @@ class DropPath(nn.Module):
         if not self.training or self.rate == 0.0:
             return None
         keep = 1.0 - self.rate
-        draw = torch.rand(batch, generator=generator, device=device)
+        draw = mesh.rand((batch,), generator, device)
         return (draw < keep).float() / keep
 
 
@@ -92,11 +104,12 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Flax's ``nn.Dropout``: in training every element is kept with
     probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, the draw from
-    ``generator``; in eval the identity."""
+    ``generator`` (a ``RankRows`` draws the global batch's, this rank's rows
+    kept); in eval the identity."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    draw = torch.rand(x.shape, generator=generator, device=x.device)
+    draw = mesh.rand(x.shape, generator, x.device)
     return torch.where(draw < keep, x / keep, torch.zeros_like(x))
 
 

@@ -68,8 +68,9 @@ def contrastive_logits(q: torch.Tensor, k: torch.Tensor, queue: torch.Tensor,
 def dequeue_and_enqueue(queue: torch.Tensor, ptr: torch.Tensor,
                         keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ring-buffer write of the key batch ``[num_losses, B, dim]`` at
-    ``ptr``, in place (moco.py:52-66); needs ``K % B == 0`` (K = 3 * batch by
-    construction). Returns ``(queue, new pointer)``."""
+    ``ptr``, in place (moco.py:52-66); needs ``K % B == 0`` (K = 3 * the
+    global batch by construction; under a process group ``keys`` are every
+    rank's). Returns ``(queue, new pointer)``."""
     b, k = keys.shape[1], queue.shape[-1]
     if k % b:
         raise ValueError(f"queue length {k} is no multiple of the batch {b}")

@@ -12,8 +12,11 @@ reference's format. Loads ``<output_path>/ckpt/epoch_<N>.pt`` for
 (``training/checkpoint.py`` has the format), else runs on weights drawn
 from ``--seed``, as the JAX package's CLI does.
 
-The CLI default ``--degradation_embedding_method residual`` is not ported
-yet: the flagship needs ``--degradation_embedding_method all_DC``.
+With ``--mesh_data`` / ``--mesh_task`` above 1 the eval runs on that many
+ranks, one a card (``parallel/distributed.py``: this process starts them,
+or with ``--coordinator_address`` / ``--num_processes`` / ``--process_id``
+one process a host starts its share): the pooled tiles are split over the
+ranks and rank 0 scores and writes the log.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from . import config as config_lib
 from .evaluation import runner as eval_runner
 from .models.airnet import build_models
+from .parallel import distributed, mesh as mesh_lib
 from .training import checkpoint as ckpt_lib
 from .utils.logging import write_epoch_results_log
 
@@ -33,7 +37,9 @@ def main(cfg: config_lib.Config, device=None) -> List[Tuple[str, str]]:
     """Run the evaluation; returns the ``(task, result line)`` rows it
     logged. ``device=None`` is ``cuda:<cfg.cuda>``, and there is no quiet
     CPU run: without a card it raises. Pass ``device="cpu"`` to run the
-    kernels' plain twins."""
+    kernels' plain twins (and, with a mesh, gloo ranks on the CPU). With a
+    mesh of more than one rank and no process group yet, it starts the
+    ranks and returns rank 0's rows; a rank other than 0 returns none."""
     # weights are made at patch_size and applied to crop_test_imgs_size
     # tiles: fail fast if the Uformer window clamps differ (config.py)
     config_lib.check_uformer_window_compat(cfg)
@@ -43,23 +49,39 @@ def main(cfg: config_lib.Config, device=None) -> List[Tuple[str, str]]:
                 "no CUDA device: the port's eval runs on an NVIDIA GPU; pass "
                 "device='cpu' to main() to run the plain PyTorch path")
         device = torch.device("cuda", cfg.cuda)
+    if distributed.needs_spawn(cfg):
+        config_lib.check_ported(cfg)
+        return distributed.spawn(_eval_rank, cfg, device)[0]
+    return _eval_rank(cfg, device)
+
+
+def _eval_rank(cfg: config_lib.Config, device) -> List[Tuple[str, str]]:
+    """The evaluation in this process (a rank, or the one process)."""
+    # the layout of the ranks; raises when a group holds another number
+    mesh_lib.make_mesh(cfg.mesh_data, cfg.mesh_task,
+                       device_type=torch.device(device).type)
+    main_rank = distributed.is_main()
     bundle = build_models(cfg, device)
     epoch = ckpt_lib.select_eval_epoch(cfg.ckpt_path, cfg.epochs)
     if epoch is not None:
-        if epoch != cfg.epochs:
+        if epoch != cfg.epochs and main_rank:
             print(f"checkpoint epoch_{cfg.epochs} not found; "
                   f"falling back to latest epoch_{epoch}")
         ckpt_lib.restore_eval(cfg.ckpt_path, epoch, bundle)
-        print(f"loaded checkpoint epoch_{epoch}")
+        if main_rank:
+            print(f"loaded checkpoint epoch_{epoch}")
 
     rows = []
     for task in cfg.test_de_type:
-        print("starting testing %s..." % task)
+        if main_rank:
+            print("starting testing %s..." % task)
         result = eval_runner.test_by_task(cfg, bundle, task, epochs=cfg.epochs)
-        print(result)
-        rows.append((task, result))
-    path = write_epoch_results_log(cfg, cfg.epochs, rows)
-    print("wrote", path)
+        if result is not None:
+            print(result)
+            rows.append((task, result))
+    if main_rank:
+        path = write_epoch_results_log(cfg, cfg.epochs, rows)
+        print("wrote", path)
     return rows
 
 

@@ -81,15 +81,17 @@ def with_learning_rate(state: TrainState, lr: float) -> TrainState:
 def create_train_state(cfg, bundle: ModelBundle) -> TrainState:
     """The state of a fresh run around a train-mode bundle: key encoder = a
     copy of the query encoder, queue = normalised randn of K = 3 * batch
-    columns (moco.py:33-40, model.py:35), Adam with no history, all drawn
-    from one generator seeded with ``cfg.seed``."""
+    columns (moco.py:33-40, model.py:35), the batch the global one of
+    ``mesh_data`` loader batches, as the JAX package sizes it (the enqueue
+    takes the keys of every rank, K % B == 0), Adam with no history, all
+    drawn from one generator seeded with ``cfg.seed``."""
     device = bundle.device
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     encoder_k = copy.deepcopy(bundle.encoder)
     for p in encoder_k.parameters():
         p.requires_grad_(False)
     queue = moco.init_queue(generator, bundle.num_losses, cfg.encoder_dim,
-                            3 * cfg.batch_size)
+                            3 * cfg.mesh_data * cfg.batch_size)
     params = list(bundle.encoder.parameters()) + list(bundle.decoder.parameters())
     return TrainState(
         step=0, encoder=bundle.encoder, decoder=bundle.decoder,

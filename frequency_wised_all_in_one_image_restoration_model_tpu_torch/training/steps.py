@@ -11,6 +11,17 @@ gradients in train mode (its own BatchNorm statistics, moco.py:131-136),
 encode the queries, per-band InfoNCE logits against the *old* queue
 (moco.py:141-156), loss, backward, Adam, then ring-enqueue the new keys
 (moco.py:164).
+
+Under a process group (``parallel/distributed.py``) each rank steps on its
+rows of the global batch and the step equals the one-device step on that
+batch: the DropPath draws are the global batch's (a rank's rows kept), the
+BatchNorms take the global batch's statistics (``models/layers.py``), the
+logits against the old queue and the loss stay local means, every gradient
+is averaged over the ranks before Adam (one flat all-reduce in the
+parameter order, the zero gradients of phase A's decoder included), and
+the queue takes the keys of every rank in rank order, so that queue and
+pointer stay equal on every rank and the pointer advances by the global
+batch.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ import torch
 
 from ..models import moco
 from ..models.airnet import ModelBundle
+from ..parallel import distributed
 from . import losses
 from .state import TrainState, reproducible_backends
 
@@ -59,7 +71,7 @@ def make_train_step(cfg, bundle: ModelBundle, joint: bool,
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        gen = state.generator
+        gen = distributed.rank_generator(state.generator, batch["d1"].shape[0])
         enc_k = state.moco.encoder_k
 
         # --- key branch: EMA update then no-grad forward (moco.py:131-136)
@@ -98,10 +110,12 @@ def make_train_step(cfg, bundle: ModelBundle, joint: bool,
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        distributed.mean_grads(params)
         state.optimizer.step()
 
         state.moco.queue, state.moco.queue_ptr = moco.dequeue_and_enqueue(
-            state.moco.queue, state.moco.queue_ptr, k)
+            state.moco.queue, state.moco.queue_ptr,
+            distributed.all_gather_rows(k, dim=1))
         return state, metrics
 
     return step

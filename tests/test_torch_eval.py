@@ -13,6 +13,7 @@ restored images at other chunk sizes within 1e-6 (each tile is independent
 of its batch, up to the matmul's blocking).
 """
 
+import dataclasses
 import importlib.util
 import os
 import subprocess
@@ -295,14 +296,25 @@ def test_parser_rejects_what_jax_rejects():
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (dict(mesh_data=2), "item 10"),
-    (dict(mesh_task=4), "item 10"),
+    (dict(mesh_data=2), "item 10.8"),
+    (dict(mesh_task=4), "item 10.8"),
 ])
 def test_unported_values_name_their_roadmap_item(overrides, item):
+    """The mesh flags pass the port's check now; what is left unported is
+    the ``model`` axis above 1, which names its ROADMAP item; a mesh over
+    which the global batch does not divide raises ValueError before any
+    rank starts."""
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.parallel import (
+        mesh as tmesh)
+
     cfg = tconfig.make_config(**{**dict(patch_size=P, crop_test_imgs_size=P,
                                         synthetic_data=True), **overrides})
+    tconfig.check_ported(cfg)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        ttest.main(cfg, device="cpu")
+        tmesh.make_mesh(cfg.mesh_data, cfg.mesh_task, n_model=2)
+    odd = dataclasses.replace(cfg, mesh_task=3 * cfg.mesh_task)
+    with pytest.raises(ValueError, match="not divisible"):
+        ttest.main(odd, device="cpu")
 
 
 def test_window_compat_is_checked_first():

@@ -271,8 +271,11 @@ def test_cli_runs_as_a_module_and_needs_a_card(tmp_path):
 
 
 def test_not_ported_values_are_refused(run):
-    cfg = dataclasses.replace(run["tcfg"], mesh_data=2)
-    with pytest.raises(NotImplementedError, match="one card"):
+    """A mesh trains now; one over which the global batch does not divide
+    is refused with ValueError before any rank starts."""
+    tconfig.check_ported(dataclasses.replace(run["tcfg"], mesh_data=2))
+    cfg = dataclasses.replace(run["tcfg"], mesh_task=3)
+    with pytest.raises(ValueError, match="not divisible"):
         ttrain.main(cfg, device="cpu")
     # --remat is accepted and changes nothing
     tconfig.check_ported(dataclasses.replace(run["tcfg"], remat=True))
