@@ -176,9 +176,19 @@ Phases, each fatal on failure:
     step's time without and with the group and the gradient all-reduce's,
     by CUDA events; with two cards or more, two NCCL ranks (four with four
     cards; ``--mesh_task N``) against world 1 on the same global batch,
-    their loss lines within phase 9's bf16 step bound. The script fixes
-    ``PYTHONHASHSEED`` (re-executing itself) so that both processes seed the
-    synthetic test sets alike.
+    their loss lines within phase 9's bf16 step bound; then the ``model``
+    axis (mesh ``(1, 1, 2)``): the flagship at full width, one block a
+    stage, bf16, B=4, two steps (A, then joint) with its parameters and
+    Adam moments column-sharded by JAX's rule (``mesh.shard_params``,
+    ``min_dim`` 128) on two ranks (phase 18's process and one started
+    with it, whose start and reference overlap phase 18's other work; gloo
+    over CUDA tensors on ``cuda:0`` with one card, NCCL a rank a card with
+    two), each against the same two steps without a group: 0 train-state
+    tensors differing (full size, the moments gathered), losses and
+    launches equal, each rank's Adam moment elements and bytes against the
+    replicated run's, the model-group gather's ms by CUDA events. The
+    script fixes ``PYTHONHASHSEED`` (re-executing itself) so that both
+    processes seed the synthetic test sets alike.
 
 ``--phases 3 4`` runs only those of phases 3-18, for work on one of them:
 such a partial run prints neither of the two result lines and exits with
@@ -191,7 +201,8 @@ bfloat16, the training entry point in bfloat16; phase 11's forwards, the
 eval entry point with the default method, the per-scale training entry
 point; phase 13's split and default forwards, phase 14's entry points and
 forwards, phase 16's served calls, phase 17's analysis paths, phase 18's
-training and eval entry points through the group); the last
+training and eval entry points through the group and rank 0's model-axis
+steps); the last
 line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 with 1 and prints no result.
@@ -201,6 +212,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -4150,7 +4162,7 @@ def distributed_child(out_json: str) -> int:
     bit and their launches; the eval entry point through the group; the
     joint step's time without and with the group and the gradient
     all-reduce's; with two cards or more, two or four NCCL ranks against
-    world 1.
+    world 1; then the model-axis part (:func:`model_axis_part`).
     Writes its findings to ``out_json``."""
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch import (
         config, test as port_test, train as port_train)
@@ -4172,7 +4184,7 @@ def distributed_child(out_json: str) -> int:
     build.build()
     build.load()
     res = {"devices": torch.cuda.device_count()}
-    with tempfile.TemporaryDirectory() as d:
+    with tempfile.TemporaryDirectory() as d, model_axis_peer(d) as peer:
         runs = {}
         for name in ("plain", "group"):
             if name == "group":
@@ -4218,6 +4230,8 @@ def distributed_child(out_json: str) -> int:
             "step_ms": {k: v["step_ms"] for k, v in runs.items()},
             "allreduce_ms": group["allreduce_ms"],
             "logs": plain["logs"]}
+        del plain, group, runs  # the trees: the card's memory for what follows
+        torch.cuda.empty_cache()
         cfg = config.parse_args(["--synthetic_data", "--test_de_type",
                                  *DIST_TASKS, "--output_path", f"{d}/eval/",
                                  "--epochs", "1",
@@ -4241,10 +4255,173 @@ def distributed_child(out_json: str) -> int:
                 dist_train_flags(out, ["--mesh_task", str(n)])))
             res["ranks"] = {"n": n, "logs": read_logs(out),
                             "secs": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
+        res["model_axis"] = model_axis_part(peer)
     res["secs"] = time.perf_counter() - t_child
     with open(out_json, "w") as f:
         json.dump(res, f)
     return 0
+
+
+# phase 18's model-axis part: the flagship at full width, its depth cut to
+# one block a stage (the part's time), bf16, B = 4, sharded over a model
+# axis of 2 by JAX's rule at its min_dim
+MODEL_AXIS_FIELDS = {"uformer_depth_cap": 1}
+MODEL_AXIS_N, MODEL_AXIS_MIN_DIM = 2, 128
+
+
+def model_axis_rank(rank: int, join: Callable[[], str]) -> dict:
+    """Rank ``rank`` of phase 18's model-axis part (mesh ``(1, 1, 2)``):
+    two steps (A, then joint) of the flagship (``MODEL_AXIS_FIELDS``) from
+    its seed state without a group, the reference; then the same two steps
+    from the same state as a rank of a two-rank group with the parameters
+    sharded (``mesh.shard_params``): gloo over CUDA tensors with both ranks
+    on ``cuda:0`` where there is one card (NCCL refuses two ranks on one
+    device), else NCCL with rank r on ``cuda:r``. Returns the launches,
+    losses and train-state trees compared (full size, the moments gathered
+    over the model group), the Adam moments' and the gradient all-reduce's
+    elements, the model-group gather's ms and the part's seconds. ``join()``
+    gives the group's address once the reference has run."""
+    import datetime
+
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch import (
+        config)
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.data import (
+        synthetic)
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.models import (
+        airnet)
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops import (
+        deform_conv as dc)
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.ops.kernels import (
+        build, lewin_block as lb, window_attention as wa)
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.parallel import (
+        distributed, mesh as mesh_lib)
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.training import (
+        checkpoint as ckpt, state as train_state, steps as steps_lib)
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    COUNTERS.modules = (lb, wa, dc)
+    build.load()
+    cards = torch.cuda.device_count()
+    device = torch.device("cuda", rank if cards >= MODEL_AXIS_N else 0)
+    torch.cuda.set_device(device)
+    cfg = flagship_config(config, "float32", dtype="bfloat16",
+                          synthetic_data=True, **MODEL_AXIS_FIELDS)
+    bundle = airnet.build_models(cfg, device, "default", eval_mode=False)
+    state = train_state.create_train_state(cfg, bundle)
+    fresh = tree_copy(ckpt.state_tree(state))
+    loader = synthetic.SyntheticTrainLoader(cfg, seed=0)
+    batches = [steps_lib.array_batch(loader.next_batch(), device)
+               for _ in range(2)]
+    steps = [steps_lib.make_train_step(cfg, bundle, joint=j)
+             for j in (False, True)]
+
+    def run():
+        COUNTERS.reset()
+        losses = []
+        for step, batch in zip(steps, batches):
+            _, m = step(state, batch)
+            losses.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize(device)
+        return {"losses": losses, "counts": COUNTERS.read(),
+                "moments": sum(st["exp_avg"].numel()
+                               for st in state.optimizer.state.values()),
+                "reduced": sum(p.numel() for p in state.masters())}
+
+    res = {"rank": rank, "device": str(device), "cards": cards,
+           "element_size": state.parameters()[0].element_size()}
+    t1 = time.perf_counter()
+    res["one"] = run()
+    want = tree_copy(ckpt.state_tree(state))
+    ckpt.load_state_tree(state, fresh)
+    del fresh
+    t2 = time.perf_counter()
+    backend = "nccl" if cards >= MODEL_AXIS_N else "gloo"
+    torch.distributed.init_process_group(
+        backend, init_method=f"tcp://{join()}", world_size=MODEL_AXIS_N,
+        rank=rank, timeout=datetime.timedelta(seconds=300))
+    try:
+        distributed.form_groups(MODEL_AXIS_N)
+        res["backend"] = torch.distributed.get_backend()
+        res["world"] = distributed.world()
+        mesh_lib.shard_params(state, mesh_lib.make_mesh(
+            1, 1, MODEL_AXIS_N, device_type="cuda"), MODEL_AXIS_MIN_DIM)
+        res["sharded_leaves"] = len(state.shards.shards)
+        res["gathered"] = sum(s.block.numel() for s in state.shards.shards)
+        t3 = time.perf_counter()
+        res["sharded"] = run()
+        t4 = time.perf_counter()
+        got = ckpt.state_tree(state)
+        res["mismatches"] = tree_mismatches(want, got)
+        res["tensors"] = sum(1 for _ in _leaves(want))
+        del got, want
+        torch.cuda.synchronize(device)
+        h0 = time.perf_counter()
+        res["gather_ms"] = time_ms(
+            lambda: distributed.gather_params(state.shards), iters=3,
+            warmup=1)
+        res["gather_host_ms"] = (time.perf_counter() - h0) * 1e3 / 4
+    finally:
+        torch.distributed.destroy_process_group()
+    res["secs"] = {"setup": t1 - t0, "one": t2 - t1, "join": t3 - t2,
+                   "sharded": t4 - t3, "all": time.perf_counter() - t0}
+    return res
+
+
+class Peer(NamedTuple):
+    proc: subprocess.Popen
+    out: str        # its result, JSON
+    log: str        # its standard output and errors
+
+
+@contextlib.contextmanager
+def model_axis_peer(d: str):
+    """Rank 1 of phase 18's model-axis part, started as phase 18 starts so
+    that its start, build and reference run overlap phase 18's other work;
+    it then waits on its standard input for the group's address
+    (:func:`model_axis_part`). Killed on the way out if it still runs."""
+    peer = Peer(None, f"{d}/rank1.json", f"{d}/rank1.log")
+    with open(peer.log, "w") as log:
+        peer = peer._replace(proc=subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--model-axis-rank",
+             "1", peer.out], stdin=subprocess.PIPE, stdout=log,
+            stderr=subprocess.STDOUT, text=True))
+    try:
+        yield peer
+    finally:
+        if peer.proc.poll() is None:
+            peer.proc.kill()
+            peer.proc.wait(timeout=30)
+
+
+def model_axis_part(peer: Peer) -> dict:
+    """Phase 18's model-axis part on phase 18's path: rank 0 here, the
+    group's address handed to rank 1 (:func:`model_axis_peer`) once rank
+    0's reference has run; both results and rank 0's seconds."""
+    from frequency_wised_all_in_one_image_restoration_model_tpu_torch.parallel import (
+        distributed)
+
+    def failed(what: str) -> Failed:
+        with open(peer.log) as f:
+            return Failed(f"model-axis rank 1 {what}: {f.read()[-3000:]}")
+
+    def join() -> str:
+        if peer.proc.poll() is not None:
+            raise failed(f"exited {peer.proc.returncode} before the group")
+        address = f"localhost:{distributed.free_port()}"
+        peer.proc.stdin.write(address + "\n")
+        peer.proc.stdin.close()
+        return address
+
+    t0 = time.perf_counter()
+    r0 = model_axis_rank(0, join)
+    if peer.proc.wait(timeout=300) != 0:
+        raise failed(f"exited {peer.proc.returncode}")
+    with open(peer.out) as f:
+        r1 = json.load(f)
+    return {"ranks": [r0, r1], "secs": time.perf_counter() - t0}
 
 
 def loss_lines(log: str):
@@ -4323,6 +4500,57 @@ def distributed_phase(card: str, stats, eval_rows=None):
               "two cards, not made", flush=True)
     add_launches(stats, "train_entry_nccl_world1", tr["counts"]["group"])
     add_launches(stats, "entry_float32_nccl_world1", ev["counts"])
+    model_axis_report(res["model_axis"], card, stats)
+
+
+def model_axis_report(ma, card: str, stats):
+    """Phase 18's model-axis part: its lines and its checks."""
+    r0, r1 = ma["ranks"]
+    want_backend = "nccl" if r0["cards"] >= MODEL_AXIS_N else "gloo"
+    print(f"  model axis (mesh (1, 1, {MODEL_AXIS_N}), {card}): the flagship "
+          f"at full width, {MODEL_AXIS_FIELDS}, bf16 B={TRAIN_BATCH}, steps "
+          f"A then joint; ranks on {r0['device']} / {r1['device']}, backend "
+          f"{r0['backend']} over CUDA tensors, world {r0['world']}; the part "
+          f"{ma['secs']:.1f} s on phase 18's path (rank 1 starts with phase "
+          "18; its join includes the wait for the address)", flush=True)
+    for r in ma["ranks"]:
+        if r["backend"] != want_backend or r["world"] != MODEL_AXIS_N:
+            raise Failed(f"the model axis ran on {r['backend']} at world "
+                         f"{r['world']}, not {want_backend} at {MODEL_AXIS_N}")
+        one, sh, size = r["one"], r["sharded"], r["element_size"]
+        print(f"    rank {r['rank']}: {r['sharded_leaves']} leaves sharded; "
+              f"Adam moment elements {sh['moments']} ({2 * sh['moments'] * size}"
+              f" bytes, both moments) against replicated {one['moments']} "
+              f"({2 * one['moments'] * size} bytes); gradient all-reduce "
+              f"{sh['reduced']} floats against {one['reduced']}; model-group "
+              f"gather {r['gathered']} floats a rank, {r['gather_ms']:.3f} ms "
+              f"by CUDA events ({r['gather_host_ms']:.3f} ms host); losses "
+              f"{[x['loss'] for x in sh['losses']]}; s "
+              + ", ".join(f"{k} {v:.1f}" for k, v in r["secs"].items()),
+              flush=True)
+        if r["mismatches"]:
+            raise Failed(f"model-axis rank {r['rank']}: {len(r['mismatches'])}"
+                         f" of {r['tensors']} train-state tensors differ from "
+                         f"the one-process run: {r['mismatches'][:10]}")
+        if sh["losses"] != one["losses"]:
+            raise Failed(f"model-axis rank {r['rank']}: losses {sh['losses']}"
+                         f" != the one-process run's {one['losses']}")
+        if sh["counts"] != one["counts"] or not any(sh["counts"].values()):
+            raise Failed(f"model-axis rank {r['rank']}: launches "
+                         f"{sh['counts']} != the one-process run's "
+                         f"{one['counts']}")
+        if not sh["moments"] < one["moments"]:
+            raise Failed(f"model-axis rank {r['rank']}: {sh['moments']} "
+                         "moment elements, not fewer than replicated")
+    print(f"    0 of {r0['tensors']} train-state tensors differ (full size, "
+          "gathered) on either rank; losses and launches equal to the "
+          "one-process run's; a rank's launches "
+          f"{ {k: v for k, v in r0['sharded']['counts'].items() if v} }",
+          flush=True)
+    if ma["secs"] > 45:
+        print(f"    the part took {ma['secs']:.1f} s, over its 45 s budget",
+              flush=True)
+    add_launches(stats, "train_model_axis_rank0", r0["sharded"]["counts"])
 
 
 def main(argv=None) -> int:
@@ -4333,9 +4561,26 @@ def main(argv=None) -> int:
                     "that prints no result and exits with 2 (default: all)")
     ap.add_argument("--distributed-child", metavar="OUT_JSON",
                     help="phase 18's own process (started by phase 18)")
+    ap.add_argument("--model-axis-rank", nargs=2,
+                    metavar=("RANK", "OUT_JSON"),
+                    help="a rank of phase 18's model-axis part (started by "
+                    "phase 18; the group's address comes on stdin)")
     args = ap.parse_args(argv)
     if args.distributed_child:
         return distributed_child(args.distributed_child)
+    if args.model_axis_rank:
+        rank, out = args.model_axis_rank
+
+        def join() -> str:
+            address = sys.stdin.readline().strip()
+            if not address:
+                raise Failed("model-axis rank: no address on stdin")
+            return address
+
+        res = model_axis_rank(int(rank), join)
+        with open(out, "w") as f:
+            json.dump(res, f)
+        return 0
     phases = set(args.phases)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "

@@ -41,20 +41,21 @@ def forward_tiles(bundle: ModelBundle, tiles: Optional[np.ndarray],
     ``chunk``. Under a process group every rank calls it, rank 0 with the
     tiles and the others with ``None`` (their share comes from rank 0; a
     ``None`` from rank 0 ends the eval and gives ``None``): the pool
-    wrap-padded to a multiple of the ranks, this rank's block forwarded, the
-    blocks gathered in rank order and the pad dropped."""
+    wrap-padded to a multiple of the batch groups (the ranks, without a
+    ``model`` axis), the block of this rank's batch index forwarded, the
+    blocks gathered in that order and the pad dropped."""
     if distributed.active():
         tiles = distributed.broadcast_value(tiles)
         if tiles is None:
             return None
     n = tiles.shape[0]
-    world = distributed.world()
-    pad = (-n) % world
+    groups = distributed.batch_groups()
+    pad = (-n) % groups
     if pad:  # wrap-pad (the pad may exceed n with many ranks)
         tiles = np.concatenate([tiles, np.take(tiles, np.arange(pad) % n,
                                                axis=0)])
-    x = torch.from_numpy(tiles[mesh_lib.rows_of(n + pad, distributed.rank(),
-                                                world)]).to(bundle.device)
+    x = torch.from_numpy(tiles[mesh_lib.rows_of(
+        n + pad, distributed.batch_index(), groups)]).to(bundle.device)
     restored = torch.cat([eval_forward(bundle, x[o:o + chunk])
                           for o in range(0, x.shape[0], chunk)])
     return distributed.all_gather_rows(restored)[:n]

@@ -31,15 +31,16 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
 
     Under a process group the batch is the global batch (sync-BN, as the
     JAX package's mean over a sharded axis gives): the per-channel means of
-    ``x`` and ``x * x`` on each rank's equal share are averaged over the
-    ranks by a differentiable all-reduce, whose backward carries the
-    cross-rank terms, and every rank puts the same values into its running
-    statistics. At world 1 the values are this rank's bits."""
+    ``x`` and ``x * x`` on each batch group's equal share are averaged over
+    the batch groups by a differentiable all-reduce, whose backward carries
+    the cross-rank terms, and every rank puts the same values into its
+    running statistics. With one batch group the values are this rank's
+    bits."""
     if not bn.training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
     moments = distributed.all_reduce_sum(torch.stack(
-        [x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))])) / distributed.world()
+        [x.mean(dim=(0, 2, 3)), (x * x).mean(dim=(0, 2, 3))])) / distributed.batch_groups()
     mean = moments[0]
     var = (moments[1] - mean * mean).clamp_min(0.0)
     with torch.no_grad():

@@ -12,6 +12,11 @@ rate, step count and both moments by parameter name) and the DropPath
 generator's, so that a resumed run continues as the first would have (:func:`save` / :func:`restore`; same cadence and ``best`` rule as the
 JAX package, :class:`RetentionPolicy`). Only tensors, numbers and plain
 containers are stored, so every file loads with ``weights_only=True``.
+Under a ``model`` mesh axis (``parallel/mesh.py::shard_params``) the tree
+holds full-size moments, gathered over the model group, so a checkpoint is
+the same file whatever the layout (as JAX's global arrays are); a load
+cuts them to the rank's blocks again. Building the tree is then a
+collective: every rank of the model group builds it, and rank 0 writes.
 ``tools/jax_ckpt_to_torch.py`` converts an Orbax tree into such a file.
 """
 
@@ -23,7 +28,10 @@ from typing import Optional
 import torch
 
 from ..models.airnet import ModelBundle
+from ..parallel import distributed
 from .state import TrainState
+
+MOMENTS = ("exp_avg", "exp_avg_sq")
 
 
 def ckpt_file(ckpt_path: str, epoch: int) -> str:
@@ -84,25 +92,39 @@ def _named_parameters(state: TrainState):
             yield net, name, p
 
 
+def _master(state: TrainState, p: torch.Tensor) -> torch.Tensor:
+    return p if state.shards is None else state.shards.master(p)
+
+
 def optimizer_tree(state: TrainState) -> dict:
     """Adam's state by parameter name: ``lr``, ``count`` (steps taken) and
-    the moments ``exp_avg`` / ``exp_avg_sq`` as ``{net: {name: tensor}}``."""
+    the moments ``exp_avg`` / ``exp_avg_sq`` as ``{net: {name: tensor}}``,
+    full-size (a sharded parameter's gathered over the model group)."""
     opt = state.optimizer
     tree = {"lr": float(opt.param_groups[0]["lr"]), "count": 0,
             "exp_avg": {"encoder": {}, "decoder": {}},
             "exp_avg_sq": {"encoder": {}, "decoder": {}}}
     for net, name, p in _named_parameters(state):
-        st = opt.state.get(p)
+        st = opt.state.get(_master(state, p))
         if not st:
             continue
         tree["count"] = int(st["step"])
-        tree["exp_avg"][net][name] = st["exp_avg"]
-        tree["exp_avg_sq"][net][name] = st["exp_avg_sq"]
+        for k in MOMENTS:
+            tree[k][net][name] = st[k]
+    if state.shards is not None and tree["count"]:
+        keys = [(k, *s.name.split(".", 1)) for k in MOMENTS
+                for s in state.shards.shards]
+        full = distributed.gather_blocks(
+            [tree[k][net][name] for k, net, name in keys],
+            [s.axis for s in state.shards.shards] * len(MOMENTS))
+        for (k, net, name), f in zip(keys, full):
+            tree[k][net][name] = f
     return tree
 
 
 def load_optimizer_tree(state: TrainState, tree: dict) -> None:
-    """Load :func:`optimizer_tree`'s output into the state's Adam."""
+    """Load :func:`optimizer_tree`'s output into the state's Adam (a
+    sharded parameter's moments cut to the rank's block)."""
     opt = state.optimizer
     for group in opt.param_groups:
         group["lr"] = float(tree["lr"])
@@ -110,12 +132,17 @@ def load_optimizer_tree(state: TrainState, tree: dict) -> None:
     count = int(tree["count"])
     if count == 0:
         return
+
+    def moment(k, net, name, p):
+        full = tree[k][net][name]
+        if state.shards is not None:
+            full = state.shards.block_of(p, full)
+        return full.to(p.device, p.dtype).clone()
+
     for net, name, p in _named_parameters(state):
-        opt.state[p] = {
+        opt.state[_master(state, p)] = {
             "step": torch.tensor(float(count)),
-            "exp_avg": tree["exp_avg"][net][name].to(p.device, p.dtype).clone(),
-            "exp_avg_sq": tree["exp_avg_sq"][net][name].to(p.device,
-                                                            p.dtype).clone()}
+            **{k: moment(k, net, name, p) for k in MOMENTS}}
 
 
 def state_tree(state: TrainState) -> dict:
@@ -138,6 +165,8 @@ def load_state_tree(state: TrainState, tree: dict) -> TrainState:
     """Load :func:`state_tree`'s output into ``state``, in place."""
     state.encoder.load_state_dict(tree["encoder"], strict=True)
     state.decoder.load_state_dict(tree["decoder"], strict=True)
+    if state.shards is not None:
+        state.shards.refresh()
     ts = tree["train_state"]
     state.step = int(ts["step"])
     state.moco.encoder_k.load_state_dict(ts["encoder_k"], strict=True)

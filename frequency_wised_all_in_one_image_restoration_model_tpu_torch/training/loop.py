@@ -89,7 +89,7 @@ def run_training(cfg, startpoint: int = 0,
     if device is None:
         raise ValueError("run_training needs a device (train.main picks it)")
     # the layout of the ranks; raises when the group holds another number
-    mesh_lib.make_mesh(cfg.mesh_data, cfg.mesh_task,
+    mesh_lib.make_mesh(cfg.mesh_data, cfg.mesh_task, distributed.model_axis(),
                        device_type=torch.device(device).type)
     main = distributed.is_main()
     global_batch = cfg.mesh_data * cfg.batch_size

@@ -4,20 +4,24 @@ the JAX ``training/state.py``).
 The query encoder and the decoder are modules in train mode; the MoCo key
 encoder, queue and pointer are a :class:`MoCoState`; Adam runs over both
 models' parameters; one ``torch.Generator`` on the models' device feeds
-DropPath. A step updates all of it in place.
+DropPath. A step updates all of it in place. Under a ``model`` mesh axis
+(``parallel/mesh.py::shard_params``) Adam steps this rank's blocks of the
+sharded parameters (``shards``), and the step writes the gathered blocks
+back into the full parameters.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import torch
 from torch import nn
 
 from ..models import moco
 from ..models.airnet import ModelBundle
+from ..parallel.mesh import ParamShards
 
 
 @dataclasses.dataclass
@@ -28,10 +32,16 @@ class TrainState:
     moco: moco.MoCoState
     optimizer: torch.optim.Adam
     generator: torch.Generator      # DropPath draws, on the models' device
+    shards: Optional[ParamShards] = None  # the model axis's blocks, if any
 
     def parameters(self) -> List[nn.Parameter]:
         """Encoder then decoder parameters, the optimizer's order."""
         return list(self.encoder.parameters()) + list(self.decoder.parameters())
+
+    def masters(self) -> List[torch.Tensor]:
+        """What the optimizer steps, in the same order: the parameters, or
+        this rank's block in place of each sharded one."""
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
 
 
 def reproducible_backends() -> None:

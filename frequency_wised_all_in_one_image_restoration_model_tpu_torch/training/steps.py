@@ -22,6 +22,16 @@ parameter order, the zero gradients of phase A's decoder included), and
 the queue takes the keys of every rank in rank order, so that queue and
 pointer stay equal on every rank and the pointer advances by the global
 batch.
+
+Under a ``model`` mesh axis (``parallel/mesh.py::shard_params``) a rank
+steps on the rows of its batch index, as the other ranks of its model
+group do, and every collective above runs over its batch group. After the
+backward each sharded parameter's gradient is cut to the rank's block, the
+all-reduce carries the blocks and the replicated leaves' gradients, Adam
+steps them, and the blocks gathered over the model group are written back
+into the full parameters before the step returns: between steps every
+module, the key encoder's EMA, the eval and the checkpoints read current
+full weights.
 """
 
 from __future__ import annotations
@@ -99,6 +109,8 @@ def make_train_step(cfg, bundle: ModelBundle, joint: bool,
 
         params = state.parameters()
         state.optimizer.zero_grad(set_to_none=True)
+        for p in params:  # under a model axis the optimizer holds blocks
+            p.grad = None
         total.backward()
         if upto == "grads":
             metrics["gnorm"] = global_norm(params)
@@ -110,8 +122,11 @@ def make_train_step(cfg, bundle: ModelBundle, joint: bool,
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        distributed.mean_grads(params)
+        if state.shards is not None:
+            state.shards.stage_grads()
+        distributed.mean_grads(state.masters())
         state.optimizer.step()
+        distributed.gather_params(state.shards)
 
         state.moco.queue, state.moco.queue_ptr = moco.dequeue_and_enqueue(
             state.moco.queue, state.moco.queue_ptr,

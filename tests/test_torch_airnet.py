@@ -183,7 +183,8 @@ def test_tile_layout_matches():
 def test_unported_options_raise(field, value):
     """A mesh builds now (one rank a card): mesh_data 2 passes; mesh_task 4
     does not divide this global batch of 2 and raises ValueError, as JAX's
-    ``process_slice``; a ``model`` axis above 1 is still not ported."""
+    ``process_slice``; a ``model`` axis of 2 over the flags' mesh is laid
+    out in JAX's device order, one of 0 refused."""
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch.parallel import (
         mesh as tmesh)
 
@@ -193,8 +194,11 @@ def test_unported_options_raise(field, value):
             tairnet.build_models(cfg, "cpu")
     else:
         tairnet.build_models(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*10.8"):
-        tmesh.make_mesh(cfg.mesh_data, cfg.mesh_task, n_model=2)
+    shape = (cfg.mesh_data, cfg.mesh_task, 2)
+    np.testing.assert_array_equal(tmesh.make_mesh(*shape).mesh.numpy(),
+                                  np.arange(np.prod(shape)).reshape(shape))
+    with pytest.raises(ValueError):
+        tmesh.make_mesh(cfg.mesh_data, cfg.mesh_task, n_model=0)
 
 
 @pytest.mark.parametrize("field", tconfig.FIELDS)

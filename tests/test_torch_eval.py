@@ -300,18 +300,23 @@ def test_parser_rejects_what_jax_rejects():
     (dict(mesh_task=4), "item 10.8"),
 ])
 def test_unported_values_name_their_roadmap_item(overrides, item):
-    """The mesh flags pass the port's check now; what is left unported is
-    the ``model`` axis above 1, which names its ROADMAP item; a mesh over
-    which the global batch does not divide raises ValueError before any
-    rank starts."""
+    """The mesh flags pass the port's check; the ``model`` axis above 1
+    (ROADMAP ``item``, ported) lays the flags' mesh out over two model
+    indices in JAX's device order, and a size below 1 is refused; a mesh
+    over which the global batch does not divide raises ValueError before
+    any rank starts."""
     from frequency_wised_all_in_one_image_restoration_model_tpu_torch.parallel import (
         mesh as tmesh)
 
     cfg = tconfig.make_config(**{**dict(patch_size=P, crop_test_imgs_size=P,
                                         synthetic_data=True), **overrides})
     tconfig.check_ported(cfg)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        tmesh.make_mesh(cfg.mesh_data, cfg.mesh_task, n_model=2)
+    shape = (cfg.mesh_data, cfg.mesh_task, 2)
+    layout = tmesh.make_mesh(*shape).mesh.numpy()
+    np.testing.assert_array_equal(
+        layout, np.arange(np.prod(shape)).reshape(shape), err_msg=item)
+    with pytest.raises(ValueError):
+        tmesh.make_mesh(cfg.mesh_data, cfg.mesh_task, n_model=0)
     odd = dataclasses.replace(cfg, mesh_task=3 * cfg.mesh_task)
     with pytest.raises(ValueError, match="not divisible"):
         ttest.main(odd, device="cpu")

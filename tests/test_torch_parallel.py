@@ -89,21 +89,28 @@ def single_threaded():
 
 # --- the rules against JAX's -------------------------------------------------
 
-@pytest.mark.parametrize("shape", [(4, 2), (8, 1), (2, 2), (1, 1)])
+@pytest.mark.parametrize("shape", [(4, 2), (8, 1), (2, 2), (1, 1),
+                                   (2, 2, 2), (1, 1, 2), (4, 1, 2)])
 def test_make_mesh_matches_jax(shape):
-    n_data, n_task = shape
-    want = jmesh.make_mesh(n_data, n_task)
-    got = tmesh.make_mesh(n_data, n_task)
+    """The layout, and each rank's coordinates (``(d, t, m)``, its place in
+    JAX's device array)."""
+    want = jmesh.make_mesh(*shape)
+    got = tmesh.make_mesh(*shape)
     assert got.mesh_dim_names == tuple(want.axis_names)
     ids = np.vectorize(lambda d: d.id)(want.devices)
     np.testing.assert_array_equal(got.mesh.numpy(), ids)
+    n_task, n_model = want.devices.shape[1:]
+    for place, r in np.ndenumerate(ids):
+        assert tmesh.coordinates(int(r), n_task, n_model) == place
 
 
 def test_make_mesh_refuses_the_model_axis():
-    with pytest.raises(NotImplementedError, match="10.8"):
-        tmesh.make_mesh(1, 1, n_model=2)
+    """A mesh axis below 1 is refused (the ``model`` axis above 1 is
+    ported: ``tests/test_torch_model_axis.py``)."""
     with pytest.raises(ValueError):
         tmesh.make_mesh(0, 1)
+    with pytest.raises(ValueError):
+        tmesh.make_mesh(1, 1, n_model=0)
 
 
 @pytest.mark.parametrize("rank", range(4))
